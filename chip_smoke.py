@@ -7,17 +7,31 @@ or of the JAX package.  Phases, each printed with its seconds:
 
 0. the card's name and power limit; build the kernels from the
    checkout's ``csrc`` sources (one ``nvcc`` per source, in parallel).
-1. every kernel against its plain PyTorch version on the card, exactly.
+1. every kernel against its plain PyTorch version on the card, exactly
+   (and ``torch.addcmul`` on the card against an exact FMA).
 2. golden parity: the digests and statistics that the JAX package
-   computed on the CPU (``src/repro_torch/golden/er.json``) recomputed
-   on the card.
-3. the main path at full width, with the launch counters reset just
-   before and read just after: ``generate(GNM(n=2^24, m=2^28), P=1)``,
-   streamed ``GNP(n=2^24, p=16/2^24, directed)`` at P=16, and
-   ``collect(GNP(n=2^22, p=16/2^22), P=1)``, each checked on the device.
+   computed on the CPU (``src/repro_torch/golden/er.json`` and
+   ``geom.json``) recomputed on the card, and the card's RHG features
+   against the reference's, in ulps.
+3. the two main paths at full width, each with the launch counters reset
+   just before and read just after:
+   a. Erdős–Rényi: ``generate(GNM(n=2^24, m=2^28), P=1)``, streamed
+      ``GNP(n=2^24, p=16/2^24, directed)`` at P=16, and
+      ``collect(GNP(n=2^22, p=16/2^22), P=1)``;
+   b. geometric: ``generate(RGG(n=2^22, r=0.55 sqrt(ln n / n)), P=1,
+      return_points=True)`` with every edge's distance recomputed by the
+      plain euclid tile, ``iter_points`` of that spec, streamed
+      ``RHG(n=2^20, avg_deg=16, gamma=2.8)`` at P=16 against
+      ``generate`` of it at P=1, and ``collect`` of it at P=16;
+   each checked on the device.  ``pair_mask`` is not on either path: as
+   in the reference, the engine runs its tiles inside ``pair_edges``, and
+   only the reference's per-PE oracles call the kernel itself.
 4. each kernel timed at its main-path shape beside its plain version,
    the library call computing the same function (where there is one)
-   and its bound; then the ``kernels`` line and the result line.
+   and its bound (``pair_mask`` at its own contract's shape, the
+   128-row cell blocks of the oracles, built from the main path's pair
+   rows and held against ``pair_edges``' keep); then the ``kernels``
+   line and the result line.
 
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
@@ -34,9 +48,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 bandwidth,
-# and int32 ALU issue = 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
+# int32 ALU issue = 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock, and
+# float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FP32_OPS_PER_S = 67e12
 # Threefry-2x32: 20 rounds of (add, rotate, xor) plus 6 key injections of
 # two adds; chunk_draw runs three per drawn slot (the 64-bit modulo is not
 # counted, so the bound is a lower bound)
@@ -78,15 +94,19 @@ class Errors:
     """Largest |kernel - plain| seen per kernel."""
 
     def __init__(self):
-        self.max = {"chunk_draw": 0, "chunk_decode": 0, "hist": 0}
+        self.max = {"chunk_draw": 0, "chunk_decode": 0, "hist": 0,
+                    "pair_mask": 0, "pair_edges": 0, "cell_points": 0}
 
     def same(self, name: str, a, b, what: str) -> None:
         import torch
         require(a.shape == b.shape and a.dtype == b.dtype, f"{what}: shape/dtype differ")
         if a.dtype == torch.bool:
             err = int((a != b).sum())
+        elif a.dtype.is_floating_point:
+            # NaN slots (none are expected) count as a difference
+            err = float(torch.nan_to_num((a - b).abs(), nan=float("inf")).max()) if a.numel() else 0
         else:
-            err = int((a - b).abs().max()) if a.numel() else 0
+            err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
         self.max[name] = max(self.max[name], err)
         require(err == 0, f"{what}: kernel differs from its plain version (max |err| {err})")
 
@@ -138,6 +158,109 @@ def phase_kernels(dev, errs: Errors) -> None:
                   f"hist bins={bins} log2={log2} drop={drop}")
 
 
+def exact_fma(x, y, z, single: bool) -> float:
+    """fma(x, y, z) rounded once, to float64 or (single) to float32."""
+    import numpy as np
+    from fractions import Fraction
+    exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+    if not single:
+        return float(exact)
+    guess = np.float32(float(exact))
+    cands = [np.nextafter(guess, np.float32(-np.inf)), guess, np.nextafter(guess, np.float32(np.inf))]
+    err = [abs(Fraction(float(c)) - exact) for c in cands]
+    tied = [c for c, e in zip(cands, err) if e == min(err)]
+    return float(min(tied, key=lambda c: int(np.float32(c).view(np.uint32)) & 1))
+
+
+def check_addcmul(dev) -> None:
+    """The plain versions spell XLA's fused multiply-adds as
+    ``torch.addcmul``: on the card it must round once, like an FMA."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(3)
+    for dtype in (torch.float64, torch.float32):
+        x, y, z = (torch.randn(2048, dtype=dtype, device=dev, generator=g) for _ in range(3))
+        got = torch.addcmul(z, x, y).cpu().tolist()
+        want = [exact_fma(a, b, c, dtype == torch.float32)
+                for a, b, c in zip(x.cpu().tolist(), y.cpu().tolist(), z.cpu().tolist())]
+        require(got == want, f"torch.addcmul on the card is not a single-rounded FMA ({dtype})")
+
+
+def hyp_rows(dev, g, B: int, M: int):
+    """float64 feature rows [B, M, 8] of random points (r, θ)."""
+    import math
+    import torch
+    r = torch.rand((B, M), dtype=torch.float64, device=dev, generator=g) * 12 + 0.2
+    t = torch.rand((B, M), dtype=torch.float64, device=dev, generator=g) * 2 * math.pi
+    f = torch.zeros((B, M, 8), dtype=torch.float64, device=dev)
+    f[..., 0], f[..., 1] = torch.cos(t), torch.sin(t)
+    f[..., 2], f[..., 3] = torch.cosh(r) / torch.sinh(r), 1 / torch.sinh(r)
+    return f
+
+
+GEOM_CHECK = [("RGG", dict(n=1 << 16, radius=0.0072, seed=61)),
+              ("RGG", dict(n=1 << 15, radius=0.03, dim=3, seed=62)),
+              ("RHG", dict(n=1 << 16, avg_deg=16.0, gamma=2.8, seed=63))]
+
+
+def phase_geom_kernels(dev, errs: Errors) -> None:
+    """Phase 1, geometric kernels: pair_mask with thresholds set exactly on
+    accumulator values, pair_edges and cell_points on whole plans."""
+    import torch
+    from repro_torch import api
+    from repro_torch.distrib.runtime import plan_tensors
+    from repro_torch.kernels.geom import ops as G
+    from repro_torch.kernels.geom.ref import cell_points_ref, pair_edges_ref
+    from repro_torch.kernels.pairmask import ops as M
+    from repro_torch.kernels.pairmask.ref import pair_mask_ref
+
+    check_addcmul(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for dim in (2, 3):
+        a = torch.rand((4, 512, 8), device=dev, generator=g)
+        b = (a[:, :384] + 0.02 * torch.randn((4, 384, 8), device=dev, generator=g)).contiguous()
+        d = [a[:, :, None, k] - b[:, None, :, k] for k in range(dim)]
+        acc = torch.addcmul(d[1] * d[1], d[0], d[0])
+        if dim == 3:
+            acc = torch.addcmul(acc, d[2], d[2])
+        for r2 in (float(acc[0, 5, 7]), float(acc[3, 100, 200]), 4e-4):
+            errs.same("pair_mask", M.pair_mask(a, b, r2, tile="euclid", dim=dim),
+                      pair_mask_ref(a, b, r2, tile="euclid", dim=dim),
+                      f"pair_mask euclid dim={dim} r2={r2}")
+            # off the 128 x 128 tile and the 4-byte store width
+            ra, rb = a[:, :200].contiguous(), b[:, :130].contiguous()
+            errs.same("pair_mask", M.pair_mask(ra, rb, r2, tile="euclid", dim=dim),
+                      pair_mask_ref(ra, rb, r2, tile="euclid", dim=dim),
+                      f"pair_mask euclid dim={dim} r2={r2} [4, 200] x [4, 130]")
+    q, c = hyp_rows(dev, g, 4, 512), hyp_rows(dev, g, 4, 384)
+    rest = torch.addcmul(torch.addcmul(q[:, :, None, 1] * c[:, None, :, 1], q[:, :, None, 0],
+                                       c[:, None, :, 0]), -q[:, :, None, 2], c[:, None, :, 2])
+    p = q[:, :, None, 3] * c[:, None, :, 3]
+    for cosh_r in (float(-rest[0, 5, 7] / p[0, 5, 7]), float(-rest[2, 300, 17] / p[2, 300, 17]),
+                   1.2e6):
+        errs.same("pair_mask", M.pair_mask(q, c, cosh_r, tile="hyp"),
+                  pair_mask_ref(q, c, cosh_r, tile="hyp"), f"pair_mask hyp cosh_r={cosh_r}")
+
+    for fam, kw in GEOM_CHECK:
+        spec = getattr(api, fam)(**kw)
+        plan = spec.plan(4)
+        rows = [t.reshape(-1, *t.shape[2:]) for t in plan_tensors(plan, dev)]
+        kw_pe = dict(capacity=plan.capacity, dim=plan.dim, kinds=plan.kinds_present)
+        ea, ka = G.pair_edges(*rows, **kw_pe)
+        eb, kb = pair_edges_ref(*rows, **kw_pe)
+        errs.same("pair_edges", ea, eb, f"pair_edges edges {fam} {kw}")
+        errs.same("pair_edges", ka, kb, f"pair_edges keep {fam} {kw}")
+        require(bool(ka.any()), f"pair_edges {fam}: no edge kept")
+        del ea, ka, eb, kb
+        pp = spec.point_plan(4)
+        prow = [t.reshape(-1, *t.shape[2:]) for t in plan_tensors(pp, dev)]
+        kw_cp = dict(kind=pp.kind, scale=pp.scale, capacity=pp.capacity, dim=pp.dim)
+        pa, ma = G.cell_points(*prow, **kw_cp)
+        pb, mb = cell_points_ref(*prow, **kw_cp)
+        errs.same("cell_points", pa, pb, f"cell_points {fam} {kw}")
+        errs.same("cell_points", ma, mb, f"cell_points mask {fam} {kw}")
+        torch.cuda.empty_cache()
+
+
 def phase_golden(dev) -> None:
     """Phase 2: recompute every golden entry of the JAX package."""
     from repro_torch import api
@@ -160,6 +283,55 @@ def phase_golden(dev) -> None:
     print(f"  golden: {len(doc['generate'])} edge digests, {len(doc['collect'])} collect reports equal")
 
 
+def floats_sha256(x) -> str:
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(x.cpu().numpy(), "<f8").tobytes()).hexdigest()
+
+
+def phase_golden_geom(dev) -> None:
+    """Phase 2, geometric: edge and point digests of the JAX package, and
+    the card's RHG features against the reference's in ulps."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels.geom.ref import hyp_features, hyp_radius_theta
+
+    doc = json.loads((ROOT / "src" / "repro_torch" / "golden" / "geom.json").read_text())
+    for e in doc["generate"]:
+        spec = getattr(api, e["family"])(**e["params"])
+        edges = api.generate(spec, e["P"], device=dev).edges
+        require(len(edges) == e["m"] and sha256_edges(edges) == e["sha256"],
+                f"golden generate {e['family']} {e['params']} P={e['P']}")
+    for e in doc["points"]:
+        spec = getattr(api, e["family"])(**e["params"])
+        pts = torch.cat([c.points() for c in api.iter_points(spec, e["P"], device=dev, batch=64)])
+        got = pts[:, 1] if e["what"] == "theta" else pts
+        require(len(pts) == e["n"] and floats_sha256(got) == e["sha256"],
+                f"golden iter_points {e['family']} {e['params']}")
+    f = doc["rhg_features"]
+    plan = getattr(api, f["family"])(**f["params"]).plan(1)
+    idx = np.asarray(f["rows"])
+    key = torch.from_numpy(plan.key_a[0, idx].view(np.int32)).to(dev)
+    geom = torch.from_numpy(plan.geom_a[0, idx]).to(dev)
+    alpha = torch.from_numpy(plan.fparams[0, idx, 0]).to(dev)
+    N = plan.capacity
+    # the plain version on the card: the pair_edges kernel computes its
+    # features with the same libdevice functions in the same order
+    got = torch.cat([hyp_features(key, geom, alpha, N),
+                     hyp_radius_theta(key, geom, alpha, N)[0][..., None]], dim=-1).cpu().numpy()
+    valid = np.arange(N)[None, :] < plan.count_a[0, idx][:, None]
+    want = np.array([[float.fromhex(x) for x in slot] for row in f["values"] for slot in row])
+    got = got[valid]
+    ulp = np.abs(got - want) / np.spacing(np.abs(want))
+    # 8 ulps; 1/sinh r ~ 2 e^-r carries r's relative error times r
+    bound = 8 * np.stack([np.ones(len(want))] * 3 + [np.maximum(1.0, want[:, 4]), np.ones(len(want))], 1)
+    worst = {k: float(ulp[:, i].max()) for i, k in enumerate(f["features"])}
+    require(bool((ulp <= bound).all()), f"RHG features on the card off the reference: {worst}")
+    print(f"  golden: {len(doc['generate'])} RGG/RHG edge digests, {len(doc['points'])} point "
+          f"digests equal; RHG features on the card vs the reference, worst ulps {worst} "
+          f"(on the CPU: {f['cpu_ulps']})")
+
+
 def no_duplicates(key) -> bool:
     import torch
     s = torch.sort(key).values
@@ -170,7 +342,8 @@ def no_duplicates(key) -> bool:
 # sort has a histogram kernel of its own, so "sort" is matched first
 KERNEL_GROUPS = (("sort", "sort"), ("chunk_draw_kernel", "chunk_draw"),
                  ("chunk_decode_kernel", "chunk_decode"), ("hist_shared_kernel", "hist"),
-                 ("hist_global_kernel", "hist"))
+                 ("hist_global_kernel", "hist"), ("pair_mask_kernel", "pair_mask"),
+                 ("pair_edges_kernel", "pair_edges"), ("cell_points_kernel", "cell_points"))
 
 
 def profiled(fn):
@@ -273,7 +446,308 @@ def phase_main(dev, sizes: dict) -> dict:
     return {"plan": plan, "collect_spec": cspec}
 
 
-def phase_timing(dev, main: dict, errs: Errors, launches: dict) -> list:
+# splitmix64's multipliers as int64 bit patterns, for an order-free edge checksum
+_MIX1, _MIX2 = 0xBF58476D1CE4E5B9 - (1 << 64), 0x94D049BB133111EB - (1 << 64)
+
+
+def edge_checksum(e) -> int:
+    """Order-free checksum of an edge list: the int64 (wrapping) sum of a
+    mix of each edge."""
+    h = e[:, 0] * _MIX1 + e[:, 1]
+    h = (h ^ (h >> 31)) * _MIX2
+    return int((h ^ (h >> 29)).sum())
+
+
+def pair_program_points(spec, dev):
+    """float32 ``[n, dim]`` RGG points in vertex-id order as the pair
+    program decodes them: ``(cell + u) / g`` (``Graph.points`` multiplies
+    by ``1 / g``, as the reference's cell program does, which can round
+    differently)."""
+    import torch
+    from repro_torch.distrib.runtime import plan_tensors
+    from repro_torch.kernels.geom.ref import cube_draw
+
+    pp = spec.point_plan(1)
+    key, count, cell, _ = (t.reshape(-1, *t.shape[2:]) for t in plan_tensors(pp, dev))
+    g = torch.tensor(pp.scale, dtype=torch.float64, device=dev)
+    pts = (cube_draw(key, cell.to(torch.float64), pp.capacity, pp.dim) / g).to(torch.float32)
+    slot = torch.arange(pp.capacity, device=dev)
+    mask = slot[None, :] < count[:, None]
+    gid = torch.from_numpy(pp.gid0.reshape(-1)).to(dev)[:, None] + slot
+    out = torch.full((spec.num_vertices, pp.dim), float("nan"), dtype=torch.float32, device=dev)
+    out[gid[mask]] = pts[mask]
+    return out
+
+
+def phase_geom(dev, sizes: dict) -> dict:
+    """Phase 3b: the geometric path at full width; returns what phase 4
+    needs."""
+    import math
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels.pairmask.ref import euclid_tile
+
+    n = sizes["rgg_n"]
+    radius = 0.55 * math.sqrt(math.log(n) / n)
+    spec = api.RGG(n=n, radius=radius, dim=2, seed=4)
+    t0 = time.perf_counter()
+    plan = spec.plan(1)
+    plan_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    g, groups, wall = profiled(lambda: api.generate(spec, 1, device=dev, return_points=True))
+    peak = torch.cuda.max_memory_allocated(dev)
+    e, pts = g.edges, g.points
+    m = len(e)
+    require(bool((e[:, 0] > e[:, 1]).all()), "RGG: an edge without u > v")
+    require(no_duplicates(e[:, 0] * n + e[:, 1]), "RGG: duplicate edges")
+    require(pts.shape == (n, 2) and bool(((pts >= 0) & (pts < 1)).all()), "RGG: points off [0, 1)^2")
+    # every edge's float32 squared distance, recomputed by the plain tile
+    # from the points as the pair program decodes them
+    pf = pair_program_points(spec, dev)
+    r2 = torch.tensor(plan.fparams.reshape(-1, 2)[0, 1], dtype=torch.float32, device=dev)
+    require(bool(euclid_tile(pf[e[:, 0], None], pf[e[:, 1], None], r2, 2).all()),
+            "RGG: an edge longer than r")
+    del pf
+    slots = plan.total_pairs * plan.capacity ** 2
+    print(f"  generate RGG(n={n}, r={radius:.6g}) P=1: {plan.total_pairs} candidate pairs, "
+          f"capacity {plan.capacity}, {slots} slots, {m} edges ({m / slots:.4f} of the slots), "
+          f"wall {wall:.3f}s (host pair plan {plan_s:.3f}s), {m / wall:.4g} edges/s, "
+          f"peak device memory {peak / 2**30:.3f} GiB")
+    print_breakdown("RGG generate", groups, wall)
+    del g, e, pts
+    torch.cuda.empty_cache()
+
+    def points():
+        total = waves = 0
+        for ch in api.iter_points(spec, 1, device=dev, batch=sizes["batch"]):
+            p = ch.points()
+            require(bool(((p >= 0) & (p < 1)).all()), "iter_points: a point off [0, 1)^2")
+            total += len(p)
+            waves += 1
+        return total, waves
+
+    (total, waves), groups, pwall = profiled(points)
+    require(total == n, f"iter_points: {total} points, want {n}")
+    print(f"  iter_points RGG P=1: {waves} waves of up to {sizes['batch']} cells, "
+          f"{total} points, {pwall:.3f}s")
+    print_breakdown("iter_points", groups, pwall)
+
+    hn, P = sizes["rhg_n"], 16
+    hspec = api.RHG(n=hn, avg_deg=16.0, gamma=2.8, seed=5)
+    t0 = time.perf_counter()
+    hplan = hspec.plan(P)
+    hplan_s = time.perf_counter() - t0
+
+    def stream():
+        total = waves = chk = 0
+        for ch in api.iter_edge_chunks(hspec, P, device=dev, batch=sizes["batch"]):
+            ce = ch.edges()
+            require(bool((ce[:, 0] > ce[:, 1]).all()), f"RHG stream of PE {ch.pe}: u <= v")
+            total += len(ce)
+            chk = (chk + edge_checksum(ce)) % (1 << 64)
+            waves += 1
+        return total, waves, chk
+
+    (total, waves, chk), groups, swall = profiled(stream)
+    print(f"  stream RHG(n={hn}) P={P}: {hplan.total_pairs} candidate pairs in {waves} waves "
+          f"of up to {sizes['batch']}, capacity {hplan.capacity}, {total} edges, {swall:.3f}s "
+          f"(host pair plan {hplan_s:.3f}s), {total / swall:.4g} edges/s (checks included)")
+    print_breakdown("RHG stream", groups, swall)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    h, groups, hwall = profiled(lambda: api.generate(hspec, 1, device=dev))
+    hpeak = torch.cuda.max_memory_allocated(dev)
+    he = h.edges
+    require(len(he) == total and edge_checksum(he) % (1 << 64) == chk,
+            "RHG: the edges at P=1 differ from the stream at P=16")
+    require(bool((he[:, 0] > he[:, 1]).all()), "RHG: an edge without u > v")
+    require(no_duplicates(he[:, 0] * hn + he[:, 1]), "RHG: duplicate edges")
+    mean = 2 * len(he) / hn
+    require(abs(mean - 16.0) < 1.0, f"RHG: mean degree {mean}, want about 16")
+    print(f"  generate RHG(n={hn}) P=1: {len(he)} edges, mean degree {mean:.4f}, wall "
+          f"{hwall:.3f}s, {len(he) / hwall:.4g} edges/s, peak device memory "
+          f"{hpeak / 2**30:.3f} GiB; same edges as the P={P} stream")
+    print_breakdown("RHG generate", groups, hwall)
+    del h, he
+    torch.cuda.empty_cache()
+
+    rep, groups, cwall = profiled(lambda: api.collect(hspec, P, device=dev, batch=sizes["batch"]))
+    d = rep.degree
+    require(rep.num_edges == total, f"collect RHG: {rep.num_edges} edges, stream {total}")
+    require(d.deg_sum == 2 * total and int(d.log2_hist.sum()) == hn,
+            "collect RHG: degree sum or histogram off")
+    print(f"  collect RHG(n={hn}) P={P}: mean degree {rep.mean_degree:.4f}, max {d.deg_max}, "
+          f"{cwall:.3f}s")
+    print_breakdown("RHG collect", groups, cwall)
+    return {"rgg_plan": plan, "rgg_spec": spec, "rhg_plan": hplan}
+
+
+# the reference's oracles hand pair_mask cells padded to 128 rows of 8
+# columns: +inf coordinates (euclid), or a feature row adjacent to
+# nothing (hyp: coth r = 1e30)
+MASK_ROWS = 128
+EUCLID_PAD_ROW = (float("inf"),) * 8
+HYP_PAD_ROW = (0.0, 0.0, 1e30, 0.0, 0.0, 0.0, 0.0, 0.0)
+
+
+def oracle_blocks(vals, count, pad_row):
+    """``[R, 128, 8]`` blocks of the oracles' pair_mask calls: the
+    ``count`` valid rows of ``vals [R, cap, k]`` in the first ``k``
+    columns, every other entry from ``pad_row``."""
+    import torch
+    R, cap, k = vals.shape
+    pad = torch.tensor(pad_row, dtype=vals.dtype, device=vals.device)
+    out = pad.repeat(R, MASK_ROWS, 1)
+    valid = torch.arange(cap, device=vals.device)[None, :, None] < count[:, None, None]
+    out[:, :cap, :k] = torch.where(valid, vals, pad[:k])
+    return out
+
+
+def mask_to_keep(mask, rows, kind_code, cap):
+    """The pair program's keep ``[R, cap^2]`` from a pair_mask ``[R, 128,
+    128]`` over the rows' oracle blocks: the mask's valid corner, once on
+    a self pair, on active rows of ``kind_code``."""
+    import torch
+    kind, self_pair, active = rows[0], rows[-2], rows[-1]
+    ii = torch.arange(cap, device=mask.device)
+    once = ~self_pair[:, None, None] | (ii[None, :, None] < ii[None, None, :])
+    live = (active & (kind == kind_code))[:, None, None]
+    return (mask[:, :cap, :cap].bool() & once & live).reshape(len(kind), cap * cap)
+
+
+def geom_timing(dev, main: dict, errs: Errors) -> list:
+    """Phase 4, geometric kernels at their main-path shapes (pair_mask at
+    its contract's shape over the main path's own cells)."""
+    import torch
+    from repro_torch.distrib.runtime import plan_tensors, wave_schedule
+    from repro_torch.kernels.geom import ops as G
+    from repro_torch.kernels.geom.ref import (GEOM_HYP, GEOM_TORUS, cube_draw, cell_points_ref,
+                                              hyp_features, pair_edges_ref)
+    from repro_torch.kernels.pairmask.ops import pair_mask
+    from repro_torch.kernels.pairmask.ref import pair_mask_ref
+
+    def pair_rows(plan, sel=None):
+        t = [x.reshape(-1, *x.shape[2:]) for x in plan_tensors(plan, dev)]
+        return t if sel is None else [x[sel] for x in t]
+
+    rows = []
+    # RGG at its generate shape: the kernel alone over every candidate pair
+    # of the P=1 plan in one launch (the plain version's temporaries would
+    # not fit), then kernel == plain on a slice of those rows
+    plan = main["rgg_plan"]
+    full = pair_rows(plan)
+    cap = plan.capacity
+    kw = dict(capacity=cap, dim=plan.dim, kinds=plan.kinds_present)
+    _, rgg_ms = sync_time(lambda: G.pair_edges(*full, **kw)[1].sum(), reps=2)
+    slots = plan.active.size * cap ** 2
+    points = int(((full[3] + full[4]) * full[-1]).sum())
+    in_bytes = sum(t.numel() * t.element_size() for t in full)
+    rgg_bytes = (in_bytes + 17 * slots) / HBM_BYTES_PER_S * 1e3
+    rgg_ops = points * 5 * THREEFRY_OPS / INT32_OPS_PER_S * 1e3
+    print(f"  pair_edges at the RGG generate shape: {plan.active.size} rows x "
+          f"{cap}^2 slots: {rgg_ms:.3f} ms (with the keep sum), bound "
+          f"{max(rgg_bytes, rgg_ops):.3f} ms ({'bytes' if rgg_bytes >= rgg_ops else 'operations'}; "
+          f"bytes {rgg_bytes:.3f}, Threefry {rgg_ops:.3f})")
+    part = [t[:1 << 15] for t in full]
+    del full
+    torch.cuda.empty_cache()
+    ea, rgg_keep = G.pair_edges(*part, **kw)
+    eb, kb = pair_edges_ref(*part, **kw)
+    errs.same("pair_edges", ea, eb, "pair_edges edges on 32768 rows of the RGG plan")
+    errs.same("pair_edges", rgg_keep, kb, "pair_edges keep on 32768 rows of the RGG plan")
+    require(bool(rgg_keep.any()), "pair_edges: no edge kept on the RGG rows")
+    del ea, eb, kb
+
+    # pair_mask over the same rows' cells, as rgg_pe would block them: its
+    # euclid mask decides pair_edges' keep
+    kind, key_a, key_b, count_a, count_b, _, _, geom_a, geom_b, fparams = part[:10]
+    g = fparams[:, 0, None, None]
+    a = oracle_blocks((cube_draw(key_a, geom_a, cap, 2) / g).to(torch.float32), count_a,
+                      EUCLID_PAD_ROW)
+    b = oracle_blocks((cube_draw(key_b, geom_b, cap, 2) / g).to(torch.float32), count_b,
+                      EUCLID_PAD_ROW)
+    r2 = float(fparams[0, 1])
+    out, ms = sync_time(lambda: pair_mask(a, b, r2, tile="euclid", dim=2))
+    ref, plain_ms = sync_time(lambda: pair_mask_ref(a, b, r2, tile="euclid", dim=2), reps=1)
+    errs.same("pair_mask", out, ref, "pair_mask euclid at its contract's shape")
+    require(torch.equal(mask_to_keep(out, part, GEOM_TORUS, cap), rgg_keep),
+            "pair_mask euclid disagrees with pair_edges' keep on the RGG rows")
+    # read each point row once, write one byte per pair; 2 subtractions,
+    # a multiply, an FMA (2) and a compare per pair
+    rows.append(("pair_mask", "src/repro_torch/kernels/pairmask/csrc/pairmask.cu",
+                 "src/repro/kernels/pairmask/pairmask.py:56", ms, plain_ms,
+                 ((a.numel() + b.numel()) * 4 + out.numel()) / HBM_BYTES_PER_S,
+                 out.numel() * 6 / FP32_OPS_PER_S, None))
+    print(f"  pair_mask shape: euclid [{a.shape[0]}, {MASK_ROWS}, 8] x same, the "
+          f"cells of the first {a.shape[0]} RGG pair rows in the oracles' blocks; its mask "
+          f"equals pair_edges' keep there")
+    del out, ref, a, b, part, rgg_keep
+    torch.cuda.empty_cache()
+
+    # the streamed RHG wave: the first wave of the P=16 plan
+    hplan = main["rhg_plan"]
+    ws = wave_schedule(hplan, 1, FULL["batch"])
+    s = torch.from_numpy(ws.sched[0, 0][ws.valid[0, 0]]).to(dev, torch.int64)
+    wave = pair_rows(hplan, s[:, 0] * hplan.pairs_per_pe + s[:, 1])
+    cap = hplan.capacity
+    kw = dict(capacity=cap, dim=hplan.dim, kinds=hplan.kinds_present)
+    (ea, ka), ms = sync_time(lambda: G.pair_edges(*wave, **kw))
+    (eb, kb), plain_ms = sync_time(lambda: pair_edges_ref(*wave, **kw), reps=1)
+    errs.same("pair_edges", ea, eb, "pair_edges edges at the RHG wave shape")
+    errs.same("pair_edges", ka, kb, "pair_edges keep at the RHG wave shape")
+    R, slots = len(s), ka.numel()
+    live = wave[-1]
+    points = int(((wave[3] + wave[4]) * live).sum())
+    in_bytes = sum(t.numel() * t.element_size() for t in wave)
+    # 17 bytes written per slot; 1 + 2*2 Threefry blocks per regenerated point
+    # (the transcendentals of the hyperbolic features are not counted)
+    rows.append(("pair_edges", "src/repro_torch/kernels/geom/csrc/geom.cu",
+                 "src/repro/distrib/engine.py:1050", ms, plain_ms,
+                 (in_bytes + 17 * slots) / HBM_BYTES_PER_S,
+                 points * 5 * THREEFRY_OPS / INT32_OPS_PER_S, None))
+    print(f"  pair_edges shape: one RHG wave, {R} rows x {cap}^2 slots, "
+          f"{points} points regenerated, {int(ka.sum())} edges kept")
+    del ea, eb, kb
+
+    # pair_mask's hyp tile over the wave's first 8192 rows, as
+    # rhg._adjacency would block them: its mask decides pair_edges' keep
+    part = [t[:1 << 13] for t in wave]
+    kind, key_a, key_b, count_a, count_b, _, _, geom_a, geom_b, fparams = part[:10]
+    q = oracle_blocks(hyp_features(key_a, geom_a, fparams[:, 0], cap), count_a, HYP_PAD_ROW)
+    c = oracle_blocks(hyp_features(key_b, geom_b, fparams[:, 0], cap), count_b, HYP_PAD_ROW)
+    live = (kind == GEOM_HYP).nonzero()
+    require(len(live) > 0, "the RHG wave holds no hyperbolic row")
+    cosh_r = float(fparams[live[0, 0], 1])
+    out = pair_mask(q, c, cosh_r, tile="hyp")
+    errs.same("pair_mask", out, pair_mask_ref(q, c, cosh_r, tile="hyp"),
+              "pair_mask hyp at its contract's shape")
+    require(torch.equal(mask_to_keep(out, part, GEOM_HYP, cap), ka[:len(kind)]),
+            "pair_mask hyp disagrees with pair_edges' keep on the RHG rows")
+    del out, q, c, part, wave, ka
+    torch.cuda.empty_cache()
+
+    pp = main["rgg_spec"].point_plan(1)
+    prow = pair_rows(pp)
+    kw = dict(kind=pp.kind, scale=pp.scale, capacity=pp.capacity, dim=pp.dim)
+    (pa, ma), ms = sync_time(lambda: G.cell_points(*prow, **kw))
+    (pb, mb), plain_ms = sync_time(lambda: cell_points_ref(*prow, **kw), reps=1)
+    errs.same("cell_points", pa, pb, "cell_points at the RGG point-plan shape")
+    errs.same("cell_points", ma, mb, "cell_points mask at the RGG point-plan shape")
+    cells, cap, dim = pa.shape
+    drawn = int(prow[1].sum())
+    in_bytes = sum(t.numel() * t.element_size() for t in prow)
+    # every slot written once; 1 + 2 dim Threefry blocks per point, the
+    # work the function needs (the kernel also draws for padding slots)
+    rows.append(("cell_points", "src/repro_torch/kernels/geom/csrc/geom.cu",
+                 "src/repro/distrib/engine.py:644", ms, plain_ms,
+                 (in_bytes + cells * cap * (8 * dim + 1)) / HBM_BYTES_PER_S,
+                 drawn * (1 + 2 * dim) * THREEFRY_OPS / INT32_OPS_PER_S, None))
+    print(f"  cell_points shape: RGG point plan, {cells} cells x {cap} slots x {dim}, "
+          f"{drawn} points")
+    return rows
+
+
+def phase_timing(dev, main: dict, errs: Errors) -> list:
     """Phase 4: each kernel at its main-path shape."""
     import torch
     from repro_torch import api
@@ -336,18 +810,30 @@ def phase_timing(dev, main: dict, errs: Errors, launches: dict) -> list:
           f"kernel {ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
           f"torch.bincount (new array) {bincount_ms:.4f} ms")
 
-    kernels = []
-    for name, src, replaces, ms, plain_ms, bytes_s, ops_s, lib_ms in rows:
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs.max[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_s, ops_s) * 1e3,
-            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "library_ms": lib_ms})
-    return kernels
+    return rows
 
 
-FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 << 22}
+# kernels that no main path launches, and why
+OFF_PATH = {"pair_mask": "off the engine path, as in the reference: the engine runs its "
+                         "tiles inside pair_edges, and only the reference's per-PE oracles "
+                         "(rgg_pe, rhg._adjacency) call the kernel"}
+
+
+def kernel_lines(rows: list, errs: Errors, launches: dict) -> list:
+    """The ``kernels`` line's entries; the bound is the larger of the
+    byte time and the operation time."""
+    return [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
+             "launches": launches[name], "max_abs_err": errs.max[name],
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_s, ops_s) * 1e3,
+             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+             "library_ms": lib_ms, **({"note": OFF_PATH[name]} if name in OFF_PATH else {})}
+            for name, src, replaces, ms, plain_ms, bytes_s, ops_s, lib_ms in rows]
+
+
+FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 << 22,
+        "rgg_n": 1 << 22, "rhg_n": 1 << 20, "batch": 1 << 15}
+ER_KERNELS = ("chunk_draw", "chunk_decode", "hist")
+GEOM_KERNELS = ("pair_edges", "cell_points", "hist")
 
 
 def main() -> int:
@@ -376,22 +862,34 @@ def main() -> int:
     errs = Errors()
     t0 = time.perf_counter()
     phase_kernels(dev, errs)
+    phase_geom_kernels(dev, errs)
     print(f"phase 1 kernels == plain {time.perf_counter() - t0:.3f}s", flush=True)
 
     t0 = time.perf_counter()
     phase_golden(dev)
+    phase_golden_geom(dev)
     print(f"phase 2 golden parity {time.perf_counter() - t0:.3f}s", flush=True)
 
-    t0 = time.perf_counter()
-    build.reset_launches()
-    main_out = phase_main(dev, FULL)
-    launches = dict(build.LAUNCHES)
-    print(f"phase 3 main path {time.perf_counter() - t0:.3f}s, launches {launches}", flush=True)
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
+    # each main path runs with the counters at 0 and is read right after
+    launches = dict.fromkeys(build.LAUNCHES, 0)
+    outs = []
+    for tag, phase, kernels in (("3a Erdős–Rényi", phase_main, ER_KERNELS),
+                                ("3b geometric", phase_geom, GEOM_KERNELS)):
+        t0 = time.perf_counter()
+        build.reset_launches()
+        out = phase(dev, FULL)
+        counts = dict(build.LAUNCHES)
+        print(f"phase {tag} main path {time.perf_counter() - t0:.3f}s, launches {counts}",
+              flush=True)
+        for name in kernels:
+            require(counts[name] > 0, f"kernel {name} was not launched on the {tag} path")
+        for name, c in counts.items():
+            launches[name] += c
+        outs.append(out)
 
     t0 = time.perf_counter()
-    kernels = phase_timing(dev, main_out, errs, launches)
+    rows = phase_timing(dev, outs[0], errs) + geom_timing(dev, outs[1], errs)
+    kernels = kernel_lines(rows, errs, launches)
     print(f"phase 4 timing {time.perf_counter() - t0:.3f}s", flush=True)
 
     print(card_line())

@@ -1,15 +1,19 @@
 """``GraphSpec -> plan -> run`` front door of the PyTorch/CUDA port (the
-Erdős-Rényi slice of ``repro.api``).
+Erdős-Rényi, RGG and RHG slice of ``repro.api``).
 
-1. **Spec**: :class:`GNM` / :class:`GNP`, frozen dataclasses carrying the
-   seed and the model parameters.
+1. **Spec**: :class:`GNM` / :class:`GNP` / :class:`RGG` / :class:`RHG`,
+   frozen dataclasses carrying the seed and the model parameters.
 2. **Plan**: ``spec.plan(P, rng_impl=...)`` runs the host recursion and
-   emits the ``[P, C]`` ChunkPlan table, equal field by field to the
-   reference's.
+   emits the ``[P, C]`` table (a ChunkPlan for G(n,m) / G(n,p), a
+   PairPlan of candidate cell pairs for RGG / RHG), equal field by field
+   to the reference's; ``spec.point_plan(P)`` emits the geometric
+   families' vertex cells.
 3. **Run / stream**: :func:`generate` executes the whole table and
-   returns a :class:`Graph`; :func:`iter_edge_chunks` yields one chunk's
-   fixed-capacity buffer at a time.  :func:`collect` measures degrees
-   while streaming (:mod:`repro_torch.stats`).
+   returns a :class:`Graph`; :func:`iter_edge_chunks` yields one row's
+   fixed-capacity buffer at a time (or ``batch`` rows), and
+   :func:`iter_points` streams vertex positions the same way.
+   :func:`collect` measures degrees while streaming
+   (:mod:`repro_torch.stats`).
 
 Every entry point takes ``device``: the work runs on CUDA unless the
 caller passes ``device="cpu"`` (the plain PyTorch versions of the
@@ -31,6 +35,8 @@ import torch
 
 from .core import er as _er
 from .core import graph as _graph
+from .core import rgg as _rgg
+from .core import rhg as _rhg
 from .core.prng import THREEFRY
 from .distrib import engine, runtime
 
@@ -51,6 +57,7 @@ class Graph:
     edges: torch.Tensor             # int64 [m, 2] on the run's device
     n: int
     directed: bool = False
+    points: Optional[torch.Tensor] = None   # geometric families: float64 [n, dim]
 
     @property
     def m(self) -> int:
@@ -66,14 +73,29 @@ class EdgeChunk:
 
     ``mask`` is the validity (``[cap]``, or ``[b, cap]`` for batched
     buffers ``[b, cap, 2]``); ``count`` is the host-known number of valid
-    edges; ``pe`` the virtual PE that owns the chunk."""
+    edges of a ChunkPlan row, and ``None`` for a candidate-pair row,
+    whose edges are only known once the device has tested them; ``pe``
+    is the virtual PE that owns the chunk."""
     buffer: torch.Tensor            # int64 [cap, 2] / [b, cap, 2]
     mask: torch.Tensor              # bool [cap] / [b, cap]
-    count: int
+    count: Optional[int]
     pe: int
 
     def edges(self) -> torch.Tensor:
         """The chunk's valid edges, on its device."""
+        return self.buffer[self.mask]
+
+
+@dataclass(frozen=True)
+class PointChunk:
+    """One streamed vertex cell (or ``batch`` cells): positions + validity
+    + owner, the point analog of :class:`EdgeChunk`."""
+    buffer: torch.Tensor            # float64 [cap, dim] / [b, cap, dim]
+    mask: torch.Tensor              # bool [cap] / [b, cap]
+    pe: int
+
+    def points(self) -> torch.Tensor:
+        """The chunk's valid positions, on its device."""
         return self.buffer[self.mask]
 
 
@@ -115,13 +137,87 @@ class GNP:
         return engine.deal_plan(f(self.seed, self.n, self.p, k, rng_impl), P)
 
 
-def generate(spec, P: int = 1, *, device=None, rng_impl: str = DEFAULT_RNG) -> Graph:
+@dataclass(frozen=True)
+class RGG:
+    """Random geometric graph in [0,1)^dim: edge iff dist <= radius (§5)."""
+    n: int
+    radius: float
+    dim: int = 2
+    seed: int = 0
+    chunks: Optional[int] = None
+    directed: bool = False
+
+    @property
+    def num_vertices(self) -> int:
+        return self.n
+
+    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG):
+        return _rgg.rgg_pair_plan(self.seed, self.n, self.radius, P, self.dim,
+                                  rng_impl, chunk_P=_virtual_chunks(self.chunks, P))
+
+    def point_plan(self, P: int, *, rng_impl: str = DEFAULT_RNG):
+        """PointPlan over the same virtual cell grid the edge plan
+        regenerates, so streamed positions match ``Graph.points``."""
+        return _rgg.rgg_point_plan(self.seed, self.n, self.radius, P, self.dim,
+                                   rng_impl, chunk_P=_virtual_chunks(self.chunks, P))
+
+
+@dataclass(frozen=True)
+class RHG:
+    """Threshold random hyperbolic graph (paper §7), power-law exponent
+    ``gamma``, target average degree ``avg_deg``."""
+    n: int
+    avg_deg: float
+    gamma: float
+    seed: int = 0
+    directed: bool = False
+
+    @property
+    def num_vertices(self) -> int:
+        return self.n
+
+    @property
+    def params(self) -> _rhg.RHGParams:
+        return _rhg.RHGParams(n=self.n, avg_deg=self.avg_deg,
+                              gamma=self.gamma, seed=self.seed)
+
+    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG):
+        return _rhg.rhg_pair_plan(self.params, P, rng_impl)
+
+    def point_plan(self, P: int, *, rng_impl: str = DEFAULT_RNG):
+        """Polar PointPlan over the engine cell layout: the hashed streams
+        the pair plan recomputes for its edge tests."""
+        return _rhg.rhg_engine_point_plan(self.params, P, rng_impl)
+
+
+def _all_points(spec, P: int, dev, rng_impl: str) -> torch.Tensor:
+    """Every vertex position of a geometric spec in vertex-id order: the
+    point plan's cells run at once and scattered by their first id."""
+    plan = spec.point_plan(P, rng_impl=rng_impl)
+    pts, mask = runtime.run(plan, dev)
+    slot = torch.arange(plan.capacity, device=dev)
+    gid = torch.from_numpy(plan.gid0).to(dev)[:, :, None] + slot
+    out = torch.zeros((spec.num_vertices, plan.dim), dtype=torch.float64, device=dev)
+    out[gid[mask]] = pts[mask]
+    return out
+
+
+def generate(spec, P: int = 1, *, device=None, rng_impl: str = DEFAULT_RNG,
+             return_points: bool = False) -> Graph:
     """Generate ``spec`` across P virtual PEs on ``device`` (CUDA unless
     ``"cpu"``); returns a :class:`Graph` whose edges are the
-    reference's, in the reference's order."""
+    reference's, in the reference's order.  ``return_points`` also
+    fills ``Graph.points`` for the geometric families (RGG, RHG: polar
+    ``(r, θ)``)."""
     dev = runtime.resolve_device(device)
     payload, valid = runtime.run(spec.plan(P, rng_impl=rng_impl), dev)
-    return Graph(edges=payload[valid], n=spec.num_vertices, directed=spec.directed)
+    edges = payload[valid]
+    del payload, valid
+    points = None
+    if return_points and hasattr(spec, "point_plan"):
+        points = _all_points(spec, P, dev, rng_impl)
+    return Graph(edges=edges, n=spec.num_vertices, directed=spec.directed,
+                 points=points)
 
 
 def iter_edge_chunks(spec, P: int = 1, *, device=None,
@@ -134,13 +230,35 @@ def iter_edge_chunks(spec, P: int = 1, *, device=None,
     order is generate order.  ``batch > 1`` yields batched buffers."""
     dev = runtime.resolve_device(device)
     plan = spec.plan(P, rng_impl=rng_impl)
+    chunk_counts = plan.count if isinstance(plan, engine.ChunkPlan) else None
     for pe, slots, payload, valid in runtime.stream_slots(
             plan, batch=batch, prefetch=prefetch, device=dev):
-        count = int(plan.count[pe, slots].sum())
+        count = (int(chunk_counts[pe, slots].sum())
+                 if chunk_counts is not None else None)
         if batch <= 1:
             yield EdgeChunk(buffer=payload[0], mask=valid[0], count=count, pe=int(pe))
         else:
             yield EdgeChunk(buffer=payload, mask=valid, count=count, pe=int(pe))
+
+
+def iter_points(spec, P: int = 1, *, device=None, rng_impl: str = DEFAULT_RNG,
+                batch: int = 1, prefetch: int = 2) -> Iterator[PointChunk]:
+    """Stream a geometric spec's vertex positions as :class:`PointChunk`
+    cells, pe-major; grouping by ``pe`` and concatenating
+    ``chunk.points()`` reproduces the masked output of its point plan."""
+    point_plan = getattr(spec, "point_plan", None)
+    if point_plan is None:
+        raise TypeError(
+            f"{type(spec).__name__} has no vertex positions to stream "
+            f"(only the geometric families carry points)")
+    dev = runtime.resolve_device(device)
+    plan = point_plan(P, rng_impl=rng_impl)
+    for pe, slots, payload, valid in runtime.stream_slots(
+            plan, batch=batch, prefetch=prefetch, device=dev):
+        if batch <= 1:
+            yield PointChunk(buffer=payload[0], mask=valid[0], pe=int(pe))
+        else:
+            yield PointChunk(buffer=payload, mask=valid, pe=int(pe))
 
 
 def collect(spec, P: int = 1, **kwargs):

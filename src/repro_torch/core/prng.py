@@ -186,6 +186,23 @@ def counter_bits64(key, capacity: int, width: int) -> torch.Tensor:
     return torch.cat([(hi << 32) | lo for hi, lo in cols], dim=1)
 
 
+def counter_uniform(key, capacity: int, width: int) -> torch.Tensor:
+    """float64 ``[..., capacity, width]`` uniforms in [0, 1): the top 53
+    bits of :func:`counter_bits64`'s word ``(i, j)`` times 2^-53, exact.
+    ``key`` is one key's words ``[2]`` or a batch of them ``[..., 2]``;
+    each slot costs ``1 + 2 * width`` Threefry blocks."""
+    k = key_words(key)
+    ids = torch.arange(capacity, dtype=torch.int64, device=k.device)
+    slot = fold_in(k[..., None, :], ids)                    # [..., capacity, 2]
+    k0, k1 = slot[..., 0], slot[..., 1]
+    cols = []
+    for j in range(width):
+        hi = torch.bitwise_xor(*threefry2x32(k0, k1, 0, 2 * j))
+        lo = torch.bitwise_xor(*threefry2x32(k0, k1, 0, 2 * j + 1))
+        cols.append((hi << 21) | (lo >> 11))                # (hi:lo) >> 11, 53 bits
+    return torch.stack(cols, dim=-1).to(torch.float64) * (1.0 / (1 << 53))
+
+
 def mod_u64(hi, lo, u):
     """``(hi * 2^32 + lo) mod u`` for 32-bit limbs and ``1 <= u < 2^63``,
     in int64 without overflow: the high limb's remainder is doubled 32

@@ -1,5 +1,7 @@
-"""ChunkPlan tables and the batched chunk program (port of the ChunkPlan
-half of ``repro.distrib.engine``).
+"""Plan tables and their batched device programs (port of
+``repro.distrib.engine``): ChunkPlans for the sampled families,
+PointPlans for the vertex positions and PairPlans for the geometric
+edges of RGG and RHG.
 
 The host divide-and-conquer recursions emit a ``[P, C]`` table of chunk
 rows -- key, universe, count, decode parameters, owned bit -- and the
@@ -16,7 +18,8 @@ Where the reference ``vmap``s a per-chunk function over the table, the
 port's :func:`_edge_chunk_fn` is one batched function over ``[R]`` chunk
 rows: the sampler runs every row at once (``chunk_draw`` + ``torch.sort``
 rounds), then ``chunk_decode`` decodes every slot and writes the keep
-mask.
+mask.  Likewise :func:`_point_cell_fn` is one ``cell_points`` launch and
+:func:`_pair_fn` one ``pair_edges`` launch over ``[R]`` table rows.
 """
 from __future__ import annotations
 
@@ -29,6 +32,9 @@ import torch
 
 from ..core.prng import THREEFRY, check_rng_impl
 from ..core.sampling import round_up_capacity, sample_rows
+from ..kernels.geom.ops import cell_points, pair_edges
+from ..kernels.geom.ref import (GEOM_CERT, GEOM_EMPTY, GEOM_HYP, GEOM_TORUS,  # noqa: F401
+                                POINTS_CUBE, POINTS_POLAR)
 from ..kernels.sampler.ops import chunk_decode
 from ..kernels.sampler.ref import KIND_DIRECTED, KIND_EMPTY, KIND_RECT, KIND_TRI
 
@@ -311,10 +317,401 @@ def _edge_chunk_fn(capacity: int, rng_impl: str,
     if other:
         raise NotImplementedError(
             f"chunk kinds {sorted(other)} (KIND_RMAT / KIND_BA) are not "
-            f"ported yet: ROADMAP queue 1, item 6 (remaining ChunkPlan kinds)")
+            f"ported yet: ROADMAP queue 1, item 5 (remaining ChunkPlan kinds)")
 
     def rows(kind, key_data, universe, count, params, fparams, owned):
         vals = sample_rows(key_data, universe, count, capacity)
         return chunk_decode(vals, kind, params, count, owned)
+
+    return rows
+
+
+# --------------------------------------------------------------------------
+# point plans: spatial (RGG cube cells) and radial (RHG annulus cells)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PointPlan:
+    """Per-PE cell table for vertex generation.
+
+    kind == 'cube':  point = (cell + u) / scale           (scale = grid g)
+    kind == 'polar': r = arccosh(g0 + u0*(g1 - g0)) / scale  (scale = alpha)
+                     theta = (cell[1] + u1) * g2
+
+    ``gid0`` (the port's addition, not a device input) holds each cell's
+    first vertex id, so the streamed points can be put in id order."""
+    kind: str               # POINTS_CUBE | POINTS_POLAR
+    key_data: np.ndarray    # uint32  [P, C, W] per-cell key
+    count: np.ndarray       # int64   [P, C]
+    cell: np.ndarray        # int64   [P, C, K] integer cell coordinates
+    geom: np.ndarray        # float64 [P, C, G] kind-specific reals
+    scale: float
+    dim: int                # output dims per point
+    capacity: int
+    rng_impl: str = THREEFRY
+    reseed_fn: Optional[Callable[[int], "PointPlan"]] = field(
+        default=None, compare=False, repr=False)
+    gid0: Optional[np.ndarray] = field(default=None, compare=False, repr=False)
+
+    @property
+    def num_pes(self) -> int:
+        return self.count.shape[0]
+
+    # ---- the runtime's plan protocol ----
+
+    def input_arrays(self) -> Tuple[np.ndarray, ...]:
+        return (self.key_data, self.count, self.cell, self.geom)
+
+    def slot_fn(self):
+        return _point_cell_fn(self.kind, self.capacity, self.dim, self.scale,
+                              self.rng_impl)
+
+    def stream_index(self) -> np.ndarray:
+        """Non-empty cells in pe-major order (every cell is unique)."""
+        return np.argwhere(self.count > 0).astype(np.int64)
+
+    def reseed(self, seed: int) -> "PointPlan":
+        """Equivalent plan for ``seed`` (see :meth:`ChunkPlan.reseed`)."""
+        if self.reseed_fn is None:
+            raise ValueError(
+                "plan carries no reseed emitter; re-emit from the GraphSpec")
+        return self.reseed_fn(int(seed))
+
+
+def make_point_plan(
+    per_pe: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]],
+    kind: str,
+    scale: float,
+    dim: int,
+    capacity: Optional[int] = None,
+    rng_impl: str = THREEFRY,
+    gid0: Optional[Sequence[np.ndarray]] = None,
+) -> PointPlan:
+    """per_pe: one (key_data [Ci,W], counts [Ci], cells [Ci,K], geom [Ci,G])
+    tuple per PE; rows are padded to the widest PE with count-0 cells.
+    ``gid0``, when given, is each PE's [Ci] first vertex ids."""
+    P = len(per_pe)
+    C = max(1, max(int(len(c)) for _, c, _, _ in per_pe))
+    first = next((row for row in per_pe if row[0].size), None)
+    W = first[0].shape[-1] if first is not None else 2
+    K = first[2].shape[-1] if first is not None else 1
+    G = first[3].shape[-1] if first is not None else 1
+    key_data = np.zeros((P, C, W), np.uint32)
+    count = np.zeros((P, C), np.int64)
+    cell = np.zeros((P, C, K), np.int64)
+    geom = np.ones((P, C, G), np.float64)  # 1s: harmless in both transforms
+    g0 = np.zeros((P, C), np.int64)
+    for pe, (kd, cnt, cl, gm) in enumerate(per_pe):
+        k = len(cnt)
+        if k:
+            key_data[pe, :k] = kd
+            count[pe, :k] = cnt
+            cell[pe, :k] = cl
+            geom[pe, :k] = gm
+            if gid0 is not None:
+                g0[pe, :k] = gid0[pe]
+    cap = capacity if capacity is not None else max(8, int(count.max()) + 8)
+    check_rng_impl(rng_impl)
+    return PointPlan(kind, key_data, count, cell, geom, scale, dim, cap, rng_impl,
+                     gid0=g0 if gid0 is not None else None)
+
+
+def _point_cell_fn(plan_kind: str, capacity: int, dim: int, scale: float,
+                   rng_impl: str):
+    """The batched cell program: ``rows(key_data, count, cell, geom)`` on
+    ``[R]`` row tensors -> (points float64 ``[R, capacity, dim]``, mask
+    bool ``[R, capacity]``)."""
+    check_rng_impl(rng_impl)
+
+    def rows(key_data, count, cell, geom):
+        return cell_points(key_data, count, cell, geom, kind=plan_kind, scale=scale,
+                           capacity=capacity, dim=dim)
+
+    return rows
+
+
+# --------------------------------------------------------------------------
+# pair plans: the geometric edge table (RHG / RGG; RDG not ported yet)
+# --------------------------------------------------------------------------
+
+# key impls whose draws are a pure function of (key, slot), the invariant
+# that lets every candidate-pair row regenerate its cells' points
+COUNTER_RNGS = frozenset({THREEFRY})
+
+
+def require_counter_rng(rng_impl: str) -> None:
+    """Reject non-counter key impls for pair plans (see COUNTER_RNGS)."""
+    if rng_impl not in COUNTER_RNGS:
+        raise ValueError(
+            f"pair plans require a counter-based per-element PRNG, got "
+            f"{rng_impl!r}: geometric edge plans recompute cell points from "
+            f"hashed keys across candidate-pair rows; use rng_impl of "
+            f"{sorted(COUNTER_RNGS)} for RGG/RHG/RDG")
+
+
+def pair_slot_index(i, j, cap: int):
+    """Lexicographic index of slot pair (i, j), i < j, among the
+    C(cap, 2) ordered pairs of a row (the bit GEOM_CERT rows use for
+    their per-edge emit masks).  Works on ints and int tensors."""
+    return i * (cap - 1) - i * (i - 1) // 2 + (j - i - 1)
+
+
+@dataclass(frozen=True)
+class PairSpec:
+    """One candidate-pair row as a host geometric emitter produces it.
+
+    GEOM_HYP (RHG annulus-cell pair): side = (key_data, count, gid0,
+      geom = (cosh(a*lo), cosh(a*hi), cell_index, angular_width));
+      fparams = (alpha, cosh R).
+    GEOM_TORUS (RGG cube-cell pair): side = (key_data, count, gid0,
+      geom = integer cell coordinates as floats); fparams = (grid side g,
+      r^2).
+    ``self_pair`` restricts a row to slot pairs i < j (cell-vs-itself)."""
+    kind: int
+    key_a: object
+    key_b: object
+    count_a: int
+    count_b: int
+    gid_a: object           # int (gid offset) or int sequence
+    gid_b: object
+    geom_a: Sequence[float]
+    geom_b: Sequence[float]
+    fparams: Tuple[float, ...] = ()
+    self_pair: bool = False
+
+
+_PAIR_INPUTS = ("kind", "key_a", "key_b", "count_a", "count_b", "gid_a",
+                "gid_b", "geom_a", "geom_b", "fparams", "self_pair", "active")
+
+
+@dataclass(frozen=True)
+class PairPlan:
+    """Host-emitted candidate-pair table for geometric edge generation.
+
+    Every candidate pair appears exactly once globally, so the
+    concatenated per-PE outputs are the exact edge set.  All arrays have
+    leading dims [P, C] (PE x pair slot, padded with GEOM_EMPTY rows);
+    trailing widths are emitter-derived (W key words, K gid words, G
+    geometry features, F float params)."""
+    kind: np.ndarray        # int32  [P, C]  (GEOM_*)
+    key_a: np.ndarray       # uint32 [P, C, W]
+    key_b: np.ndarray       # uint32 [P, C, W]
+    count_a: np.ndarray     # int64  [P, C]
+    count_b: np.ndarray     # int64  [P, C]
+    gid_a: np.ndarray       # int64  [P, C, K]
+    gid_b: np.ndarray       # int64  [P, C, K]
+    geom_a: np.ndarray      # float64 [P, C, G]
+    geom_b: np.ndarray      # float64 [P, C, G]
+    fparams: np.ndarray     # float64 [P, C, F]
+    self_pair: np.ndarray   # bool   [P, C]
+    active: np.ndarray      # bool   [P, C]
+    capacity: int           # per-cell point capacity
+    dim: int = 2            # spatial dimension (TORUS decode)
+    rng_impl: str = THREEFRY
+    reseed_fn: Optional[Callable[[int], "PairPlan"]] = field(
+        default=None, compare=False, repr=False)
+
+    @property
+    def num_pes(self) -> int:
+        return self.active.shape[0]
+
+    @property
+    def pairs_per_pe(self) -> int:
+        return self.active.shape[1]
+
+    @property
+    def total_pairs(self) -> int:
+        return int(self.active.sum())
+
+    @property
+    def kinds_present(self) -> Tuple[int, ...]:
+        """Distinct non-empty geometry kinds of the plan."""
+        return tuple(sorted(int(k) for k in np.unique(self.kind) if k != GEOM_EMPTY))
+
+    # ---- the runtime's plan protocol ----
+
+    def input_arrays(self) -> Tuple[np.ndarray, ...]:
+        return tuple(getattr(self, name) for name in _PAIR_INPUTS)
+
+    def slot_fn(self):
+        return _pair_fn(self.capacity, self.rng_impl, self.kinds_present, self.dim)
+
+    def stream_index(self) -> np.ndarray:
+        return active_pair_index(self)
+
+    def reseed(self, seed: int) -> "PairPlan":
+        """Equivalent plan for ``seed`` (see :meth:`ChunkPlan.reseed`)."""
+        if self.reseed_fn is None:
+            raise ValueError(
+                "plan carries no reseed emitter; re-emit from the GraphSpec")
+        return self.reseed_fn(int(seed))
+
+
+def make_pair_plan(
+    per_pe: Sequence[Sequence[PairSpec]],
+    capacity: Optional[int] = None,
+    rng_impl: str = THREEFRY,
+    dim: int = 2,
+) -> PairPlan:
+    """Pad per-PE pair lists into the rectangular plan tables; trailing
+    widths come from the widest spec handed in."""
+    require_counter_rng(rng_impl)
+    P = len(per_pe)
+    C = max(1, max((len(row) for row in per_pe), default=1))
+    specs = [sp for row in per_pe for sp in row]
+    W = len(_key_data_of(specs[0].key_a)) if specs else 2
+    K = max([1] + [len(np.atleast_1d(np.asarray(s))) for sp in specs
+                   for s in (sp.gid_a, sp.gid_b)])
+    G = max([1] + [len(np.atleast_1d(np.asarray(g, np.float64))) for sp in specs
+                   for g in (sp.geom_a, sp.geom_b)])
+    F = max([1] + [len(sp.fparams) for sp in specs])
+    kind = np.zeros((P, C), np.int32)
+    key_a = np.zeros((P, C, W), np.uint32)
+    key_b = np.zeros((P, C, W), np.uint32)
+    count_a = np.zeros((P, C), np.int64)
+    count_b = np.zeros((P, C), np.int64)
+    gid_a = np.zeros((P, C, K), np.int64)
+    gid_b = np.zeros((P, C, K), np.int64)
+    geom_a = np.ones((P, C, G), np.float64)  # 1s: harmless in every decode
+    geom_b = np.ones((P, C, G), np.float64)
+    fparams = np.zeros((P, C, F), np.float64)
+    self_pair = np.zeros((P, C), bool)
+    active = np.zeros((P, C), bool)
+    for pe, row in enumerate(per_pe):
+        for j, sp in enumerate(row):
+            kind[pe, j] = sp.kind
+            key_a[pe, j] = _key_data_of(sp.key_a)
+            key_b[pe, j] = _key_data_of(sp.key_b)
+            count_a[pe, j] = sp.count_a
+            count_b[pe, j] = sp.count_b
+            ga = np.atleast_1d(np.asarray(sp.gid_a, np.int64))
+            gb = np.atleast_1d(np.asarray(sp.gid_b, np.int64))
+            gid_a[pe, j, : len(ga)] = ga
+            gid_b[pe, j, : len(gb)] = gb
+            va = np.atleast_1d(np.asarray(sp.geom_a, np.float64))
+            vb = np.atleast_1d(np.asarray(sp.geom_b, np.float64))
+            geom_a[pe, j, : len(va)] = va
+            geom_b[pe, j, : len(vb)] = vb
+            if sp.fparams:
+                fparams[pe, j, : len(sp.fparams)] = sp.fparams
+            self_pair[pe, j] = sp.self_pair
+            active[pe, j] = True
+    cap = capacity
+    if cap is None:
+        cmax = max(int(count_a.max()) if count_a.size else 0,
+                   int(count_b.max()) if count_b.size else 0)
+        cap = round_up_capacity(cmax, mult=8)
+    return PairPlan(kind, key_a, key_b, count_a, count_b, gid_a, gid_b,
+                    geom_a, geom_b, fparams, self_pair, active, cap, dim, rng_impl)
+
+
+def pair_plan_from_columns(
+    P: int,
+    pe: np.ndarray,
+    kind: np.ndarray,
+    key_a: np.ndarray,
+    key_b: np.ndarray,
+    count_a: np.ndarray,
+    count_b: np.ndarray,
+    gid_a: np.ndarray,
+    gid_b: np.ndarray,
+    geom_a: np.ndarray,
+    geom_b: np.ndarray,
+    fparams: np.ndarray,
+    self_pair: np.ndarray,
+    capacity: Optional[int] = None,
+    rng_impl: str = THREEFRY,
+    dim: int = 2,
+) -> PairPlan:
+    """Vectorized :func:`make_pair_plan`: flat per-pair columns in.
+
+    ``pe`` [k] assigns each flat row to its PE; within-PE slot order is
+    the rows' order of appearance (a stable sort groups them)."""
+    require_counter_rng(rng_impl)
+    pe = np.asarray(pe, np.int64)
+    k = len(pe)
+    per = np.bincount(pe, minlength=P) if k else np.zeros(P, np.int64)
+    C = max(1, int(per.max()) if per.size else 0)
+    W = key_a.shape[-1] if k else 2
+    K = gid_a.shape[-1] if k else 1
+    G = geom_a.shape[-1] if k else 1
+    F = fparams.shape[-1] if k else 1
+    order = np.argsort(pe, kind="stable")
+    spe = pe[order]
+    starts = np.concatenate(([0], np.cumsum(per)))
+    col = np.arange(k, dtype=np.int64) - starts[spe]
+    t_kind = np.zeros((P, C), np.int32)
+    t_ka = np.zeros((P, C, W), np.uint32)
+    t_kb = np.zeros((P, C, W), np.uint32)
+    t_ca = np.zeros((P, C), np.int64)
+    t_cb = np.zeros((P, C), np.int64)
+    t_ga = np.zeros((P, C, K), np.int64)
+    t_gb = np.zeros((P, C, K), np.int64)
+    t_va = np.ones((P, C, G), np.float64)
+    t_vb = np.ones((P, C, G), np.float64)
+    t_fp = np.zeros((P, C, F), np.float64)
+    t_sp = np.zeros((P, C), bool)
+    t_act = np.zeros((P, C), bool)
+    if k:
+        t_kind[spe, col] = np.asarray(kind, np.int32)[order]
+        t_ka[spe, col] = np.asarray(key_a, np.uint32)[order]
+        t_kb[spe, col] = np.asarray(key_b, np.uint32)[order]
+        t_ca[spe, col] = np.asarray(count_a, np.int64)[order]
+        t_cb[spe, col] = np.asarray(count_b, np.int64)[order]
+        t_ga[spe, col] = np.asarray(gid_a, np.int64)[order]
+        t_gb[spe, col] = np.asarray(gid_b, np.int64)[order]
+        t_va[spe, col] = np.asarray(geom_a, np.float64)[order]
+        t_vb[spe, col] = np.asarray(geom_b, np.float64)[order]
+        t_fp[spe, col] = np.asarray(fparams, np.float64)[order]
+        t_sp[spe, col] = np.asarray(self_pair, bool)[order]
+        t_act[spe, col] = True
+    cap = capacity
+    if cap is None:
+        cmax = max(int(count_a.max()) if k else 0,
+                   int(count_b.max()) if k else 0)
+        cap = round_up_capacity(cmax, mult=8)
+    return PairPlan(t_kind, t_ka, t_kb, t_ca, t_cb, t_ga, t_gb,
+                    t_va, t_vb, t_fp, t_sp, t_act, cap, dim, rng_impl)
+
+
+def pair_plan_from_arrays(tables: Dict[str, np.ndarray], capacity: int,
+                          dim: int = 2) -> PairPlan:
+    """A port plan holding exactly the given ``[P, C]`` tables (the
+    :data:`_PAIR_INPUTS` fields), e.g. those of a plan the reference
+    emitted, so that both engines execute the identical table."""
+    dtypes = {"kind": np.int32, "key_a": np.uint32, "key_b": np.uint32,
+              "count_a": np.int64, "count_b": np.int64, "gid_a": np.int64,
+              "gid_b": np.int64, "geom_a": np.float64, "geom_b": np.float64,
+              "fparams": np.float64, "self_pair": bool, "active": bool}
+    return PairPlan(**{f: np.asarray(tables[f], dtypes[f]) for f in _PAIR_INPUTS},
+                    capacity=int(capacity), dim=int(dim))
+
+
+def active_pair_index(plan: PairPlan) -> np.ndarray:
+    """int64 [K, 2] of (pe, slot) for every active candidate pair, in
+    stream order (every pair is globally unique, so active == owned)."""
+    return np.argwhere(plan.active).astype(np.int64)
+
+
+def _pair_fn(capacity: int, rng_impl: str, kinds: Sequence[int] = (GEOM_HYP,),
+             dim: int = 2):
+    """The batched candidate-pair program: ``rows(kind, key_a, key_b,
+    count_a, count_b, gid_a, gid_b, geom_a, geom_b, fparams, self_pair,
+    active)`` on ``[R]`` row tensors -> (edges int64 ``[R, capacity^2,
+    2]``, keep bool ``[R, capacity^2]``) of canonical ``(max gid, min
+    gid)`` edges; ``keep`` folds in validity, the self-pair rule and the
+    active bit."""
+    require_counter_rng(rng_impl)
+    kinds = tuple(sorted(frozenset(int(k) for k in kinds) - {GEOM_EMPTY}))
+    if GEOM_CERT in kinds:
+        raise NotImplementedError(
+            "GEOM_CERT rows (RDG, the delaunay_call kernel) are not ported "
+            "yet: ROADMAP queue 1, item 1 (RDG)")
+
+    def rows(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_b,
+             fparams, self_pair, active):
+        return pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b,
+                          geom_a, geom_b, fparams, self_pair, active,
+                          capacity=capacity, dim=dim, kinds=kinds)
 
     return rows

@@ -56,8 +56,9 @@ def plan_tensors(plan, device) -> Tuple[torch.Tensor, ...]:
 def run(plan, device=None):
     """Execute a plan's full table; returns ``(payload, valid)``."""
     dev = resolve_device(device)
-    P, C = plan.num_pes, plan.chunks_per_pe
-    rows = [t.reshape(P * C, *t.shape[2:]) for t in plan_tensors(plan, dev)]
+    tables = plan_tensors(plan, dev)
+    P, C = tables[0].shape[:2]      # every plan kind's tables are [P, C, ...]
+    rows = [t.reshape(P * C, *t.shape[2:]) for t in tables]
     payload, valid = plan.slot_fn()(*rows)
     return (payload.reshape(P, C, *payload.shape[1:]),
             valid.reshape(P, C, *valid.shape[1:]))

@@ -4,7 +4,7 @@ source builds in seconds).
 
 Each source under ``kernels/*/csrc/`` becomes one shared library in
 ``build/repro_torch/`` at the root of the checkout, named after a digest
-of its sources and flags, so an edited source is rebuilt and an
+of its sources, the headers it may include and its flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  :func:`build` starts one ``nvcc`` per
 library, all at once.  Nothing here runs when the module is imported.
 
@@ -34,12 +34,17 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: library name -> (source relative to kernels/, extra nvcc flags).
 #: The sampler's decode must not contract ``1 + 8x`` into an FMA: the
 #: float estimate would then differ from XLA-CPU's before its fix-up.
+#: The geometric libraries fuse exactly where XLA-CPU does, with explicit
+#: ``fma``, and nowhere else.
 SOURCES: Dict[str, tuple] = {
     "sampler": ("sampler/csrc/sampler.cu", ["-fmad=false"]),
     "hist": ("hist/csrc/hist.cu", []),
+    "pairmask": ("pairmask/csrc/pairmask.cu", ["-fmad=false"]),
+    "geom": ("geom/csrc/geom.cu", ["-fmad=false"]),
 }
 
-LAUNCHES: Dict[str, int] = {"chunk_draw": 0, "chunk_decode": 0, "hist": 0}
+LAUNCHES: Dict[str, int] = {"chunk_draw": 0, "chunk_decode": 0, "hist": 0,
+                            "pair_mask": 0, "pair_edges": 0, "cell_points": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -65,8 +70,10 @@ def library_path(name: str) -> Path:
     src, flags = SOURCES[name]
     csrc = (_KERNELS / src).parent
     h = hashlib.sha256(" ".join(_NVCC_FLAGS + flags).encode())
-    for f in sorted(csrc.iterdir()):
-        h.update(f.name.encode())
+    # the source's own directory, and every header a source may include
+    files = set(csrc.iterdir()) | set(_KERNELS.glob("*/csrc/*.cuh"))
+    for f in sorted(files):
+        h.update(str(f.relative_to(_KERNELS)).encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

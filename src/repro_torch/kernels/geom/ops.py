@@ -1,0 +1,107 @@
+"""Wrappers of the geometric engine kernels (``csrc/geom.cu``).
+
+For tensors on the CPU each wrapper computes its plain version
+(:mod:`.ref`); for CUDA tensors it launches its kernel on the current
+stream, counts the launch in ``build.LAUNCHES`` and raises if the launch
+fails.  There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import build
+from .ref import (GEOM_EMPTY, GEOM_HYP, GEOM_TORUS, POINTS_CUBE, POINTS_POLAR,
+                  cell_points_ref, pair_edges_ref)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_longlong
+_C = ctypes.c_int
+_SIGNATURES = {
+    "pair_edges": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P,
+                   _I, _I, _C, _P, _P, _P],
+    "cell_points": [_P, _P, _P, _I, _P, _I, _C, ctypes.c_double, _I, _I, _C,
+                    _P, _P, _P],
+}
+
+
+def _lib():
+    return build.library("geom", _SIGNATURES)
+
+
+def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_b,
+               fparams, self_pair, active, *, capacity: int, dim: int, kinds):
+    """(edges int64 ``[R, capacity^2, 2]``, keep bool ``[R, capacity^2]``)
+    of ``R`` GEOM_TORUS / GEOM_HYP candidate-pair rows (see
+    :func:`.ref.pair_edges_ref`).  ``kind`` int32 ``[R]``; keys int32
+    ``[R, 2]`` (the uint32 words' bits); counts int64 ``[R]``; gids int64
+    ``[R, K]``; geoms float64 ``[R, G]``; ``fparams`` float64 ``[R, F]``;
+    ``self_pair`` and ``active`` bool ``[R]``."""
+    if kind.device.type == "cpu":
+        return pair_edges_ref(kind, key_a, key_b, count_a, count_b, gid_a, gid_b,
+                              geom_a, geom_b, fparams, self_pair, active,
+                              capacity=capacity, dim=dim, kinds=kinds)
+    R, dev = kind.shape[0], kind.device
+    K, G, F = gid_a.shape[-1], geom_a.shape[-1], fparams.shape[-1]
+    build.check_arg(kind, "kind", torch.int32, (R,), dev)
+    for name, t in (("key_a", key_a), ("key_b", key_b)):
+        build.check_arg(t, name, torch.int32, (R, 2), dev)
+    for name, t in (("count_a", count_a), ("count_b", count_b)):
+        build.check_arg(t, name, torch.int64, (R,), dev)
+    for name, t in (("gid_a", gid_a), ("gid_b", gid_b)):
+        build.check_arg(t, name, torch.int64, (R, K), dev)
+    for name, t in (("geom_a", geom_a), ("geom_b", geom_b)):
+        build.check_arg(t, name, torch.float64, (R, G), dev)
+    build.check_arg(fparams, "fparams", torch.float64, (R, F), dev)
+    build.check_arg(self_pair, "self_pair", torch.bool, (R,), dev)
+    build.check_arg(active, "active", torch.bool, (R,), dev)
+    if set(kinds) - {GEOM_EMPTY, GEOM_HYP, GEOM_TORUS}:
+        raise ValueError(f"pair_edges runs GEOM_TORUS and GEOM_HYP rows, got {kinds}")
+    need = max(4 if GEOM_HYP in kinds else 0, dim if GEOM_TORUS in kinds else 0)
+    if F < 2 or G < need or dim not in (2, 3):
+        raise ValueError(f"pair_edges: want F >= 2, G >= {need}, dim 2 or 3; "
+                         f"got F={F}, G={G}, dim={dim}")
+    slots = capacity * capacity
+    edges = torch.empty((R, slots, 2), dtype=torch.int64, device=dev)
+    keep = torch.empty((R, slots), dtype=torch.bool, device=dev)
+    if edges.numel():
+        build.check(_lib().pair_edges(
+            kind.data_ptr(), key_a.data_ptr(), key_b.data_ptr(), count_a.data_ptr(),
+            count_b.data_ptr(), gid_a.data_ptr(), gid_b.data_ptr(), K,
+            geom_a.data_ptr(), geom_b.data_ptr(), G, fparams.data_ptr(), F,
+            self_pair.data_ptr(), active.data_ptr(), R, capacity, dim,
+            edges.data_ptr(), keep.data_ptr(), build.stream_arg(dev)), "pair_edges")
+        build.LAUNCHES["pair_edges"] += 1
+    return edges, keep
+
+
+def cell_points(key, count, cell, geom, *, kind: str, scale: float, capacity: int,
+                dim: int):
+    """(points float64 ``[R, capacity, dim]``, mask bool ``[R,
+    capacity]``) of ``R`` point-plan cells (see
+    :func:`.ref.cell_points_ref`).  ``key`` int32 ``[R, 2]``, ``count``
+    int64 ``[R]``, ``cell`` int64 ``[R, Kc]``, ``geom`` float64 ``[R, G]``."""
+    if count.device.type == "cpu":
+        return cell_points_ref(key, count, cell, geom, kind=kind, scale=scale,
+                               capacity=capacity, dim=dim)
+    if kind not in (POINTS_CUBE, POINTS_POLAR):
+        raise ValueError(f"unknown point kind {kind!r}")
+    R, dev = count.shape[0], count.device
+    Kc, G = cell.shape[-1], geom.shape[-1]
+    polar = kind == POINTS_POLAR
+    if (polar and (dim != 2 or Kc < 2 or G < 3)) or (not polar and Kc < dim):
+        raise ValueError(f"cell_points: {kind} cells with dim={dim}, Kc={Kc}, G={G}")
+    build.check_arg(key, "key", torch.int32, (R, 2), dev)
+    build.check_arg(count, "count", torch.int64, (R,), dev)
+    build.check_arg(cell, "cell", torch.int64, (R, Kc), dev)
+    build.check_arg(geom, "geom", torch.float64, (R, G), dev)
+    out = torch.empty((R, capacity, dim), dtype=torch.float64, device=dev)
+    mask = torch.empty((R, capacity), dtype=torch.bool, device=dev)
+    if mask.numel():
+        build.check(_lib().cell_points(
+            key.data_ptr(), count.data_ptr(), cell.data_ptr(), Kc, geom.data_ptr(), G,
+            int(polar), 1.0 / float(scale), R, capacity, dim, out.data_ptr(),
+            mask.data_ptr(), build.stream_arg(dev)), "cell_points")
+        build.LAUNCHES["cell_points"] += 1
+    return out, mask

@@ -58,12 +58,15 @@ def collect(
     mode: Optional[str] = None,
     device=None,
     rng_impl: str = "threefry2x32",
+    batch: int = 256,
 ) -> StatsReport:
     """Stream ``spec`` on P virtual PEs and measure its degrees.
 
     mode: 'exact' keeps the full per-vertex degree array (default for
     n <= 2^22), 'binned' keeps only log2 histograms + exact moments.
-    Chunks stream one at a time, so one chunk's ``[capacity, 2]``
+    batch: candidate pairs per wave for the geometric (PairPlan)
+    families, whose rows are small (``capacity^2`` slots); ChunkPlan
+    chunks stream one at a time, so one chunk's ``[capacity, 2]``
     buffer is the peak beyond the accumulators."""
     from .. import api
     from ..distrib.runtime import resolve_device
@@ -73,8 +76,8 @@ def collect(
         raise ValueError(f"unknown metrics {sorted(unknown)}; know {KNOWN_METRICS}")
     if "clustering" in metrics:
         raise NotImplementedError(
-            "the clustering sampler is not ported yet: it is the next "
-            "item of the port (ROADMAP queue 1, item 8, stats/)")
+            "the clustering sampler is not ported yet (ROADMAP queue 1, "
+            "item 2, stats/)")
     dev = resolve_device(device)
     n, directed = spec.num_vertices, spec.directed
     mode = mode or ("exact" if n <= EXACT_N_LIMIT else "binned")
@@ -86,10 +89,14 @@ def collect(
     in_acc = ([SectionDegrees(bounds[pe], bounds[pe + 1], dev) for pe in range(P)]
               if directed else None)
 
+    # PairPlan rows are O(capacity^2) with tiny capacities; ChunkPlan
+    # buffers are O(capacity) with large ones
+    batch = batch if isinstance(spec, (api.RGG, api.RHG)) else 1
     num_edges = 0
-    for chunk in api.iter_edge_chunks(spec, P, device=dev, rng_impl=rng_impl):
+    for chunk in api.iter_edge_chunks(spec, P, device=dev, rng_impl=rng_impl,
+                                      batch=batch):
         e = chunk.edges()
-        num_edges += chunk.count
+        num_edges += len(e)
         for acc in out_acc:
             acc.add(e[:, 0] if directed else e)
         if directed:

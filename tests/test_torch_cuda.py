@@ -9,9 +9,14 @@ import pytest
 import torch
 
 from repro_torch import api
+from repro_torch.distrib.runtime import plan_tensors
 from repro_torch.kernels import build
+from repro_torch.kernels.geom import ops as G
+from repro_torch.kernels.geom.ref import cell_points_ref, pair_edges_ref
 from repro_torch.kernels.hist import ops as H
 from repro_torch.kernels.hist.ref import hist_counts_ref
+from repro_torch.kernels.pairmask import ops as M
+from repro_torch.kernels.pairmask.ref import pair_mask_ref
 from repro_torch.kernels.sampler import ops as S
 from repro_torch.kernels.sampler.ref import chunk_decode_ref, chunk_draw_ref
 
@@ -92,3 +97,82 @@ def test_generate_and_collect_on_the_card_equal_cpu(cuda, spec):
     a, b = api.collect(spec, 2, device=cuda), api.collect(spec, 2, device="cpu")
     assert torch.equal(a.degree.degrees.cpu(), b.degree.degrees)
     assert torch.equal(a.degree.log2_hist.cpu(), b.degree.log2_hist)
+
+
+GEOM_SPECS = [api.RGG(n=3000, radius=0.04, seed=3), api.RGG(n=2000, radius=0.09, dim=3, seed=4),
+              api.RHG(n=3000, avg_deg=12.0, gamma=2.7, seed=5)]
+GEOM_IDS = ["rgg2", "rgg3", "rhg"]
+
+
+@pytest.mark.parametrize("tile,dim", [("euclid", 2), ("euclid", 3), ("hyp", 2)])
+@pytest.mark.parametrize("batch,rows,cols", [(3, 200, 130), (2, 129, 260), (3, 1, 3),
+                                             (1, 300, 131)])
+def test_pair_mask_matches_plain(cuda, tile, dim, batch, rows, cols):
+    """Shapes on and off the 128 x 128 tile and the 4-byte store width."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dtype = torch.float32 if tile == "euclid" else torch.float64
+    a = torch.rand((batch, rows, 8), dtype=dtype, device=cuda, generator=g)
+    b = torch.rand((batch, cols, 8), dtype=dtype, device=cuda, generator=g)
+    if tile == "hyp":
+        a[..., 2:4] += 1.0
+        b[..., 2:4] += 1.0
+    scalar = 0.05 if tile == "euclid" else 1.3
+    before = build.LAUNCHES["pair_mask"]
+    got = M.pair_mask(a, b, scalar, tile=tile, dim=dim)
+    assert build.LAUNCHES["pair_mask"] == before + 1
+    want = pair_mask_ref(a, b, scalar, tile=tile, dim=dim)
+    assert torch.equal(got, want)
+    assert torch.equal(M.pair_mask(a[-1], b[-1], scalar, tile=tile, dim=dim), want[-1])
+    if rows * cols > 1000:
+        assert want.any() and not want.all()
+
+
+def _plan_rows(plan, dev):
+    return [t.reshape(-1, *t.shape[2:]) for t in plan_tensors(plan, dev)]
+
+
+@pytest.mark.parametrize("spec", GEOM_SPECS, ids=GEOM_IDS)
+def test_pair_edges_matches_plain(cuda, spec):
+    plan = spec.plan(3)
+    rows = _plan_rows(plan, cuda)
+    kw = dict(capacity=plan.capacity, dim=plan.dim, kinds=plan.kinds_present)
+    ea, ka = G.pair_edges(*rows, **kw)
+    eb, kb = pair_edges_ref(*rows, **kw)
+    assert torch.equal(ea, eb) and torch.equal(ka, kb) and bool(ka.any())
+
+
+@pytest.mark.parametrize("spec", GEOM_SPECS, ids=GEOM_IDS)
+def test_cell_points_matches_plain(cuda, spec):
+    plan = spec.point_plan(3)
+    rows = _plan_rows(plan, cuda)
+    kw = dict(kind=plan.kind, scale=plan.scale, capacity=plan.capacity, dim=plan.dim)
+    pa, ma = G.cell_points(*rows, **kw)
+    pb, mb = cell_points_ref(*rows, **kw)
+    assert torch.equal(pa, pb) and torch.equal(ma, mb)
+
+
+@pytest.mark.parametrize("spec", GEOM_SPECS, ids=GEOM_IDS)
+def test_geometric_generate_and_collect_on_the_card_equal_cpu(cuda, spec):
+    a = api.generate(spec, 3, device=cuda, return_points=True)
+    b = api.generate(spec, 3, device="cpu", return_points=True)
+    assert torch.equal(a.edges.cpu(), b.edges)
+    if isinstance(spec, api.RGG):
+        assert torch.equal(a.points.cpu(), b.points)
+    ca, cb = api.collect(spec, 3, device=cuda), api.collect(spec, 3, device="cpu")
+    assert ca.num_edges == cb.num_edges == len(b.edges)
+    assert torch.equal(ca.degree.degrees.cpu(), cb.degree.degrees)
+
+
+def test_geometric_kernels_refuse_wrong_arguments(cuda):
+    plan = GEOM_SPECS[0].plan(1)
+    rows = _plan_rows(plan, cuda)
+    kw = dict(capacity=plan.capacity, dim=plan.dim, kinds=plan.kinds_present)
+    with pytest.raises(ValueError):
+        G.pair_edges(*([rows[0].to(torch.int64)] + rows[1:]), **kw)
+    with pytest.raises(ValueError):
+        G.pair_edges(*rows, capacity=plan.capacity, dim=4, kinds=plan.kinds_present)
+    a = torch.zeros((2, 4, 8), device=cuda)
+    with pytest.raises(ValueError):
+        M.pair_mask(a.double(), a.double(), 1.0, tile="euclid")
+    with pytest.raises(ValueError):
+        M.pair_mask(a, a, 1.0, tile="hyp")

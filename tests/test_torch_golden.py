@@ -2,10 +2,12 @@
 
 ``src/repro_torch/golden/er.json`` records, from the JAX package on the
 CPU, SHA-256 digests of ``generate(spec, P).edges`` and the exact degree
-statistics of one ``collect``.  The JAX package must still reproduce
-every entry except the mid-size one (its command is in the file), and
-the port on the CPU must reproduce the small ones.  Every comparison is
-exact: digests and integers with ``==``.
+statistics of one ``collect``; ``geom.json`` the RGG and RHG edge
+digests, ``iter_points`` digests and a sample of RHG features.  The JAX
+package must still reproduce every entry except the mid-size ones (the
+command is in the files), and the port on the CPU must reproduce the
+small ones.  Digests and integers are compared exactly; the port's RHG
+features are held to the tolerance of ``tests/test_torch_geom.py``.
 """
 import json
 
@@ -21,10 +23,16 @@ torch.set_num_threads(1)
 
 DOC = json.loads(torch_golden.GOLDEN.read_text())
 SMALL = [e for e in DOC["generate"] if e["size"] == "small"]
+GEOM = json.loads(torch_golden.GEOM.read_text())
+GEOM_SMALL = [e for e in GEOM["generate"] if e["size"] == "small"]
 
 
 def _id(e):
     return f"{e['family']}-{'d' if e['params']['directed'] else 'u'}-P{e['P']}"
+
+
+def _geom_id(e):
+    return f"{e['family']}-{e['params'].get('dim', 2)}d-P{e['P']}"
 
 
 def test_the_file_names_its_command_and_entries():
@@ -53,3 +61,46 @@ def test_port_reproduces_generate_digest_on_cpu(entry):
 def test_reference_reproduces_collect():
     (entry,) = DOC["collect"]
     assert torch_golden.collect_entry(entry["family"], entry["params"], entry["P"]) == entry
+
+
+def test_the_geom_file_names_its_command_and_entries():
+    assert GEOM["command"] == torch_golden.COMMAND
+    assert [(e["family"], e["params"], e["P"]) for e in GEOM_SMALL] == [
+        (f, p, P) for f, p in torch_golden.GEOM_SMALL for P in torch_golden.SMALL_PES]
+    mid = [e for e in GEOM["generate"] if e["size"] == "mid"]
+    assert [(e["family"], e["params"]) for e in mid] == [torch_golden.GEOM_MID]
+    assert [(e["family"], e["params"]) for e in GEOM["points"]] == torch_golden.GEOM_SMALL
+
+
+@pytest.mark.parametrize("entry", GEOM_SMALL, ids=_geom_id)
+def test_reference_reproduces_geom_digest(entry):
+    assert torch_golden.generate_entry(entry["family"], entry["params"], entry["P"],
+                                       "small") == entry
+
+
+@pytest.mark.parametrize("entry", GEOM_SMALL, ids=_geom_id)
+def test_port_reproduces_geom_digest_on_cpu(entry):
+    spec = getattr(tapi, entry["family"])(**entry["params"])
+    edges = tapi.generate(spec, entry["P"], device="cpu").edges.numpy()
+    assert len(edges) == entry["m"]
+    assert torch_golden.edges_sha256(edges) == entry["sha256"]
+
+
+@pytest.mark.parametrize("entry", GEOM["points"], ids=lambda e: e["family"] + str(
+    e["params"].get("dim", 2)))
+def test_points_digests(entry):
+    assert torch_golden.points_entry(entry["family"], entry["params"], entry["P"]) == entry
+    spec = getattr(tapi, entry["family"])(**entry["params"])
+    pts = torch.cat([c.points() for c in tapi.iter_points(spec, entry["P"], device="cpu",
+                                                          batch=64)]).numpy()
+    assert len(pts) == entry["n"]
+    got = pts[:, 1] if entry["what"] == "theta" else pts
+    assert torch_golden.floats_sha256(got) == entry["sha256"]
+
+
+def test_rhg_features_sample():
+    e = GEOM["rhg_features"]
+    fresh = torch_golden.features_entry(e["family"], e["params"])
+    assert {k: v for k, v in fresh.items() if k != "cpu_ulps"} == {
+        k: v for k, v in e.items() if k != "cpu_ulps"}
+    assert all(u <= 64 for u in fresh["cpu_ulps"].values()), fresh["cpu_ulps"]

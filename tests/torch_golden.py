@@ -7,15 +7,25 @@ this script writes into ``src/repro_torch/golden/er.json``:
 * SHA-256 digests of ``repro.api.generate(spec, P).edges`` (little-endian
   int64, C order) for small G(n, m) / G(n, p) specs, directed and
   undirected, at P in {1, 8}, and for one mid-size spec at P = 1;
-* the exact degree statistics of ``repro.stats.collect`` for one G(n, p).
+* the exact degree statistics of ``repro.stats.collect`` for one G(n, p);
 
-Run from the root of the repository (the mid-size spec takes about ten
-seconds of CPU)::
+and, into ``src/repro_torch/golden/geom.json``:
+
+* edge digests of small RGG (2-D, 3-D) and RHG specs at P in {1, 8} and
+  of one mid-size RGG (n = 2^16) at P = 1;
+* digests of ``repro.api.iter_points`` (float64 positions in stream
+  order; for RHG the angles only, since its radii match to a few ulp);
+* the reference's hyperbolic features ``[cos θ, sin θ, coth r, 1/sinh r]``
+  and radii of a few RHG candidate-pair rows, as hex floats, and the
+  worst ulp distance of the port's plain version on the CPU from them.
+
+Run from the root of the repository (the mid-size specs take about a
+minute of CPU)::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py
 
 ``tests/test_torch_golden.py`` checks that the JAX package still
-reproduces every entry except the mid-size one.
+reproduces every entry except the mid-size ones.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from pathlib import Path
 import numpy as np
 
 GOLDEN = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "golden" / "er.json"
+GEOM = GOLDEN.with_name("geom.json")
 COMMAND = "PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py"
 
 SMALL = [
@@ -37,6 +48,17 @@ SMALL = [
 SMALL_PES = (1, 8)
 MID = ("GNM", dict(n=1 << 20, m=1 << 24, directed=False, seed=1))
 COLLECT = ("GNP", dict(n=1 << 14, p=16 / (1 << 14), directed=False, seed=3))
+
+
+GEOM_SMALL = [
+    ("RGG", dict(n=1 << 12, radius=0.03, dim=2, seed=17)),
+    ("RGG", dict(n=1 << 12, radius=0.08, dim=3, seed=18)),
+    ("RHG", dict(n=1 << 12, avg_deg=16.0, gamma=2.8, seed=19)),
+]
+GEOM_MID = ("RGG", dict(n=1 << 16, radius=0.55 * (np.log(1 << 16) / (1 << 16)) ** 0.5,
+                        dim=2, seed=4))
+POINTS_P = 3
+FEATURE_ROWS = 16     # RHG candidate-pair rows whose side-a features are kept
 
 
 def edges_sha256(edges: np.ndarray) -> str:
@@ -64,6 +86,93 @@ def collect_entry(family: str, params: dict, P: int) -> dict:
             "degree_counts": [int(x) for x in rep.degree_counts()]}
 
 
+def floats_sha256(x: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(x, "<f8").tobytes()).hexdigest()
+
+
+def points_entry(family: str, params: dict, P: int) -> dict:
+    """Digest of ``iter_points`` in stream order (RHG: the angles)."""
+    from repro import api
+
+    pts = np.concatenate([c.points() for c in api.iter_points(
+        getattr(api, family)(**params), P, batch=64)])
+    polar = family == "RHG"
+    return {"family": family, "params": params, "P": P, "n": int(len(pts)),
+            "what": "theta" if polar else "points",
+            "sha256": floats_sha256(pts[:, 1] if polar else pts)}
+
+
+def jax_hyp_features(kd, geom, scale, N):
+    """The reference engine's feature decode (``_pair_fn``'s
+    ``hyp_features``), with the radius appended: ``[N, 5]``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core.prng import counter_uniform
+
+    key = jax.random.wrap_key_data(kd, impl="threefry2x32")
+    u = counter_uniform(key, N, 2)
+    clo, chi, ci, w = geom[0], geom[1], geom[2], geom[3]
+    r = jnp.arccosh(clo + u[:, 0] * (chi - clo)) / scale
+    theta = (ci + u[:, 1]) * w
+    r = jnp.maximum(r, 1e-12)
+    sh = jnp.sinh(r)
+    return jnp.stack([jnp.cos(theta), jnp.sin(theta), jnp.cosh(r) / sh, 1.0 / sh, r],
+                     axis=-1)
+
+
+def feature_rows(plan, rows: int):
+    """(row indices, key_a, geom_a, alpha, count_a) of ``rows`` active
+    rows of PE 0 of a GEOM_HYP pair plan, spread evenly over the plan
+    (so over the rings)."""
+    act = np.argwhere(plan.active[0])[:, 0]
+    idx = act[np.linspace(0, len(act) - 1, rows).astype(np.int64)]
+    return (idx, plan.key_a[0, idx], plan.geom_a[0, idx], plan.fparams[0, idx, 0],
+            plan.count_a[0, idx])
+
+
+FEATURE_NAMES = ["cos", "sin", "coth", "1/sinh", "r"]
+
+
+def ulps(got: np.ndarray, want: np.ndarray) -> dict:
+    """Worst distance of ``got`` from ``want`` per feature column, in
+    ulps of ``want``."""
+    d = np.abs(got - want) / np.spacing(np.abs(want))
+    return {k: float(d[..., i].max()) for i, k in enumerate(FEATURE_NAMES)}
+
+
+def features_entry(family: str, params: dict) -> dict:
+    import jax
+    import torch
+    from repro import api
+    from repro_torch.kernels.geom.ref import hyp_features, hyp_radius_theta
+
+    plan = getattr(api, family)(**params).plan(1)
+    idx, kd, geom, alpha, cnt = feature_rows(plan, FEATURE_ROWS)
+    N = plan.capacity
+    want = np.asarray(jax.jit(jax.vmap(lambda k, g, s: jax_hyp_features(k, g, s, N)))(
+        kd, geom, alpha))
+    valid = np.arange(N)[None, :] < cnt[:, None]
+    key, g, a = (torch.from_numpy(x) for x in (kd.astype(np.int64), geom, alpha))
+    got = torch.cat([hyp_features(key, g, a, N), hyp_radius_theta(key, g, a, N)[0][..., None]],
+                    dim=-1).numpy()
+    return {"family": family, "params": params, "P": 1, "rows": [int(i) for i in idx],
+            "features": FEATURE_NAMES,
+            "values": [[[float(x).hex() for x in want[k, i]] for i in range(N) if valid[k, i]]
+                       for k in range(len(idx))],
+            "cpu_ulps": ulps(got[valid], want[valid])}
+
+
+def geom_doc() -> dict:
+    entries = [generate_entry(f, p, P, "small") for f, p in GEOM_SMALL for P in SMALL_PES]
+    entries.append(generate_entry(*GEOM_MID, 1, "mid"))
+    return {"command": COMMAND,
+            "digest": "sha256 of edges as little-endian int64 [m, 2] / of points as "
+                      "little-endian float64, C order",
+            "generate": entries,
+            "points": [points_entry(f, p, POINTS_P) for f, p in GEOM_SMALL],
+            "rhg_features": features_entry(*GEOM_SMALL[2])}
+
+
 def main() -> None:
     entries = [generate_entry(f, p, P, "small") for f, p in SMALL for P in SMALL_PES]
     entries.append(generate_entry(*MID, 1, "mid"))
@@ -73,6 +182,8 @@ def main() -> None:
            "collect": [collect_entry(*COLLECT, 1)]}
     GOLDEN.write_text(json.dumps(doc, indent=1) + "\n")
     print(f"wrote {GOLDEN}")
+    GEOM.write_text(json.dumps(geom_doc(), indent=1) + "\n")
+    print(f"wrote {GEOM}")
 
 
 if __name__ == "__main__":
