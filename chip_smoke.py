@@ -9,9 +9,12 @@ or of the JAX package.  Phases, each printed with its seconds:
    checkout's ``csrc`` sources (one ``nvcc`` per source, in parallel).
 1. every kernel against its plain PyTorch version on the card, exactly
    (and ``torch.addcmul`` on the card against an exact FMA).
+   The Delaunay kernels (``triangulate``, ``circumspheres``) and the
+   GEOM_CERT rows of ``pair_edges`` likewise, on random, degenerate and
+   real RDG rows.
 2. golden parity: the digests and statistics that the JAX package
-   computed on the CPU (``src/repro_torch/golden/er.json`` and
-   ``geom.json``) recomputed on the card, and the card's RHG features
+   computed on the CPU (``src/repro_torch/golden/er.json``, ``geom.json``
+   and ``rdg.json``) recomputed on the card, and the card's RHG features
    against the reference's, in ulps.
 3. the two main paths at full width, each with the launch counters reset
    just before and read just after:
@@ -23,15 +26,26 @@ or of the JAX package.  Phases, each printed with its seconds:
       plain euclid tile, ``iter_points`` of that spec, streamed
       ``RHG(n=2^20, avg_deg=16, gamma=2.8)`` at P=16 against
       ``generate`` of it at P=1, and ``collect`` of it at P=16;
-   each checked on the device.  ``pair_mask`` is not on either path: as
-   in the reference, the engine runs its tiles inside ``pair_edges``, and
+   c. Delaunay: ``generate(RDG(n=2^20, dim=2), P=1, return_points=True)``
+      (exactly 3n edges), streamed at P=16 (the same checksum),
+      ``generate(RDG(n=2^16, dim=3), P=1)``, and RDG(n=2^16, dim=2) and
+      RDG(n=2^13, dim=3) against scipy's Qhull on the 3^d tiling.  (In
+      3-D the reference's triangulation clears ``ok`` on rows of about
+      20k points and more, a cavity past its capacity early in the
+      insertion, so its halo rounds end on Qhull once the regions wrap,
+      and RDG(n=2^18, dim=3) raises "halo did not converge" there as here;
+      see ROADMAP §3);
+   each checked on the device.  ``pair_mask`` is not on any path: as in
+   the reference, the engine runs its tiles inside ``pair_edges``, and
    only the reference's per-PE oracles call the kernel itself.
 4. each kernel timed at its main-path shape beside its plain version,
    the library call computing the same function (where there is one)
    and its bound (``pair_mask`` at its own contract's shape, the
    128-row cell blocks of the oracles, built from the main path's pair
-   rows and held against ``pair_edges``' keep); then the ``kernels``
-   line and the result line.
+   rows and held against ``pair_edges``' keep; ``triangulate``,
+   ``circumspheres`` and the CERT rows of ``pair_edges`` at the inputs of
+   the 2-D RDG run's first halo round); then the ``kernels`` line and the
+   result line.
 
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
@@ -53,6 +67,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 FP32_OPS_PER_S = 67e12
+# float64 on the tensor cores (the data sheet's fastest float64 rate): the
+# in-sphere scan of triangulate is a [slots, d] x [d, G] product
+FP64_OPS_PER_S = 67e12
 # Threefry-2x32: 20 rounds of (add, rotate, xor) plus 6 key injections of
 # two adds; chunk_draw runs three per drawn slot (the 64-bit modulo is not
 # counted, so the bound is a lower bound)
@@ -95,7 +112,8 @@ class Errors:
 
     def __init__(self):
         self.max = {"chunk_draw": 0, "chunk_decode": 0, "hist": 0,
-                    "pair_mask": 0, "pair_edges": 0, "cell_points": 0}
+                    "pair_mask": 0, "pair_edges": 0, "cell_points": 0,
+                    "triangulate": 0, "circumspheres": 0}
 
     def same(self, name: str, a, b, what: str) -> None:
         import torch
@@ -343,7 +361,8 @@ def no_duplicates(key) -> bool:
 KERNEL_GROUPS = (("sort", "sort"), ("chunk_draw_kernel", "chunk_draw"),
                  ("chunk_decode_kernel", "chunk_decode"), ("hist_shared_kernel", "hist"),
                  ("hist_global_kernel", "hist"), ("pair_mask_kernel", "pair_mask"),
-                 ("pair_edges_kernel", "pair_edges"), ("cell_points_kernel", "cell_points"))
+                 ("pair_edges_kernel", "pair_edges"), ("cell_points_kernel", "cell_points"),
+                 ("triangulate_kernel", "triangulate"), ("circumspheres_kernel", "circumspheres"))
 
 
 def profiled(fn):
@@ -813,6 +832,360 @@ def phase_timing(dev, main: dict, errs: Errors) -> list:
     return rows
 
 
+DT_ROWS = {2: 256, 3: 192}
+# the golden specs of rdg.json (2-D: one batched round; 3-D: two, then Qhull)
+RDG_GOLDEN_2D = dict(n=1 << 13, dim=2, seed=21)
+RDG_GOLDEN_3D = dict(n=1 << 13, dim=3, seed=22)
+
+
+def dt_check(dev, errs: Errors, pts, cnt, dim: int, what: str) -> None:
+    """triangulate on the card against its plain version on the same rows:
+    ``ok`` on every row, ``simp``, ``alive`` and the trip counts on every
+    ``ok`` row (a row that is not ok stops early on the card)."""
+    import torch
+    from repro_torch.kernels.delaunay import ops as D
+    from repro_torch.kernels.delaunay.ref import triangulate_ref
+
+    pts = torch.as_tensor(pts, dtype=torch.float64, device=dev).contiguous()
+    cnt = torch.as_tensor(cnt, dtype=torch.int64, device=dev)
+    N = pts.shape[1]
+    kw = dict(dim=dim, num_simplices=D.simplex_capacity(N, dim), cavity=D.cavity_capacity(dim),
+              group=D.group_size(dim))
+    wk = torch.zeros((len(cnt), 2), dtype=torch.int64, device=dev)
+    wp = torch.zeros_like(wk)
+    ks, ka, ko = D.triangulate(pts, cnt, work=wk, **kw)
+    ps, pa, po = triangulate_ref(pts, cnt, work=wp, **kw)
+    errs.same("triangulate", ko, po, f"triangulate ok, {what}")
+    errs.same("triangulate", ks[po], ps[po], f"triangulate simp, {what}")
+    errs.same("triangulate", ka[po], pa[po], f"triangulate alive, {what}")
+    errs.same("triangulate", wk[po], wp[po], f"triangulate trips, {what}")
+
+
+def first_round_rows(spec, dev):
+    """The [B, N] rows of the first halo round of ``spec``'s planning."""
+    from repro_torch.core import rdg
+
+    captured = []
+    real = rdg.batched_delaunay
+
+    def capture(points, counts, **kw):
+        if not captured:
+            captured.append((points, counts))
+        return real(points, counts, **kw)
+
+    rdg.rdg_structure.cache_clear()
+    rdg.batched_delaunay = capture
+    try:
+        spec.plan(1, device=dev)
+    finally:
+        rdg.batched_delaunay = real
+        rdg.rdg_structure.cache_clear()
+    return captured[0]
+
+
+def phase_dt_kernels(dev, errs: Errors) -> None:
+    """Phase 1, Delaunay: triangulate on random, padded, degenerate and real
+    RDG rows; circumspheres; the CERT rows of pair_edges; all exact."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.distrib.runtime import plan_tensors
+    from repro_torch.kernels.delaunay import ops as D
+    from repro_torch.kernels.delaunay.predicates import circumsphere
+    from repro_torch.kernels.geom import ops as G
+    from repro_torch.kernels.geom.ref import pair_edges_ref
+
+    rng = np.random.default_rng(11)
+    for dim, N in DT_ROWS.items():
+        pts = rng.random((8, N, dim))
+        cnt = rng.integers(dim + 2, N + 1, 8)
+        cnt[[2, 5]] = [0, N]
+        pts[3, 40:50] = pts[3, :10]                      # repeated points
+        dt_check(dev, errs, pts, cnt, dim, f"random {dim}-D rows [8, {N}]")
+    sq = [[[0.2, 0.2], [0.8, 0.2], [0.8, 0.8], [0.2, 0.8]]]
+    dt_check(dev, errs, sq, [4], 2, "a cocircular square")
+    line = np.stack([np.linspace(0.1, 0.9, 5), np.full(5, 0.5)], axis=1)[None]
+    dt_check(dev, errs, line, [5], 2, "collinear points")
+    flat = rng.random((1, 16, 3))
+    flat[..., 2] = 0.5
+    dt_check(dev, errs, flat, [16], 3, "coplanar points")
+    golden = api.RDG(**RDG_GOLDEN_2D)
+    pts, cnt = first_round_rows(golden, dev)
+    dt_check(dev, errs, pts, cnt, 2, f"the first halo round of {golden} {tuple(pts.shape)}")
+
+    for dim in (2, 3):
+        s = torch.rand((1 << 17, dim + 1, dim), dtype=torch.float64, device=dev)
+        s[0, 1] = s[0, 0]
+        for a, b, name in zip(D.circumspheres(s), circumsphere(s, fused=False),
+                              ("center", "r2", "nondeg")):
+            errs.same("circumspheres", a, b, f"circumspheres {name} {dim}-D")
+    for kw in (RDG_GOLDEN_2D, RDG_GOLDEN_3D):
+        plan = api.RDG(**kw).plan(4, device=dev)
+        rows = [t.reshape(-1, *t.shape[2:]) for t in plan_tensors(plan, dev)]
+        kwp = dict(capacity=plan.capacity, dim=plan.dim, kinds=plan.kinds_present)
+        ea, ka = G.pair_edges(*rows, **kwp)
+        eb, kb = pair_edges_ref(*rows, **kwp)
+        errs.same("pair_edges", ea, eb, f"pair_edges CERT edges {kw}")
+        errs.same("pair_edges", ka, kb, f"pair_edges CERT keep {kw}")
+        require(int(ka.sum()) > 0, f"pair_edges CERT {kw}: no edge kept")
+
+
+def array_sha256(a) -> str:
+    import numpy as np
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(a.astype(a.dtype.newbyteorder("<")).tobytes()).hexdigest()
+
+
+PAIR_FIELDS = ("kind", "key_a", "key_b", "count_a", "count_b", "gid_a", "gid_b",
+               "geom_a", "geom_b", "fparams", "self_pair", "active")
+
+
+def phase_golden_rdg(dev) -> None:
+    """Phase 2, RDG: edge, plan-table and point digests and the planning
+    path of every rdg.json entry, recomputed on the card."""
+    from repro_torch import api
+    from repro_torch.core import rdg
+
+    doc = json.loads((ROOT / "src" / "repro_torch" / "golden" / "rdg.json").read_text())
+    for e in doc["generate"]:
+        rdg.rdg_structure.cache_clear()
+        spec = getattr(api, e["family"])(**e["params"])
+        plan = spec.plan(e["P"], device=dev)
+        st = rdg.rdg_structure(spec.n, e["P"], spec.dim, "threefry2x32", 0, 8)
+        g = api.generate(spec, e["P"], device=dev, return_points=True)
+        got = {"m": int(len(g.edges)), "sha256": sha256_edges(g.edges),
+               "points_sha256": floats_sha256(g.points),
+               "tables": {f: array_sha256(getattr(plan, f)) for f in PAIR_FIELDS},
+               "pairs_per_pe": int(plan.pairs_per_pe),
+               "path": {"batched_rounds": st.last_rounds, "ok_rows": st.last_ok_rows,
+                        "qhull_chunks": st.last_qhull_chunks}}
+        for k, v in got.items():
+            require(v == e[k], f"golden RDG {e['params']} P={e['P']}: {k} differs")
+        print(f"  golden RDG {e['params']} P={e['P']}: {got['m']} edges, every table and the "
+              f"points equal; path {got['path']}")
+    rdg.rdg_structure.cache_clear()
+
+
+def brute_edges(points, dim: int):
+    """The periodic Delaunay graph by scipy's Qhull on the 3^d tiling of the
+    torus (an own copy of the reference's ``rdg_brute_edges``): edges with
+    an endpoint in the canonical copy, ids folded mod n, as int64 codes
+    ``max * n + min``."""
+    import itertools
+    import numpy as np
+    from scipy.spatial import Delaunay
+
+    n = len(points)
+    shifts = list(itertools.product((-1.0, 0.0, 1.0), repeat=dim))
+    tiles = np.concatenate([points + np.array(s) for s in shifts])
+    base = np.tile(np.arange(n), len(shifts))
+    center = shifts.index((0.0,) * dim)
+    canonical = np.zeros(len(tiles), bool)
+    canonical[center * n:(center + 1) * n] = True
+    simp = Delaunay(tiles).simplices
+    a = np.concatenate([simp[:, i] for i, j in itertools.combinations(range(dim + 1), 2)])
+    b = np.concatenate([simp[:, j] for i, j in itertools.combinations(range(dim + 1), 2)])
+    keep = canonical[a] | canonical[b]
+    u, v = base[a[keep]], base[b[keep]]
+    u, v = u[u != v], v[u != v]
+    return np.unique(np.maximum(u, v).astype(np.int64) * n + np.minimum(u, v))
+
+
+def rdg_checks(e, n: int, what: str):
+    """No loops, no duplicates; returns the degrees."""
+    import torch
+    require(bool((e[:, 0] > e[:, 1]).all()), f"{what}: an edge without u > v (or a loop)")
+    require(no_duplicates(e[:, 0] * n + e[:, 1]), f"{what}: duplicate edges")
+    return torch.bincount(e.reshape(-1), minlength=n)
+
+
+def phase_rdg(dev, sizes: dict) -> dict:
+    """Phase 3c: RDG at full width; returns the inputs phase 4 times."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import rdg
+
+    captured = {}
+    real_dt, real_cs = rdg.batched_delaunay, rdg.circumspheres_kernel
+
+    def capture_dt(points, counts, **kw):
+        captured.setdefault("triangulate", (points, counts))
+        return real_dt(points, counts, **kw)
+
+    def capture_cs(simp):
+        captured.setdefault("circumspheres", simp)
+        return real_cs(simp)
+
+    n = sizes["rdg2_n"]
+    spec = api.RDG(n=n, dim=2, seed=6)
+    rdg.rdg_structure.cache_clear()
+    rdg.batched_delaunay, rdg.circumspheres_kernel = capture_dt, capture_cs
+    try:
+        plan, groups, plan_s = profiled(lambda: spec.plan(1, device=dev))
+    finally:
+        rdg.batched_delaunay, rdg.circumspheres_kernel = real_dt, real_cs
+    st = rdg.rdg_structure(n, 1, 2, "threefry2x32", 0, 8)
+    print(f"  plan RDG(n={n}, dim=2) P=1: {plan.total_pairs} CERT rows, {st.last_rounds} halo "
+          f"rounds of the batched kernel ({tuple(captured['triangulate'][0].shape)} in the "
+          f"first; ok rows per round {st.last_ok_rows}), {st.last_qhull_chunks} chunks on "
+          f"Qhull, wall {plan_s:.3f}s")
+    print_breakdown("RDG 2-D plan", groups, plan_s)
+    torch.cuda.reset_peak_memory_stats(dev)
+    g, groups, wall = profiled(lambda: api.generate(spec, 1, device=dev, return_points=True))
+    peak = torch.cuda.max_memory_allocated(dev)
+    e, pts = g.edges, g.points
+    deg = rdg_checks(e, n, "RDG 2-D")
+    require(pts.shape == (n, 2) and bool(((pts >= 0) & (pts < 1)).all()),
+            "RDG 2-D: points off [0, 1)^2")
+    short = 3 * n - len(e)
+    require(short == 0, f"RDG 2-D: {len(e)} edges, a torus triangulation has 3n = {3 * n} "
+            f"(shortfall {short})")
+    require(int(deg.min()) >= 3, f"RDG 2-D: a vertex of degree {int(deg.min())} < 3")
+    chk = edge_checksum(e) % (1 << 64)
+    print(f"  generate RDG(n={n}, dim=2) P=1 with points (plan cached): {len(e)} edges = 3n, "
+          f"degrees {int(deg.min())}..{int(deg.max())}, wall {wall:.3f}s; cold generate "
+          f"{plan_s + wall:.3f}s, {len(e) / (plan_s + wall):.4g} edges/s; peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    print_breakdown("RDG 2-D generate", groups, wall)
+    cert = plan
+    del g, e, pts, deg
+    torch.cuda.empty_cache()
+
+    def stream():
+        total = waves = c = 0
+        for ch in api.iter_edge_chunks(spec, 16, device=dev, batch=sizes["batch"]):
+            ce = ch.edges()
+            total += len(ce)
+            c = (c + edge_checksum(ce)) % (1 << 64)
+            waves += 1
+        return total, waves, c
+
+    rdg.rdg_structure.cache_clear()
+    (total, waves, c), groups, swall = profiled(stream)
+    require(total == 3 * n and c == chk, "RDG 2-D: the stream at P=16 differs from generate")
+    print(f"  stream RDG(n={n}, dim=2) P=16 (planning included): {waves} waves, {total} edges, "
+          f"the same checksum as generate, {swall:.3f}s")
+    print_breakdown("RDG 2-D stream", groups, swall)
+
+    # 3-D: the batched rounds clear ok (a cavity past CAV = 96) and the
+    # chunks certify on Qhull once their regions wrap, as in the reference
+    n3 = sizes["rdg3_n"]
+    spec3 = api.RDG(n=n3, dim=3, seed=7)
+    rdg.rdg_structure.cache_clear()
+    g3, groups, wall3 = profiled(lambda: api.generate(spec3, 1, device=dev))
+    st3 = rdg.rdg_structure(n3, 1, 3, "threefry2x32", 0, 8)
+    deg3 = rdg_checks(g3.edges, n3, "RDG 3-D")
+    mean = float(deg3.double().mean())
+    want = 2 + 48 * math.pi ** 2 / 35
+    require(abs(mean - want) < 0.5, f"RDG 3-D: mean degree {mean}, want about {want:.4f}")
+    print(f"  generate RDG(n={n3}, dim=3) P=1 (planning included): {len(g3.edges)} edges, "
+          f"mean degree {mean:.4f} (Poisson-Delaunay {want:.4f}), {st3.last_rounds} halo rounds "
+          f"(ok rows per round {st3.last_ok_rows}), {st3.last_qhull_chunks} chunks on Qhull, "
+          f"wall {wall3:.3f}s")
+    print_breakdown("RDG 3-D generate", groups, wall3)
+    del g3, deg3
+    rdg.rdg_structure.cache_clear()
+    torch.cuda.empty_cache()
+
+    for nb, dim, seed in ((sizes["brute2_n"], 2, 8), (sizes["brute3_n"], 3, 9)):
+        spec_b = api.RDG(n=nb, dim=dim, seed=seed)
+        gb = api.generate(spec_b, 1, device=dev, return_points=True)
+        got = (gb.edges[:, 0] * nb + gb.edges[:, 1]).cpu().numpy()
+        t0 = time.perf_counter()
+        want = brute_edges(gb.points.cpu().numpy(), dim)
+        sym = len(np.setxor1d(got, want))
+        require(sym <= max(2, int(0.003 * len(want))),
+                f"RDG({nb}, dim={dim}) against Qhull on the tiling: {sym} edges differ")
+        print(f"  brute RDG(n={nb}, dim={dim}): {len(got)} edges, Qhull on the 3^{dim} tiling "
+              f"{len(want)} ({time.perf_counter() - t0:.1f}s), symmetric difference {sym}")
+    rdg.rdg_structure.cache_clear()
+    return {"triangulate": captured["triangulate"], "circumspheres": captured["circumspheres"],
+            "cert_plan": cert}
+
+
+def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
+    """Phase 4, Delaunay kernels at the 2-D RDG run's first halo round."""
+    import numpy as np
+    import torch
+    from repro_torch.distrib.runtime import plan_tensors
+    from repro_torch.kernels.delaunay import ops as D
+    from repro_torch.kernels.delaunay.predicates import circumsphere
+    from repro_torch.kernels.delaunay.ref import triangulate_ref
+    from repro_torch.kernels.geom import ops as G
+    from repro_torch.kernels.geom.ref import pair_edges_ref
+
+    rows = []
+    points, counts = rdgs["triangulate"]
+    pts = torch.as_tensor(np.asarray(points, np.float64), device=dev)
+    cnt = torch.as_tensor(np.asarray(counts, np.int64), device=dev)
+    B, N, dim = pts.shape
+    kw = dict(dim=dim, num_simplices=D.simplex_capacity(N, dim), cavity=D.cavity_capacity(dim),
+              group=D.group_size(dim))
+    work = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+    out, ms = sync_time(lambda: D.triangulate(pts, cnt, work=work, **kw), reps=1)
+    # the plain version once, at the same shape: its result is the check
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    wp = torch.zeros_like(work)
+    start.record()
+    ref = triangulate_ref(pts, cnt, work=wp, **kw)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    ok = ref[2]
+    require(bool(ok.all()), "the first 2-D halo round holds a row that is not ok")
+    for a, b, name in zip(out, ref, ("simp", "alive", "ok")):
+        errs.same("triangulate", a, b, f"triangulate {name} at the main path's first round")
+    errs.same("triangulate", work, wp, "triangulate trips at the main path's first round")
+    trips, scanned = (int(x) for x in work.sum(dim=0))
+    # one in-sphere test per live slot and candidate: a d-term fma dot (2d
+    # operations), the doubling, two adds and a compare
+    tests = scanned * D.group_size(dim)
+    in_bytes = pts.numel() * 8 + cnt.numel() * 8
+    out_bytes = out[0].numel() * 4 + out[1].numel() + out[2].numel()
+    rows.append(("triangulate", "src/repro_torch/kernels/delaunay/csrc/delaunay.cu",
+                 "src/repro/kernels/delaunay/delaunay.py:39", ms, plain_ms,
+                 (in_bytes + out_bytes) / HBM_BYTES_PER_S,
+                 tests * (2 * dim + 4) / FP64_OPS_PER_S, None))
+    print(f"  triangulate shape: [{B}, {N}] 2-D rows (counts {int(cnt.min())}..{int(cnt.max())}), "
+          f"S = {kw['num_simplices']}; {trips} trips, {scanned} live slots scanned, "
+          f"{tests} in-sphere tests; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    del out, ref, work, wp
+    torch.cuda.empty_cache()
+
+    simp = rdgs["circumspheres"]
+    (ca, ra, na), ms = sync_time(lambda: D.circumspheres(simp), reps=10)
+    (cb, rb, nb), plain_ms = sync_time(lambda: circumsphere(simp, fused=False), reps=3)
+    for a, b, name in ((ca, cb, "center"), (ra, rb, "r2"), (na, nb, "nondeg")):
+        errs.same("circumspheres", a, b, f"circumspheres {name} at the certification batch")
+    R, d1, d = simp.shape
+    # read each simplex once, write center, r2 and the flag; the
+    # determinants and the division are about 20 d^2 operations a simplex
+    rows.append(("circumspheres", "src/repro_torch/kernels/delaunay/csrc/delaunay.cu",
+                 "src/repro/core/rdg.py:99", ms, plain_ms,
+                 (simp.numel() * 8 + R * (8 * d + 9)) / HBM_BYTES_PER_S,
+                 R * 20 * d * d / FP64_OPS_PER_S, None))
+    print(f"  circumspheres shape: the first round's certification batch, {R} simplices "
+          f"[{d1}, {d}]")
+
+    plan = rdgs["cert_plan"]
+    full = [t.reshape(-1, *t.shape[2:]) for t in plan_tensors(plan, dev)]
+    kwp = dict(capacity=plan.capacity, dim=plan.dim, kinds=plan.kinds_present)
+    (ea, ka), ms = sync_time(lambda: G.pair_edges(*full, **kwp), reps=5)
+    (eb, kb), plain_ms = sync_time(lambda: pair_edges_ref(*full, **kwp), reps=1)
+    errs.same("pair_edges", ea, eb, "pair_edges CERT edges on the RDG 2-D plan")
+    errs.same("pair_edges", ka, kb, "pair_edges CERT keep on the RDG 2-D plan")
+    R = full[0].shape[0]
+    slots = ka.numel()
+    in_bytes = sum(t.numel() * t.element_size() for t in full)
+    # not a row of the kernels line (pair_edges has its RHG row): printed
+    print(f"  pair_edges on GEOM_CERT rows: the RDG 2-D plan, {R} rows x 16 slots, "
+          f"{int(ka.sum())} edges kept; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{(in_bytes + 17 * slots) / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+    return rows
+
+
 # kernels that no main path launches, and why
 OFF_PATH = {"pair_mask": "off the engine path, as in the reference: the engine runs its "
                          "tiles inside pair_edges, and only the reference's per-PE oracles "
@@ -831,9 +1204,11 @@ def kernel_lines(rows: list, errs: Errors, launches: dict) -> list:
 
 
 FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 << 22,
-        "rgg_n": 1 << 22, "rhg_n": 1 << 20, "batch": 1 << 15}
+        "rgg_n": 1 << 22, "rhg_n": 1 << 20, "batch": 1 << 15,
+        "rdg2_n": 1 << 20, "rdg3_n": 1 << 16, "brute2_n": 1 << 16, "brute3_n": 1 << 13}
 ER_KERNELS = ("chunk_draw", "chunk_decode", "hist")
 GEOM_KERNELS = ("pair_edges", "cell_points", "hist")
+RDG_KERNELS = ("triangulate", "circumspheres", "pair_edges", "cell_points")
 
 
 def main() -> int:
@@ -863,18 +1238,21 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernels(dev, errs)
     phase_geom_kernels(dev, errs)
+    phase_dt_kernels(dev, errs)
     print(f"phase 1 kernels == plain {time.perf_counter() - t0:.3f}s", flush=True)
 
     t0 = time.perf_counter()
     phase_golden(dev)
     phase_golden_geom(dev)
+    phase_golden_rdg(dev)
     print(f"phase 2 golden parity {time.perf_counter() - t0:.3f}s", flush=True)
 
     # each main path runs with the counters at 0 and is read right after
     launches = dict.fromkeys(build.LAUNCHES, 0)
     outs = []
     for tag, phase, kernels in (("3a Erdős–Rényi", phase_main, ER_KERNELS),
-                                ("3b geometric", phase_geom, GEOM_KERNELS)):
+                                ("3b geometric", phase_geom, GEOM_KERNELS),
+                                ("3c Delaunay", phase_rdg, RDG_KERNELS)):
         t0 = time.perf_counter()
         build.reset_launches()
         out = phase(dev, FULL)
@@ -888,7 +1266,8 @@ def main() -> int:
         outs.append(out)
 
     t0 = time.perf_counter()
-    rows = phase_timing(dev, outs[0], errs) + geom_timing(dev, outs[1], errs)
+    rows = (phase_timing(dev, outs[0], errs) + geom_timing(dev, outs[1], errs)
+            + rdg_timing(dev, outs[2], errs))
     kernels = kernel_lines(rows, errs, launches)
     print(f"phase 4 timing {time.perf_counter() - t0:.3f}s", flush=True)
 

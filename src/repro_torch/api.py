@@ -1,13 +1,16 @@
 """``GraphSpec -> plan -> run`` front door of the PyTorch/CUDA port (the
-Erdős-Rényi, RGG and RHG slice of ``repro.api``).
+Erdős-Rényi, RGG, RHG and RDG slice of ``repro.api``).
 
-1. **Spec**: :class:`GNM` / :class:`GNP` / :class:`RGG` / :class:`RHG`,
-   frozen dataclasses carrying the seed and the model parameters.
-2. **Plan**: ``spec.plan(P, rng_impl=...)`` runs the host recursion and
-   emits the ``[P, C]`` table (a ChunkPlan for G(n,m) / G(n,p), a
-   PairPlan of candidate cell pairs for RGG / RHG), equal field by field
-   to the reference's; ``spec.point_plan(P)`` emits the geometric
-   families' vertex cells.
+1. **Spec**: :class:`GNM` / :class:`GNP` / :class:`RGG` / :class:`RHG` /
+   :class:`RDG`, frozen dataclasses carrying the seed and the model
+   parameters.
+2. **Plan**: ``spec.plan(P, rng_impl=..., device=...)`` runs the host
+   recursion and emits the ``[P, C]`` table (a ChunkPlan for G(n,m) /
+   G(n,p), a PairPlan of candidate cell pairs for RGG / RHG, of certified
+   Delaunay simplices for RDG), equal field by field to the reference's;
+   ``spec.point_plan(P)`` emits the geometric families' vertex cells.
+   Only RDG's planning launches kernels (the triangulation and its
+   certificates), on ``device``; the other families ignore it.
 3. **Run / stream**: :func:`generate` executes the whole table and
    returns a :class:`Graph`; :func:`iter_edge_chunks` yields one row's
    fixed-capacity buffer at a time (or ``batch`` rows), and
@@ -35,6 +38,7 @@ import torch
 
 from .core import er as _er
 from .core import graph as _graph
+from .core import rdg as _rdg
 from .core import rgg as _rgg
 from .core import rhg as _rhg
 from .core.prng import THREEFRY
@@ -112,7 +116,7 @@ class GNM:
     def num_vertices(self) -> int:
         return self.n
 
-    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG):
+    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
         k = _virtual_chunks(self.chunks, P)
         f = _er.gnm_directed_plan if self.directed else _er.gnm_undirected_plan
         return engine.deal_plan(f(self.seed, self.n, self.m, k, rng_impl), P)
@@ -131,7 +135,7 @@ class GNP:
     def num_vertices(self) -> int:
         return self.n
 
-    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG):
+    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
         k = _virtual_chunks(self.chunks, P)
         f = _er.gnp_directed_plan if self.directed else _er.gnp_undirected_plan
         return engine.deal_plan(f(self.seed, self.n, self.p, k, rng_impl), P)
@@ -151,11 +155,11 @@ class RGG:
     def num_vertices(self) -> int:
         return self.n
 
-    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG):
+    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
         return _rgg.rgg_pair_plan(self.seed, self.n, self.radius, P, self.dim,
                                   rng_impl, chunk_P=_virtual_chunks(self.chunks, P))
 
-    def point_plan(self, P: int, *, rng_impl: str = DEFAULT_RNG):
+    def point_plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
         """PointPlan over the same virtual cell grid the edge plan
         regenerates, so streamed positions match ``Graph.points``."""
         return _rgg.rgg_point_plan(self.seed, self.n, self.radius, P, self.dim,
@@ -181,19 +185,46 @@ class RHG:
         return _rhg.RHGParams(n=self.n, avg_deg=self.avg_deg,
                               gamma=self.gamma, seed=self.seed)
 
-    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG):
+    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
         return _rhg.rhg_pair_plan(self.params, P, rng_impl)
 
-    def point_plan(self, P: int, *, rng_impl: str = DEFAULT_RNG):
+    def point_plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
         """Polar PointPlan over the engine cell layout: the hashed streams
         the pair plan recomputes for its edge tests."""
         return _rhg.rhg_engine_point_plan(self.params, P, rng_impl)
 
 
+@dataclass(frozen=True)
+class RDG:
+    """Random Delaunay graph on the unit torus [0,1)^dim (paper §6)."""
+    n: int
+    dim: int = 2
+    seed: int = 0
+    chunks: Optional[int] = None
+    directed: bool = False
+
+    @property
+    def num_vertices(self) -> int:
+        return self.n
+
+    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
+        """The GEOM_CERT PairPlan; the halo protocol's triangulations and
+        certificates run on ``device``."""
+        return _rdg.rdg_pair_plan(self.seed, self.n, P, self.dim, rng_impl,
+                                  chunk_P=self.chunks or 0,
+                                  device=runtime.resolve_device(device))
+
+    def point_plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
+        """PointPlan over the RDG cell grid (the grid the edge plan's
+        triangulations draw their points from)."""
+        return _rdg.rdg_point_plan(self.seed, self.n, P, self.dim, rng_impl,
+                                   chunk_P=self.chunks or 0)
+
+
 def _all_points(spec, P: int, dev, rng_impl: str) -> torch.Tensor:
     """Every vertex position of a geometric spec in vertex-id order: the
     point plan's cells run at once and scattered by their first id."""
-    plan = spec.point_plan(P, rng_impl=rng_impl)
+    plan = spec.point_plan(P, rng_impl=rng_impl, device=dev)
     pts, mask = runtime.run(plan, dev)
     slot = torch.arange(plan.capacity, device=dev)
     gid = torch.from_numpy(plan.gid0).to(dev)[:, :, None] + slot
@@ -207,10 +238,10 @@ def generate(spec, P: int = 1, *, device=None, rng_impl: str = DEFAULT_RNG,
     """Generate ``spec`` across P virtual PEs on ``device`` (CUDA unless
     ``"cpu"``); returns a :class:`Graph` whose edges are the
     reference's, in the reference's order.  ``return_points`` also
-    fills ``Graph.points`` for the geometric families (RGG, RHG: polar
-    ``(r, θ)``)."""
+    fills ``Graph.points`` for the geometric families (RGG, RDG; RHG:
+    polar ``(r, θ)``)."""
     dev = runtime.resolve_device(device)
-    payload, valid = runtime.run(spec.plan(P, rng_impl=rng_impl), dev)
+    payload, valid = runtime.run(spec.plan(P, rng_impl=rng_impl, device=dev), dev)
     edges = payload[valid]
     del payload, valid
     points = None
@@ -229,7 +260,7 @@ def iter_edge_chunks(spec, P: int = 1, *, device=None,
     reproduces ``generate(spec, P).edges``; on one device the stream
     order is generate order.  ``batch > 1`` yields batched buffers."""
     dev = runtime.resolve_device(device)
-    plan = spec.plan(P, rng_impl=rng_impl)
+    plan = spec.plan(P, rng_impl=rng_impl, device=dev)
     chunk_counts = plan.count if isinstance(plan, engine.ChunkPlan) else None
     for pe, slots, payload, valid in runtime.stream_slots(
             plan, batch=batch, prefetch=prefetch, device=dev):
@@ -252,7 +283,7 @@ def iter_points(spec, P: int = 1, *, device=None, rng_impl: str = DEFAULT_RNG,
             f"{type(spec).__name__} has no vertex positions to stream "
             f"(only the geometric families carry points)")
     dev = runtime.resolve_device(device)
-    plan = point_plan(P, rng_impl=rng_impl)
+    plan = point_plan(P, rng_impl=rng_impl, device=dev)
     for pe, slots, payload, valid in runtime.stream_slots(
             plan, batch=batch, prefetch=prefetch, device=dev):
         if batch <= 1:

@@ -12,6 +12,7 @@ cell's points from its hashed key (``kernels/geom``).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from dataclasses import dataclass
 from functools import lru_cache
@@ -22,7 +23,7 @@ import torch
 
 from ..distrib.engine import (GEOM_TORUS, POINTS_CUBE, PairPlan, make_pair_plan,
                               make_point_plan, require_counter_rng)
-from .chunking import chunks_per_dim
+from .chunking import chunks_per_dim, cube_chunks_for_pe
 from .prng import THREEFRY, PhiloxReplayer, device_key, fold_in_many, hash_paths
 from .sampling import round_up_capacity
 from .variates import binomial
@@ -54,6 +55,12 @@ class CellGrid:
         for c in cell:
             cid = cid * self.g + int(c)
         return cid
+
+    def chunk_cells(self, chunk: Cell) -> List[Cell]:
+        """The cells of one chunk, first coordinate outermost."""
+        cc = self.cells_per_chunk_dim
+        return [tuple(c) for c in itertools.product(*(range(x * cc, (x + 1) * cc)
+                                                       for x in chunk))]
 
 
 def make_grid(n: int, radius: float, P: int, dim: int) -> CellGrid:
@@ -147,6 +154,45 @@ class CellSplitTree:
         return cnt[self._leaf], off[self._leaf]
 
 
+def local_cells_for_pe(grid: CellGrid, P: int, pe: int) -> List[Cell]:
+    """Cells of PE ``pe``: the grid's Morton chunks dealt round-robin (the
+    chunk grid is ``grid.cpd``, so any P deals the same instance)."""
+    cells: List[Cell] = []
+    for ch in cube_chunks_for_pe(P, grid.dim, pe, cpd=grid.cpd):
+        cells.extend(grid.chunk_cells(ch))
+    return cells
+
+
+def cell_keys(seed: int, cell_ids: np.ndarray, rng_impl: str = THREEFRY) -> np.ndarray:
+    """uint32 ``[k, 2]`` keys of the given row-major cell ids: the hashed
+    streams every point plan and pair plan regenerates."""
+    base = device_key(seed, _TAG_PTS, impl=rng_impl)
+    ids = torch.as_tensor(np.asarray(cell_ids, np.int64))
+    return fold_in_many(base, ids).numpy().astype(np.uint32).reshape(len(ids), 2)
+
+
+def grid_point_plan(seed: int, grid: CellGrid, n: int, P: int, rng_impl: str = THREEFRY,
+                    tree: "CellSplitTree | None" = None):
+    """Cube PointPlan over a cell grid: every cell once, dealt to PEs by
+    Morton chunk (paper §5.1), keyed by cell id; each cell's first vertex
+    id in ``gid0``.  Shared by RGG and RDG (which differ only in the cell
+    side).  The counts come from the split-tree replay."""
+    tree = tree or CellSplitTree(grid)
+    counts, offsets = tree.counts_offsets(seed, n)
+    per_pe, gid0 = [], []
+    for pe in range(P):
+        cells = local_cells_for_pe(grid, P, pe)
+        coords = np.asarray(cells, np.int64).reshape(len(cells), grid.dim)
+        ids = np.array([grid.cell_id(c) for c in cells], np.int64)
+        per_pe.append((cell_keys(seed, ids, rng_impl), counts[ids], coords,
+                       np.ones((len(cells), 1), np.float64)))
+        gid0.append(offsets[ids])
+    plan = make_point_plan(per_pe, POINTS_CUBE, scale=float(grid.g), dim=grid.dim,
+                           rng_impl=rng_impl, gid0=gid0)
+    return dataclasses.replace(
+        plan, reseed_fn=lambda s: grid_point_plan(s, grid, n, P, rng_impl, tree))
+
+
 def _neighbor_offsets(dim: int, rho: int) -> List[Cell]:
     rng = range(-rho, rho + 1)
     if dim == 2:
@@ -223,9 +269,7 @@ class RggStructure:
 
     def _keys(self, seed: int) -> np.ndarray:
         """uint32 [num_cells, 2] cell keys, by row-major cell id."""
-        base = device_key(seed, _TAG_PTS, impl=self.rng_impl)
-        ids = torch.arange(self.grid.num_cells, dtype=torch.int64)
-        return fold_in_many(base, ids).numpy().astype(np.uint32)
+        return cell_keys(seed, np.arange(self.grid.num_cells), self.rng_impl)
 
     def emit(self, seed: int) -> PairPlan:
         """The GEOM_TORUS PairPlan for ``seed``."""

@@ -1,7 +1,7 @@
 """Plan tables and their batched device programs (port of
 ``repro.distrib.engine``): ChunkPlans for the sampled families,
 PointPlans for the vertex positions and PairPlans for the geometric
-edges of RGG and RHG.
+edges of RGG, RHG and RDG.
 
 The host divide-and-conquer recursions emit a ``[P, C]`` table of chunk
 rows -- key, universe, count, decode parameters, owned bit -- and the
@@ -431,7 +431,7 @@ def _point_cell_fn(plan_kind: str, capacity: int, dim: int, scale: float,
 
 
 # --------------------------------------------------------------------------
-# pair plans: the geometric edge table (RHG / RGG; RDG not ported yet)
+# pair plans: the geometric edge table (RHG, RGG and RDG)
 # --------------------------------------------------------------------------
 
 # key impls whose draws are a pure function of (key, slot), the invariant
@@ -703,10 +703,6 @@ def _pair_fn(capacity: int, rng_impl: str, kinds: Sequence[int] = (GEOM_HYP,),
     active bit."""
     require_counter_rng(rng_impl)
     kinds = tuple(sorted(frozenset(int(k) for k in kinds) - {GEOM_EMPTY}))
-    if GEOM_CERT in kinds:
-        raise NotImplementedError(
-            "GEOM_CERT rows (RDG, the delaunay_call kernel) are not ported "
-            "yet: ROADMAP queue 1, item 1 (RDG)")
 
     def rows(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_b,
              fparams, self_pair, active):

@@ -34,17 +34,19 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: library name -> (source relative to kernels/, extra nvcc flags).
 #: The sampler's decode must not contract ``1 + 8x`` into an FMA: the
 #: float estimate would then differ from XLA-CPU's before its fix-up.
-#: The geometric libraries fuse exactly where XLA-CPU does, with explicit
-#: ``fma``, and nowhere else.
+#: The geometric and Delaunay libraries fuse exactly where XLA-CPU does,
+#: with explicit ``fma``, and nowhere else.
 SOURCES: Dict[str, tuple] = {
     "sampler": ("sampler/csrc/sampler.cu", ["-fmad=false"]),
     "hist": ("hist/csrc/hist.cu", []),
     "pairmask": ("pairmask/csrc/pairmask.cu", ["-fmad=false"]),
     "geom": ("geom/csrc/geom.cu", ["-fmad=false"]),
+    "delaunay": ("delaunay/csrc/delaunay.cu", ["-fmad=false"]),
 }
 
 LAUNCHES: Dict[str, int] = {"chunk_draw": 0, "chunk_decode": 0, "hist": 0,
-                            "pair_mask": 0, "pair_edges": 0, "cell_points": 0}
+                            "pair_mask": 0, "pair_edges": 0, "cell_points": 0,
+                            "triangulate": 0, "circumspheres": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -1,0 +1,130 @@
+"""Wrappers of the Delaunay kernels (``csrc/delaunay.cu``) and the
+capacities of the batched triangulation (port of
+``repro.kernels.delaunay.ops``).
+
+For tensors on the CPU each wrapper computes its plain version
+(:mod:`.ref`, :mod:`.predicates`); for CUDA tensors it launches its
+kernel on the current stream, counts the launch in ``build.LAUNCHES``
+and raises if the launch fails.  There is no fallback from one to the
+other.
+
+Capacities are static per (padded size, dim) bucket, as the reference's:
+``simplex_capacity`` is the slot budget (2-D retriangulation is Euler
+exact, 3-D may leak slots), ``cavity_capacity`` the largest cavity one
+insertion may delete, ``group_size`` the candidates per trip.  An
+overflow clears the row's ``ok`` and the planner expands the halo.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import build
+from .predicates import circumsphere
+from .ref import triangulate_ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_longlong
+_C = ctypes.c_int
+_SIGNATURES = {
+    "triangulate": [_P, _P, _I, _I, _I, _C, _C, _C, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "circumspheres": [_P, _I, _C, _P, _P, _P, _P],
+}
+
+
+def _lib():
+    return build.library("delaunay", _SIGNATURES)
+
+
+def simplex_capacity(n: int, dim: int) -> int:
+    return 2 * n + 16 if dim == 2 else 8 * n + 64
+
+
+def cavity_capacity(dim: int) -> int:
+    return 32 if dim == 2 else 96
+
+
+def group_size(dim: int) -> int:
+    return 4
+
+
+def triangulate(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simplices: int,
+                cavity: int, group: int, work: torch.Tensor | None = None):
+    """``(simp int32 [B, S, d+1], alive bool [B, S], ok bool [B])`` of
+    ``B`` padded rows (see :func:`.ref.triangulate_ref`): ``pts`` float64
+    ``[B, N, d]``, ``cnt`` int64 ``[B]``.  ``work`` (int64 ``[B, 2]``)
+    receives each row's trips and the alive slots its trips scanned; on
+    the card a row stops at the trip that clears its ``ok``."""
+    if pts.device.type == "cpu":
+        return triangulate_ref(pts, cnt, dim=dim, num_simplices=num_simplices,
+                               cavity=cavity, group=group, work=work)
+    B, N, d = pts.shape
+    dev = pts.device
+    if d != dim or (dim, cavity, group) not in ((2, 32, 4), (3, 96, 4)):
+        raise ValueError(f"triangulate runs (dim, cavity, group) = (2, 32, 4) or "
+                         f"(3, 96, 4) on {dim}-dimensional points; got {d}-dimensional "
+                         f"points with ({dim}, {cavity}, {group})")
+    build.check_arg(pts, "pts", torch.float64, (B, N, d), dev)
+    build.check_arg(cnt, "cnt", torch.int64, (B,), dev)
+    S = num_simplices
+    simp = torch.empty((B, S, d + 1), dtype=torch.int32, device=dev)
+    alive = torch.empty((B, S), dtype=torch.bool, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    cc = torch.empty((B, S, d), dtype=torch.float64, device=dev)
+    rr = torch.empty((B, S), dtype=torch.float64, device=dev)
+    ss = torch.empty((B, S), dtype=torch.float64, device=dev)
+    ins = torch.empty((B, N), dtype=torch.uint8, device=dev)
+    if work is None:
+        work = torch.empty((B, 2), dtype=torch.int64, device=dev)
+    build.check_arg(work, "work", torch.int64, (B, 2), dev)
+    if B:
+        build.check(_lib().triangulate(
+            pts.data_ptr(), cnt.data_ptr(), B, N, S, dim, cavity, group, simp.data_ptr(),
+            alive.data_ptr(), ok.data_ptr(), cc.data_ptr(), rr.data_ptr(), ss.data_ptr(),
+            ins.data_ptr(), work.data_ptr(), build.stream_arg(dev)), "triangulate")
+        build.LAUNCHES["triangulate"] += 1
+    return simp, alive, ok
+
+
+def circumspheres(simp: torch.Tensor):
+    """``(center float64 [R, d], r2 float64 [R], nondeg bool [R])`` of
+    ``R`` simplices ``simp`` float64 ``[R, d+1, d]``, rounded as the
+    reference's planning pass rounds them (see
+    :func:`.predicates.circumsphere`, ``fused=False``)."""
+    if simp.device.type == "cpu":
+        return circumsphere(simp, fused=False)
+    R, dev = simp.shape[0], simp.device
+    d = simp.shape[-1]
+    build.check_arg(simp, "simp", torch.float64, (R, d + 1, d), dev)
+    if d not in (2, 3):
+        raise ValueError(f"circumspheres takes d in (2, 3), got {d}")
+    center = torch.empty((R, d), dtype=torch.float64, device=dev)
+    r2 = torch.empty(R, dtype=torch.float64, device=dev)
+    nondeg = torch.empty(R, dtype=torch.bool, device=dev)
+    if R:
+        build.check(_lib().circumspheres(simp.data_ptr(), R, d, center.data_ptr(),
+                                         r2.data_ptr(), nondeg.data_ptr(),
+                                         build.stream_arg(dev)), "circumspheres")
+        build.LAUNCHES["circumspheres"] += 1
+    return center, r2, nondeg
+
+
+def batched_delaunay(points, counts, *, dim: int, device=None):
+    """Triangulate ``B`` padded point rows in one launch: ``points``
+    ``[B, N, d]`` float64 and ``counts`` ``[B]`` (numpy arrays or
+    tensors), on ``device`` (CUDA unless ``"cpu"``).  Returns ``(simp,
+    alive, ok)`` tensors: the alive slots triangulate each row's points
+    plus its super-simplex (vertex ids ``>= N``); a row that is not
+    ``ok`` must be rebuilt with a larger halo.  Count-0 rows cost no
+    trips."""
+    from ...distrib.runtime import resolve_device
+
+    dev = resolve_device(device)
+    pts = torch.as_tensor(points, dtype=torch.float64).to(dev).contiguous()
+    cnt = torch.as_tensor(counts, dtype=torch.int64).to(dev).contiguous()
+    B, N, d = pts.shape
+    if d != dim:
+        raise ValueError(f"points are {d}-dimensional, expected {dim}")
+    return triangulate(pts, cnt, dim=dim, num_simplices=simplex_capacity(N, dim),
+                       cavity=cavity_capacity(dim), group=group_size(dim))

@@ -1,12 +1,15 @@
 // Geometric engine kernels: the candidate-pair program (pair_edges) of RGG
-// (GEOM_TORUS) and RHG (GEOM_HYP) plans, and the cell program (cell_points)
-// of cube and polar point plans.
+// (GEOM_TORUS), RHG (GEOM_HYP) and RDG (GEOM_CERT) plans, and the cell
+// program (cell_points) of cube and polar point plans.
 //
 // pair_edges replaces repro/distrib/engine.py::_pair_fn (line 1050) for
 // GEOM_TORUS and GEOM_HYP rows, which evaluates the pair_mask TPU kernel's
 // tiles inline (engine.py:1093-1109; repro/kernels/pairmask/pairmask.py:34,
-// :43).  cell_points replaces engine.py::_point_cell_fn (line 644).  XLA
-// lowers both from jnp; the threshold tests are the pair_mask tiles
+// :43), and for GEOM_CERT rows (engine.py:1111-1117), which re-certify one
+// Delaunay simplex with the shared Cramer predicate
+// (../../delaunay/csrc/predicates.cuh) and emit its host-masked edges.
+// cell_points replaces engine.py::_point_cell_fn (line 644).  XLA lowers
+// both from jnp; the threshold tests are the pair_mask tiles
 // (../../pairmask/csrc/tiles.cuh), shared with the pair_mask kernel.
 //
 // What bounds them on an H100, and what the design does about it:
@@ -35,6 +38,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "../../delaunay/csrc/predicates.cuh"
 #include "../../pairmask/csrc/tiles.cuh"
 #include "../../sampler/csrc/threefry.cuh"
 
@@ -42,7 +46,7 @@ namespace {
 
 constexpr int kThreads = 256;  // cell_points' block
 constexpr int kRowThreads = 128;
-constexpr int kGeomHyp = 1, kGeomTorus = 2;
+constexpr int kGeomHyp = 1, kGeomTorus = 2, kGeomCert = 3;
 constexpr double kLog2 = 0.69314718055994529;
 constexpr double kAcoshLarge = 8.9884656743115785e+307;  // 2^1023
 constexpr double kTwoM53 = 1.1102230246251565e-16;       // 2^-53
@@ -96,13 +100,21 @@ __global__ void pair_edges_kernel(
     int64_t F, const bool* __restrict__ self_pair, const bool* __restrict__ active,
     int64_t cap, int dim, longlong2* __restrict__ edges, bool* __restrict__ keep) {
   extern __shared__ double smem[];  // side a: [cap, 4], side b: [cap, 4]
+  __shared__ bool cert;
   const int64_t r = blockIdx.x;
   const int k = kind[r];
-  const bool hyp = k == kGeomHyp;
-  const bool live = active[r] && (hyp || k == kGeomTorus);
+  const bool hyp = k == kGeomHyp, cert_row = k == kGeomCert;
+  const bool live = active[r] && (hyp || k == kGeomTorus || cert_row);
   const int64_t ca = count_a[r], cb = count_b[r];
   const double* fp = fparams + r * F;
-  if (live) {
+  if (live && cert_row) {
+    // the simplex in geom_a[:(dim+1) dim], the region box in geom_b[:2 dim]
+    if (threadIdx.x == 0) {
+      const double* box = geom_b + r * G;
+      cert = dim == 2 ? dt_circumsphere_in_box<2>(geom_a + r * G, box, box + 2)
+                      : dt_circumsphere_in_box<3>(geom_a + r * G, box, box + 3);
+    }
+  } else if (live) {
     for (int64_t t = threadIdx.x; t < 2 * cap; t += blockDim.x) {
       const bool side_b = t >= cap;
       const int64_t i = side_b ? t - cap : t;
@@ -122,18 +134,27 @@ __global__ void pair_edges_kernel(
   }
   __syncthreads();
   const bool once_only = self_pair[r];
-  const int64_t ga = gid_a[r * K], gb = gid_b[r * K];
-  const float r2 = (float)fp[1];
+  const int64_t* ids = gid_a + r * K;
+  const int64_t ga = ids[0], gb = gid_b[r * K];
+  const float r2 = k == kGeomTorus ? (float)fp[1] : 0.0f;  // CERT rows may have F = 1
   const double* fa = smem;
   const double* fb = smem + 4 * cap;
   const int64_t slots = cap * cap;
   for (int64_t s = threadIdx.x; s < slots; s += blockDim.x) {
     const int64_t i = s / cap, j = s % cap;
     bool hit = live && i < ca && j < cb && (!once_only || i < j);
-    if (hit)
+    int64_t u = ga + i, v = gb + j;
+    if (cert_row) {
+      // edge (ids[i], ids[j]) when bit pair_slot_index(i, j, cap) of gid_b[0] is set
+      int64_t bit = i * (cap - 1) - i * (i - 1) / 2 + (j - i - 1);
+      bit = bit < 0 ? 0 : (bit > 62 ? 62 : bit);
+      hit = hit && cert && ((gb >> bit) & 1);
+      u = ids[i < K ? i : K - 1];
+      v = ids[j < K ? j : K - 1];
+    } else if (hit) {
       hit = hyp ? hyp_tile(fa + 4 * i, fb + 4 * j, fp[1])
                 : euclid_tile((const float*)(fa + 4 * i), (const float*)(fb + 4 * j), dim, r2);
-    const int64_t u = ga + i, v = gb + j;
+    }
     edges[r * slots + s] = make_longlong2(u > v ? u : v, u > v ? v : u);
     keep[r * slots + s] = hit;
   }

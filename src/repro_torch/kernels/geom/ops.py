@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from .. import build
-from .ref import (GEOM_EMPTY, GEOM_HYP, GEOM_TORUS, POINTS_CUBE, POINTS_POLAR,
+from .ref import (GEOM_CERT, GEOM_EMPTY, GEOM_HYP, GEOM_TORUS, POINTS_CUBE, POINTS_POLAR,
                   cell_points_ref, pair_edges_ref)
 
 _P = ctypes.c_void_p
@@ -33,7 +33,7 @@ def _lib():
 def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_b,
                fparams, self_pair, active, *, capacity: int, dim: int, kinds):
     """(edges int64 ``[R, capacity^2, 2]``, keep bool ``[R, capacity^2]``)
-    of ``R`` GEOM_TORUS / GEOM_HYP candidate-pair rows (see
+    of ``R`` GEOM_TORUS / GEOM_HYP / GEOM_CERT candidate-pair rows (see
     :func:`.ref.pair_edges_ref`).  ``kind`` int32 ``[R]``; keys int32
     ``[R, 2]`` (the uint32 words' bits); counts int64 ``[R]``; gids int64
     ``[R, K]``; geoms float64 ``[R, G]``; ``fparams`` float64 ``[R, F]``;
@@ -56,12 +56,14 @@ def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_
     build.check_arg(fparams, "fparams", torch.float64, (R, F), dev)
     build.check_arg(self_pair, "self_pair", torch.bool, (R,), dev)
     build.check_arg(active, "active", torch.bool, (R,), dev)
-    if set(kinds) - {GEOM_EMPTY, GEOM_HYP, GEOM_TORUS}:
-        raise ValueError(f"pair_edges runs GEOM_TORUS and GEOM_HYP rows, got {kinds}")
-    need = max(4 if GEOM_HYP in kinds else 0, dim if GEOM_TORUS in kinds else 0)
-    if F < 2 or G < need or dim not in (2, 3):
-        raise ValueError(f"pair_edges: want F >= 2, G >= {need}, dim 2 or 3; "
-                         f"got F={F}, G={G}, dim={dim}")
+    if set(kinds) - {GEOM_EMPTY, GEOM_HYP, GEOM_TORUS, GEOM_CERT}:
+        raise ValueError(f"pair_edges runs GEOM_TORUS, GEOM_HYP and GEOM_CERT rows, got {kinds}")
+    need = max(4 if GEOM_HYP in kinds else 0, dim if GEOM_TORUS in kinds else 0,
+               (dim + 1) * dim if GEOM_CERT in kinds else 0)
+    need_f = 2 if {GEOM_HYP, GEOM_TORUS} & set(kinds) else 1
+    if F < need_f or G < need or K < 1 or dim not in (2, 3):
+        raise ValueError(f"pair_edges: want F >= {need_f}, G >= {need}, K >= 1, dim 2 or 3; "
+                         f"got F={F}, G={G}, K={K}, dim={dim}")
     slots = capacity * capacity
     edges = torch.empty((R, slots, 2), dtype=torch.int64, device=dev)
     keep = torch.empty((R, slots), dtype=torch.bool, device=dev)

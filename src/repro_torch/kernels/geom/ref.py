@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the geometric engine kernels: the per-row
-candidate-pair program of ``repro.distrib.engine._pair_fn`` (GEOM_TORUS
-and GEOM_HYP) and the cell program of ``_point_cell_fn``.
+candidate-pair program of ``repro.distrib.engine._pair_fn`` (GEOM_TORUS,
+GEOM_HYP and GEOM_CERT) and the cell program of ``_point_cell_fn``.
 
 Both regenerate a cell's points from its hashed key with the counter
 uniforms of :func:`repro_torch.core.prng.counter_uniform` and decode
@@ -22,6 +22,12 @@ exp(r - log 2) + exp(-log 2 - r)`` and ``sinh r`` is ``(e + e / (e +
 - r)`` above.  Every divisor is a tensor: on the card a division by a
 Python float would be a multiplication by its reciprocal.
 
+A GEOM_CERT row (RDG) re-certifies one Delaunay simplex: the Cramer
+circumsphere of ``geom_a[:(d+1) d]`` must lie inside the box ``geom_b[:2
+d]`` (:func:`repro_torch.kernels.delaunay.predicates.circumsphere_in_box`),
+and slot pair ``(i, j)`` emits the edge of the row's vertex ids ``gid_a[i],
+gid_a[j]`` when bit ``pair_slot_index(i, j, cap)`` of ``gid_b[0]`` is set.
+
 The CUDA kernels (``csrc/geom.cu``) compute the same operations in the
 same order, so on the card they equal these functions bit for bit.
 """
@@ -30,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ...core.prng import counter_uniform
+from ..delaunay.predicates import circumsphere_in_box
 from ..pairmask.ref import euclid_tile, hyp_tile
 
 # geometry kinds of the pair table and point kinds of the cell table (the
@@ -87,11 +94,12 @@ def pair_edges_ref(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a,
                    kinds=(GEOM_HYP, GEOM_TORUS)):
     """(edges int64 ``[R, capacity^2, 2]``, keep bool ``[R, capacity^2]``)
     of ``R`` candidate-pair rows: slot ``i * capacity + j`` holds the
-    canonical edge ``(max, min)`` of ``gid_a + i`` and ``gid_b + j`` and
-    keeps it when both slots hold points (``i < count_a``, ``j <
-    count_b``), ``i < j`` on a self pair, the row is active and the
-    row's geometry test passes.  ``fparams`` is ``(g, r^2)`` on TORUS
-    rows and ``(alpha, cosh R)`` on HYP rows."""
+    canonical edge ``(max, min)`` of ``gid_a + i`` and ``gid_b + j`` (on
+    a CERT row, of ``gid_a[i]`` and ``gid_a[j]``) and keeps it when both
+    slots hold points (``i < count_a``, ``j < count_b``), ``i < j`` on a
+    self pair, the row is active and the row's geometry test passes.
+    ``fparams`` is ``(g, r^2)`` on TORUS rows and ``(alpha, cosh R)`` on
+    HYP rows."""
     N = capacity
     R = kind.shape[0]
     dev = kind.device
@@ -111,9 +119,20 @@ def pair_edges_ref(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a,
         pb = (cube_draw(key_b, geom_b, N, dim) / g).to(torch.float32)
         near = euclid_tile(pa, pb, fparams[:, 1, None, None].to(torch.float32), dim)
         hit = torch.where((kind == GEOM_TORUS)[:, None, None], near, hit)
-    keep = hit & valid & once & active[:, None, None]
     ga = gid_a[:, 0, None, None] + I
     gb = gid_b[:, 0, None, None] + J
+    if GEOM_CERT in kinds:
+        cert_row = (kind == GEOM_CERT)[:, None, None]
+        simp = geom_a[:, :(dim + 1) * dim].reshape(R, dim + 1, dim)
+        cert = circumsphere_in_box(simp, geom_b[:, :dim], geom_b[:, dim:2 * dim])
+        slot = (I * (N - 1) - torch.div(I * (I - 1), 2, rounding_mode="floor")
+                + (J - I - 1)).clamp(0, 62)
+        bit = torch.bitwise_right_shift(gid_b[:, 0, None, None], slot) & 1
+        hit = torch.where(cert_row, (bit == 1) & cert[:, None, None], hit)
+        kmax = gid_a.shape[-1] - 1
+        ga = torch.where(cert_row, gid_a[:, I.clamp(0, kmax)[0]], ga)
+        gb = torch.where(cert_row, gid_a[:, J.clamp(0, kmax)[0]], gb)
+    keep = hit & valid & once & active[:, None, None]
     edges = torch.stack(torch.broadcast_tensors(torch.maximum(ga, gb),
                                                 torch.minimum(ga, gb)), dim=-1)
     return edges.reshape(R, N * N, 2), keep.reshape(R, N * N)

@@ -5,12 +5,15 @@ skips when there is none (CUDA kernels have no CPU mode).  Every
 comparison is exact (``torch.equal``).  Run on a machine with an H100 and
 ``nvcc``: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import api
 from repro_torch.distrib.runtime import plan_tensors
 from repro_torch.kernels import build
+from repro_torch.kernels.delaunay import ops as D
+from repro_torch.kernels.delaunay.ref import triangulate_ref
 from repro_torch.kernels.geom import ops as G
 from repro_torch.kernels.geom.ref import cell_points_ref, pair_edges_ref
 from repro_torch.kernels.hist import ops as H
@@ -176,3 +179,73 @@ def test_geometric_kernels_refuse_wrong_arguments(cuda):
         M.pair_mask(a.double(), a.double(), 1.0, tile="euclid")
     with pytest.raises(ValueError):
         M.pair_mask(a, a, 1.0, tile="hyp")
+
+
+def _dt_rows(dim, seed, B=8, N=200):
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(dim + 2, N + 1, B)
+    cnt[[1, 5]] = [0, N]
+    pts = rng.random((B, N, dim))
+    pts[2, 50:60] = pts[2, :10]                          # repeated points: not ok
+    return torch.from_numpy(pts), torch.from_numpy(cnt)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_triangulate_matches_plain(cuda, dim):
+    pts, cnt = _dt_rows(dim, 70 + dim)
+    N = pts.shape[1]
+    kw = dict(dim=dim, num_simplices=D.simplex_capacity(N, dim),
+              cavity=D.cavity_capacity(dim), group=D.group_size(dim))
+    wk = torch.zeros((len(cnt), 2), dtype=torch.int64, device=cuda)
+    wp = torch.zeros((len(cnt), 2), dtype=torch.int64)
+    before = build.LAUNCHES["triangulate"]
+    ks, ka, ko = (t.cpu() for t in D.triangulate(pts.to(cuda), cnt.to(cuda), work=wk, **kw))
+    assert build.LAUNCHES["triangulate"] == before + 1
+    ps, pa, po = triangulate_ref(pts, cnt, work=wp, **kw)
+    assert torch.equal(ko, po) and int(po.sum()) >= 6
+    assert torch.equal(ks[po], ps[po]) and torch.equal(ka[po], pa[po])
+    assert torch.equal(wk.cpu()[po], wp[po])
+
+
+def test_triangulate_ties_clear_ok_as_plain(cuda):
+    sq = torch.tensor([[[0.2, 0.2], [0.8, 0.2], [0.8, 0.8], [0.2, 0.8]]], dtype=torch.float64)
+    line = torch.stack([torch.linspace(0.1, 0.9, 5, dtype=torch.float64),
+                        torch.full((5,), 0.5, dtype=torch.float64)], 1)[None]
+    for pts, n in ((sq, 4), (line, 5)):
+        cnt = torch.tensor([n])
+        _, _, ok = D.batched_delaunay(pts.to(cuda), cnt.to(cuda), dim=2, device=cuda)
+        assert not bool(ok[0])
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_circumspheres_matches_plain(cuda, dim):
+    s = torch.rand((50000, dim + 1, dim), dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(dim))
+    s[0, 1] = s[0, 0]
+    before = build.LAUNCHES["circumspheres"]
+    got = D.circumspheres(s.to(cuda))
+    assert build.LAUNCHES["circumspheres"] == before + 1
+    for g, w in zip(got, D.circumspheres(s)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("kw", [dict(n=3000, seed=8), dict(n=2100, dim=3, seed=9)],
+                         ids=["rdg2", "rdg3"])
+def test_rdg_on_the_card_equals_cpu(cuda, kw):
+    from repro_torch.core import rdg
+
+    spec = api.RDG(**kw)
+    plan = spec.plan(3, device=cuda)
+    rdg.rdg_structure.cache_clear()
+    cpu_plan = spec.plan(3, device="cpu")
+    rdg.rdg_structure.cache_clear()
+    for f in ("gid_a", "gid_b", "geom_a", "geom_b", "active"):
+        assert np.array_equal(getattr(plan, f), getattr(cpu_plan, f)), f
+    rows = _plan_rows(plan, cuda)
+    kwp = dict(capacity=plan.capacity, dim=plan.dim, kinds=plan.kinds_present)
+    ea, ka = G.pair_edges(*rows, **kwp)
+    eb, kb = pair_edges_ref(*rows, **kwp)
+    assert torch.equal(ea, eb) and torch.equal(ka, kb) and bool(ka.any())
+    a = api.generate(spec, 3, device=cuda, return_points=True)
+    b = api.generate(spec, 3, device="cpu", return_points=True)
+    assert torch.equal(a.edges.cpu(), b.edges) and torch.equal(a.points.cpu(), b.points)

@@ -203,12 +203,24 @@ def test_edges_are_canonical_and_within_reach():
 
 
 def test_cert_rows_and_non_counter_rngs_raise():
+    """A GEOM_CERT row beside GEOM_TORUS rows runs (RDG is ported) and
+    equals the reference on the same table; non-counter key impls still
+    raise."""
     jspec, _ = specs("rgg2")
     ref = jspec.plan(1)
     tables = {f: getattr(ref, f).copy() for f in PAIR_FIELDS}
+    for f in ("geom_a", "geom_b"):        # room for a 2-D simplex and its box
+        tables[f] = np.concatenate([tables[f], np.ones(tables[f].shape[:2] + (4,))], axis=2)
     tables["kind"][0, 0] = jeng.GEOM_CERT
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.pair_plan_from_arrays(tables, ref.capacity, ref.dim).slot_fn()
+    tables["geom_a"][0, 0] = [0.30, 0.30, 0.45, 0.32, 0.33, 0.41]
+    tables["geom_b"][0, 0, :4] = [0.0, 0.0, 1.0, 1.0]
+    tables["gid_b"][0, 0, 0] = 0b1011
+    want = jeng.PairPlan(**tables, capacity=ref.capacity, dim=ref.dim)
+    payload, keep, _ = jrt.run(want)
+    tp, tk = trt.run(teng.pair_plan_from_arrays(tables, ref.capacity, ref.dim), "cpu")
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(keep))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(payload))
+    assert bool(tk[0, 0].any())
     with pytest.raises(ValueError, match="counter"):
         teng.require_counter_rng("rbg")
     with pytest.raises(ValueError):

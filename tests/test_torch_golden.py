@@ -3,7 +3,9 @@
 ``src/repro_torch/golden/er.json`` records, from the JAX package on the
 CPU, SHA-256 digests of ``generate(spec, P).edges`` and the exact degree
 statistics of one ``collect``; ``geom.json`` the RGG and RHG edge
-digests, ``iter_points`` digests and a sample of RHG features.  The JAX
+digests, ``iter_points`` digests and a sample of RHG features;
+``rdg.json`` the RDG edge, plan-table and point digests and each spec's
+planning path.  The JAX
 package must still reproduce every entry except the mid-size ones (the
 command is in the files), and the port on the CPU must reproduce the
 small ones.  Digests and integers are compared exactly; the port's RHG
@@ -25,6 +27,8 @@ DOC = json.loads(torch_golden.GOLDEN.read_text())
 SMALL = [e for e in DOC["generate"] if e["size"] == "small"]
 GEOM = json.loads(torch_golden.GEOM.read_text())
 GEOM_SMALL = [e for e in GEOM["generate"] if e["size"] == "small"]
+RDG = json.loads(torch_golden.RDG.read_text())
+RDG_SMALL = [e for e in RDG["generate"] if e["size"] == "small"]
 
 
 def _id(e):
@@ -104,3 +108,45 @@ def test_rhg_features_sample():
     assert {k: v for k, v in fresh.items() if k != "cpu_ulps"} == {
         k: v for k, v in e.items() if k != "cpu_ulps"}
     assert all(u <= 64 for u in fresh["cpu_ulps"].values()), fresh["cpu_ulps"]
+
+
+def port_rdg_entry(family: str, params: dict, P: int, size: str) -> dict:
+    """:func:`torch_golden.rdg_entry` computed by the port on the CPU."""
+    from repro_torch.core import rdg
+
+    rdg.rdg_structure.cache_clear()
+    spec = getattr(tapi, family)(**params)
+    plan = spec.plan(P, device="cpu")
+    st = rdg.rdg_structure(spec.n, P, spec.dim, "threefry2x32", 0, 8)
+    g = tapi.generate(spec, P, device="cpu", return_points=True)
+    return {"family": family, "params": params, "P": P, "size": size, "m": int(len(g.edges)),
+            "sha256": torch_golden.edges_sha256(g.edges.numpy()),
+            "points_sha256": torch_golden.floats_sha256(g.points.numpy()),
+            "tables": {f: torch_golden.array_sha256(getattr(plan, f))
+                       for f in torch_golden.PAIR_FIELDS},
+            "pairs_per_pe": int(plan.pairs_per_pe),
+            "path": {"batched_rounds": st.last_rounds, "ok_rows": st.last_ok_rows,
+                     "qhull_chunks": st.last_qhull_chunks}}
+
+
+def test_the_rdg_file_names_its_command_and_entries():
+    assert RDG["command"] == torch_golden.COMMAND
+    assert [(e["family"], e["params"], e["P"]) for e in RDG_SMALL] == [
+        (*torch_golden.RDG_SMALL, P) for P in torch_golden.SMALL_PES]
+    mid = [e for e in RDG["generate"] if e["size"] == "mid"]
+    assert [(e["family"], e["params"]) for e in mid] == [torch_golden.RDG_MID]
+    for e in RDG["generate"]:
+        assert e["m"] == 3 * e["params"]["n"] or e["params"]["dim"] == 3
+        assert set(e["tables"]) == set(torch_golden.PAIR_FIELDS)
+    assert mid[0]["path"]["batched_rounds"] >= 1          # the 3-D spec runs the kernel
+
+
+@pytest.mark.parametrize("entry", RDG_SMALL, ids=lambda e: f"P{e['P']}")
+def test_reference_reproduces_rdg_entry(entry):
+    assert torch_golden.rdg_entry(entry["family"], entry["params"], entry["P"],
+                                  "small") == entry
+
+
+@pytest.mark.parametrize("entry", RDG_SMALL, ids=lambda e: f"P{e['P']}")
+def test_port_reproduces_rdg_entry_on_cpu(entry):
+    assert port_rdg_entry(entry["family"], entry["params"], entry["P"], "small") == entry

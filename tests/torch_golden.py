@@ -17,7 +17,14 @@ and, into ``src/repro_torch/golden/geom.json``:
   order; for RHG the angles only, since its radii match to a few ulp);
 * the reference's hyperbolic features ``[cos θ, sin θ, coth r, 1/sinh r]``
   and radii of a few RHG candidate-pair rows, as hex floats, and the
-  worst ulp distance of the port's plain version on the CPU from them.
+  worst ulp distance of the port's plain version on the CPU from them;
+and, into ``src/repro_torch/golden/rdg.json``:
+* for one 2-D RDG spec (at P in {1, 8}) and one 3-D RDG spec (P = 1,
+  mid-size), the digests of the edges, of every table of the plan
+  (``spec.plan(P)``) and of ``generate(..., return_points=True).points``,
+  and the path the spec's planning takes: the batched triangulation's
+  halo rounds, the rows of each round that came back ``ok``, and the
+  chunks that ran Qhull because their region wraps the torus.
 
 Run from the root of the repository (the mid-size specs take about a
 minute of CPU)::
@@ -37,6 +44,7 @@ import numpy as np
 
 GOLDEN = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "golden" / "er.json"
 GEOM = GOLDEN.with_name("geom.json")
+RDG = GOLDEN.with_name("rdg.json")
 COMMAND = "PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py"
 
 SMALL = [
@@ -57,6 +65,10 @@ GEOM_SMALL = [
 ]
 GEOM_MID = ("RGG", dict(n=1 << 16, radius=0.55 * (np.log(1 << 16) / (1 << 16)) ** 0.5,
                         dim=2, seed=4))
+RDG_SMALL = ("RDG", dict(n=1 << 13, dim=2, seed=21))
+RDG_MID = ("RDG", dict(n=1 << 13, dim=3, seed=22))
+PAIR_FIELDS = ("kind", "key_a", "key_b", "count_a", "count_b", "gid_a", "gid_b",
+               "geom_a", "geom_b", "fparams", "self_pair", "active")
 POINTS_P = 3
 FEATURE_ROWS = 16     # RHG candidate-pair rows whose side-a features are kept
 
@@ -173,6 +185,57 @@ def geom_doc() -> dict:
             "rhg_features": features_entry(*GEOM_SMALL[2])}
 
 
+def array_sha256(a: np.ndarray) -> str:
+    """Digest of an array as stored: its dtype in little-endian, C order."""
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(a.astype(a.dtype.newbyteorder("<")).tobytes()).hexdigest()
+
+
+def rdg_entry(family: str, params: dict, P: int, size: str) -> dict:
+    """Edge, table and point digests of one RDG spec, and its planning
+    path (halo rounds of the batched triangulation, chunks on Qhull)."""
+    from repro import api
+    from repro.core import rdg
+    from repro.kernels import delaunay
+
+    path = {"batched_rounds": 0, "ok_rows": [], "qhull_chunks": 0}
+    batched, certified = delaunay.batched_delaunay, rdg._certified_triangulation
+
+    def count_round(points, counts, **k):
+        path["batched_rounds"] += 1
+        out = batched(points, counts, **k)
+        path["ok_rows"].append(int(np.asarray(out[2])[np.asarray(counts) > 0].sum()))
+        return out
+
+    def count_qhull(*a, **k):
+        path["qhull_chunks"] += 1
+        return certified(*a, **k)
+
+    rdg.rdg_structure.cache_clear()
+    delaunay.batched_delaunay, rdg._certified_triangulation = count_round, count_qhull
+    try:
+        spec = getattr(api, family)(**params)
+        plan = spec.plan(P)
+    finally:
+        delaunay.batched_delaunay, rdg._certified_triangulation = batched, certified
+    g = api.generate(spec, P, return_points=True)
+    return {"family": family, "params": params, "P": P, "size": size,
+            "m": int(len(g.edges)), "sha256": edges_sha256(np.asarray(g.edges)),
+            "points_sha256": floats_sha256(np.asarray(g.points)),
+            "tables": {f: array_sha256(getattr(plan, f)) for f in PAIR_FIELDS},
+            "pairs_per_pe": int(plan.pairs_per_pe), "path": path}
+
+
+def rdg_doc() -> dict:
+    entries = [rdg_entry(*RDG_SMALL, P, "small") for P in SMALL_PES]
+    entries.append(rdg_entry(*RDG_MID, 1, "mid"))
+    return {"command": COMMAND,
+            "digest": "sha256 of edges as little-endian int64 [m, 2], of points as "
+                      "little-endian float64 [n, dim], of each plan table as stored "
+                      "(little-endian, C order)",
+            "generate": entries}
+
+
 def main() -> None:
     entries = [generate_entry(f, p, P, "small") for f, p in SMALL for P in SMALL_PES]
     entries.append(generate_entry(*MID, 1, "mid"))
@@ -184,6 +247,8 @@ def main() -> None:
     print(f"wrote {GOLDEN}")
     GEOM.write_text(json.dumps(geom_doc(), indent=1) + "\n")
     print(f"wrote {GEOM}")
+    RDG.write_text(json.dumps(rdg_doc(), indent=1) + "\n")
+    print(f"wrote {RDG}")
 
 
 if __name__ == "__main__":
