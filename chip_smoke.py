@@ -35,17 +35,22 @@ or of the JAX package.  Phases, each printed with its seconds:
       insertion, so its halo rounds end on Qhull once the regions wrap,
       and RDG(n=2^18, dim=3) raises "halo did not converge" there as here;
       see ROADMAP §3);
-   each checked on the device.  ``pair_mask`` is not on any path: as in
+   each checked on the device; each ``collect`` must launch ``hist`` once
+   per non-empty chunk plus once per section histogram.  ``pair_mask`` is
+   not on any path: as in
    the reference, the engine runs its tiles inside ``pair_edges``, and
    only the reference's per-PE oracles call the kernel itself.
 4. each kernel timed at its main-path shape beside its plain version,
    the library call computing the same function (where there is one)
    and its bound (``pair_mask`` at its own contract's shape, the
    128-row cell blocks of the oracles, built from the main path's pair
-   rows and held against ``pair_edges``' keep; ``triangulate``,
-   ``circumspheres`` and the CERT rows of ``pair_edges`` at the inputs of
-   the 2-D RDG run's first halo round); then the ``kernels`` line and the
-   result line.
+   rows and held against ``pair_edges``' keep; ``triangulate`` at every
+   halo round of the 2-D RDG plan, with its cluster size and its trip
+   split into parts by the kernel's clock64 counters, ``circumspheres``
+   and the CERT rows of ``pair_edges`` at the inputs of its first round;
+   ``hist`` also by the profiler's device time per call, beside
+   ``index_add_``); then the ``kernels`` line and the result line.  The
+   kernel timings also print the median and min–max of their reps.
 
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
@@ -67,9 +72,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 FP32_OPS_PER_S = 67e12
-# float64 on the tensor cores (the data sheet's fastest float64 rate): the
-# in-sphere scan of triangulate is a [slots, d] x [d, G] product
-FP64_OPS_PER_S = 67e12
+# float64 outside the tensor cores = 132 SMs x 64 FP64 lanes x 2 (an FMA)
+# x 1.98 GHz: the in-sphere scan of triangulate and the circumspheres are
+# scalar float64 FMA chains whose rounding the tensor cores do not
+# reproduce
+FP64_OPS_PER_S = 132 * 64 * 2 * 1.98e9
 # Threefry-2x32: 20 rounds of (add, rotate, xor) plus 6 key injections of
 # two adds; chunk_draw runs three per drawn slot (the 64-bit modulo is not
 # counted, so the bound is a lower bound)
@@ -92,9 +99,13 @@ def sha256_edges(edges) -> str:
     return hashlib.sha256(np.ascontiguousarray(edges.cpu().numpy(), "<i8").tobytes()).hexdigest()
 
 
-def sync_time(fn, reps: int = 3):
+def sync_time(fn, reps: int = 3, label: str = ""):
     """(result of the last call, mean ms per call) timed with CUDA events
-    after one warm-up call."""
+    after one warm-up call: the span of ``reps`` back-to-back calls over
+    their count.  With a label and more than one rep, a second pass times
+    each call by an event pair of its own and prints their median and
+    min–max beside the mean."""
+    import statistics
     import torch
     out = fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -104,7 +115,20 @@ def sync_time(fn, reps: int = 3):
         out = fn()
     stop.record()
     torch.cuda.synchronize()
-    return out, start.elapsed_time(stop) / reps
+    mean = start.elapsed_time(stop) / reps
+    if label and reps > 1:
+        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+        for a, b in ev:
+            a.record()
+            out = fn()
+            b.record()
+        torch.cuda.synchronize()
+        each = [a.elapsed_time(b) for a, b in ev]
+        print(f"  time {label}: mean {mean:.6f} ms back to back; one at a time median "
+              f"{statistics.median(each):.6f}, min {min(each):.6f}, max {max(each):.6f} "
+              f"({reps} reps)")
+    return out, mean
 
 
 class Errors:
@@ -174,6 +198,14 @@ def phase_kernels(dev, errs: Errors) -> None:
         errs.same("hist", H.hist_counts(v, bins, log2=log2, drop=drop),
                   hist_counts_ref(v, bins, log2=log2, drop=drop),
                   f"hist bins={bins} log2={log2} drop={drop}")
+    # runs of equal ids (the warp adds each run once), views off the
+    # 16-byte load width and of odd length
+    runs = torch.repeat_interleave(v[:1 << 16], torch.randint(1, 33, (1 << 16,), device=dev,
+                                                              generator=g))
+    for bins in (1 << 22, 8192, 1000):
+        for w in (runs, runs[1:], runs[3:-2], v[5:6]):
+            errs.same("hist", H.bincount_ids(w, bins), hist_counts_ref(w, bins, drop=True),
+                      f"hist runs bins={bins} n={w.numel()}")
 
 
 def exact_fma(x, y, z, single: bool) -> float:
@@ -359,8 +391,8 @@ def no_duplicates(key) -> bool:
 # device kernel name -> group in the time breakdown; torch.sort's radix
 # sort has a histogram kernel of its own, so "sort" is matched first
 KERNEL_GROUPS = (("sort", "sort"), ("chunk_draw_kernel", "chunk_draw"),
-                 ("chunk_decode_kernel", "chunk_decode"), ("hist_shared_kernel", "hist"),
-                 ("hist_global_kernel", "hist"), ("pair_mask_kernel", "pair_mask"),
+                 ("chunk_decode_kernel", "chunk_decode"), ("hist_kernel", "hist"),
+                 ("pair_mask_kernel", "pair_mask"),
                  ("pair_edges_kernel", "pair_edges"), ("cell_points_kernel", "cell_points"),
                  ("triangulate_kernel", "triangulate"), ("circumspheres_kernel", "circumspheres"))
 
@@ -390,6 +422,41 @@ def profiled(fn):
     return out, groups, wall
 
 
+def device_ms_per_call(fn, reps: int):
+    """Device ms per call of ``fn`` over ``reps`` back-to-back calls, from
+    the profiler (every kernel in the window); None where it saw none."""
+    _, groups, _ = profiled(lambda: [fn() for _ in range(reps)])
+    return sum(groups.values()) / reps if groups else None
+
+
+def graph_ms_per_call(fn, calls: int) -> float:
+    """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph and replayed, timed with CUDA events (no host time between
+    them)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.6f} ms"
+
+
 def print_breakdown(what: str, groups: dict, wall: float) -> None:
     """Device ms by kernel group and the device's idle share of ``wall``."""
     if not groups:
@@ -400,6 +467,35 @@ def print_breakdown(what: str, groups: dict, wall: float) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items()))
           + f"; device busy {busy:.3f} ms of {wall * 1e3:.3f} ms wall "
           f"(idle share {1 - busy / (wall * 1e3):.3f})")
+
+
+def counted_collect(spec, P: int, dev, **kw):
+    """``collect(spec, P)`` with its ``hist`` launches and its non-empty
+    chunks counted; requires one ``hist`` launch per non-empty chunk and
+    orientation, plus one log2 histogram per section and orientation."""
+    from repro_torch import api
+    from repro_torch.kernels import build
+
+    real = api.iter_edge_chunks
+    nonempty = [0]
+
+    def chunks(*a, **k):
+        for ch in real(*a, **k):
+            nonempty[0] += ch.count > 0 if ch.count is not None else bool(ch.mask.any())
+            yield ch
+
+    before = build.LAUNCHES["hist"]
+    api.iter_edge_chunks = chunks
+    try:
+        rep = api.collect(spec, P, device=dev, **kw)
+    finally:
+        api.iter_edge_chunks = real
+    launches = build.LAUNCHES["hist"] - before
+    sides = 2 if rep.directed else 1
+    require(launches == sides * (nonempty[0] + P),
+            f"collect {spec} P={P}: {launches} hist launches, want one per non-empty chunk "
+            f"({nonempty[0]}) plus {P} histograms, per orientation ({sides})")
+    return rep, launches, nonempty[0]
 
 
 def phase_main(dev, sizes: dict) -> dict:
@@ -453,14 +549,15 @@ def phase_main(dev, sizes: dict) -> dict:
 
     cn = sizes["collect_n"]
     cspec = api.GNP(n=cn, p=16 / cn, seed=3)
-    rep, groups, cwall = profiled(lambda: api.collect(cspec, 1, device=dev))
+    (rep, hl, nc), groups, cwall = profiled(lambda: counted_collect(cspec, 1, dev))
     d = rep.degree
     require(int(d.log2_hist.sum()) == cn, "collect: log2 histogram does not sum to n")
     require(d.deg_sum == 2 * rep.num_edges, "collect: degree sum is not twice the edges")
     require(torch.equal(log2_histogram(d.degrees), hist_counts_ref(d.degrees, LOG2_BINS, log2=True)),
             "collect: hist kernel differs from its plain version on the degrees")
     print(f"  collect GNP(n={cn}) P=1: {rep.num_edges} edges, mean degree "
-          f"{rep.mean_degree:.4f}, max {d.deg_max}, {cwall:.3f}s")
+          f"{rep.mean_degree:.4f}, max {d.deg_max}, {cwall:.3f}s; {hl} hist launches for "
+          f"{nc} non-empty chunks")
     print_breakdown("collect", groups, cwall)
     return {"plan": plan, "collect_spec": cspec}
 
@@ -587,16 +684,19 @@ def phase_geom(dev, sizes: dict) -> dict:
           f"{hwall:.3f}s, {len(he) / hwall:.4g} edges/s, peak device memory "
           f"{hpeak / 2**30:.3f} GiB; same edges as the P={P} stream")
     print_breakdown("RHG generate", groups, hwall)
+    hdeg = torch.bincount(he.reshape(-1), minlength=hn)
     del h, he
     torch.cuda.empty_cache()
 
-    rep, groups, cwall = profiled(lambda: api.collect(hspec, P, device=dev, batch=sizes["batch"]))
+    (rep, hl, nc), groups, cwall = profiled(
+        lambda: counted_collect(hspec, P, dev, batch=sizes["batch"]))
     d = rep.degree
     require(rep.num_edges == total, f"collect RHG: {rep.num_edges} edges, stream {total}")
     require(d.deg_sum == 2 * total and int(d.log2_hist.sum()) == hn,
             "collect RHG: degree sum or histogram off")
+    require(torch.equal(d.degrees, hdeg), "collect RHG: degrees differ from the P=1 edges'")
     print(f"  collect RHG(n={hn}) P={P}: mean degree {rep.mean_degree:.4f}, max {d.deg_max}, "
-          f"{cwall:.3f}s")
+          f"{cwall:.3f}s; {hl} hist launches for {nc} non-empty waves")
     print_breakdown("RHG collect", groups, cwall)
     return {"rgg_plan": plan, "rgg_spec": spec, "rhg_plan": hplan}
 
@@ -657,7 +757,8 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     full = pair_rows(plan)
     cap = plan.capacity
     kw = dict(capacity=cap, dim=plan.dim, kinds=plan.kinds_present)
-    _, rgg_ms = sync_time(lambda: G.pair_edges(*full, **kw)[1].sum(), reps=2)
+    _, rgg_ms = sync_time(lambda: G.pair_edges(*full, **kw)[1].sum(), reps=2,
+                          label="pair_edges, RGG generate shape")
     slots = plan.active.size * cap ** 2
     points = int(((full[3] + full[4]) * full[-1]).sum())
     in_bytes = sum(t.numel() * t.element_size() for t in full)
@@ -686,7 +787,7 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     b = oracle_blocks((cube_draw(key_b, geom_b, cap, 2) / g).to(torch.float32), count_b,
                       EUCLID_PAD_ROW)
     r2 = float(fparams[0, 1])
-    out, ms = sync_time(lambda: pair_mask(a, b, r2, tile="euclid", dim=2))
+    out, ms = sync_time(lambda: pair_mask(a, b, r2, tile="euclid", dim=2), label="pair_mask")
     ref, plain_ms = sync_time(lambda: pair_mask_ref(a, b, r2, tile="euclid", dim=2), reps=1)
     errs.same("pair_mask", out, ref, "pair_mask euclid at its contract's shape")
     require(torch.equal(mask_to_keep(out, part, GEOM_TORUS, cap), rgg_keep),
@@ -710,7 +811,7 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     wave = pair_rows(hplan, s[:, 0] * hplan.pairs_per_pe + s[:, 1])
     cap = hplan.capacity
     kw = dict(capacity=cap, dim=hplan.dim, kinds=hplan.kinds_present)
-    (ea, ka), ms = sync_time(lambda: G.pair_edges(*wave, **kw))
+    (ea, ka), ms = sync_time(lambda: G.pair_edges(*wave, **kw), label="pair_edges, RHG wave")
     (eb, kb), plain_ms = sync_time(lambda: pair_edges_ref(*wave, **kw), reps=1)
     errs.same("pair_edges", ea, eb, "pair_edges edges at the RHG wave shape")
     errs.same("pair_edges", ka, kb, "pair_edges keep at the RHG wave shape")
@@ -748,7 +849,7 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     pp = main["rgg_spec"].point_plan(1)
     prow = pair_rows(pp)
     kw = dict(kind=pp.kind, scale=pp.scale, capacity=pp.capacity, dim=pp.dim)
-    (pa, ma), ms = sync_time(lambda: G.cell_points(*prow, **kw))
+    (pa, ma), ms = sync_time(lambda: G.cell_points(*prow, **kw), label="cell_points")
     (pb, mb), plain_ms = sync_time(lambda: cell_points_ref(*prow, **kw), reps=1)
     errs.same("cell_points", pa, pb, "cell_points at the RGG point-plan shape")
     errs.same("cell_points", ma, mb, "cell_points mask at the RGG point-plan shape")
@@ -784,7 +885,7 @@ def phase_timing(dev, main: dict, errs: Errors) -> list:
     slots = kind.numel() * cap
     rows = []
 
-    out, ms = sync_time(lambda: S.chunk_draw(key, uni, cnt, 0, cap))
+    out, ms = sync_time(lambda: S.chunk_draw(key, uni, cnt, 0, cap), label="chunk_draw")
     ref, plain_ms = sync_time(lambda: chunk_draw_ref(key, uni, cnt, 0, cap), reps=1)
     errs.same("chunk_draw", out, ref, "chunk_draw at full width")
     del out, ref
@@ -795,7 +896,8 @@ def phase_timing(dev, main: dict, errs: Errors) -> list:
 
     vals = sample_rows(key, uni, cnt, cap)
     _, sort_ms = sync_time(lambda: torch.sort(vals, dim=-1))
-    (ea, ka), ms = sync_time(lambda: S.chunk_decode(vals, kind, params, cnt, owned))
+    (ea, ka), ms = sync_time(lambda: S.chunk_decode(vals, kind, params, cnt, owned), reps=10,
+                             label="chunk_decode")
     (eb, kb), plain_ms = sync_time(lambda: chunk_decode_ref(vals, kind, params, cnt, owned), reps=1)
     errs.same("chunk_decode", ea, eb, "chunk_decode at full width")
     errs.same("chunk_decode", ka, kb, "chunk_decode keep at full width")
@@ -814,20 +916,33 @@ def phase_timing(dev, main: dict, errs: Errors) -> list:
     bins = cspec.n
     acc = torch.zeros(bins, dtype=torch.int64, device=dev)
     ones = torch.ones_like(ids)
-    _, ms = sync_time(lambda: bincount_ids(ids, bins, out=acc), reps=10)
+    # back-to-back calls from Python (host and device), the kernel and
+    # index_add_ in turns (kernel, library, library, kernel) because the
+    # host's pace drifts; then the device time per call, by the profiler
+    # and by replaying 100 captured calls
+    hist_call = lambda: bincount_ids(ids, bins, out=acc)       # noqa: E731
+    lib_call = lambda: acc.index_add_(0, ids, ones)            # noqa: E731
+    turns = [sync_time(f, reps=100, label=k)[1] for k, f in (
+        ("hist kernel, host loop", hist_call), ("hist index_add_, host loop", lib_call),
+        ("hist index_add_, host loop", lib_call), ("hist kernel, host loop", hist_call))]
+    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     _, plain_ms = sync_time(lambda: acc.add_(hist_counts_ref(ids, bins, drop=True)), reps=10)
-    _, lib_ms = sync_time(lambda: acc.index_add_(0, ids, ones), reps=10)
     _, bincount_ms = sync_time(lambda: torch.bincount(ids, minlength=bins), reps=10)
+    dev_ms = {k: (device_ms_per_call(f, 50), graph_ms_per_call(f, 100))
+              for k, f in (("kernel", hist_call), ("index_add_", lib_call))}
     errs.same("hist", bincount_ids(ids, bins), hist_counts_ref(ids, bins, drop=True),
               "hist at its main-path shape")
     touched = int(torch.unique(ids).numel())
     # each id read once, each touched bin's count read and written once
+    bound = (ids.numel() * 8 + touched * 16) / HBM_BYTES_PER_S
     rows.append(("hist", "src/repro_torch/kernels/hist/csrc/hist.cu",
-                 "src/repro/kernels/hist/hist.py:54", ms, plain_ms,
-                 (ids.numel() * 8 + touched * 16) / HBM_BYTES_PER_S, 0.0, lib_ms))
-    print(f"  hist shape: {ids.numel()} ids into {bins} bins ({touched} touched); "
-          f"kernel {ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
-          f"torch.bincount (new array) {bincount_ms:.4f} ms")
+                 "src/repro/kernels/hist/hist.py:54", ms, plain_ms, bound, 0.0, lib_ms))
+    print(f"  hist shape: {ids.numel()} ids into {bins} bins ({touched} touched); host loop "
+          f"kernel {ms:.6f} ms, index_add_ {lib_ms:.6f} ms, torch.bincount (new array) "
+          f"{bincount_ms:.6f} ms; device time per call (profiler; graph replay) kernel "
+          f"{fmt_ms(dev_ms['kernel'][0])}; {dev_ms['kernel'][1]:.6f} ms, index_add_ "
+          f"{fmt_ms(dev_ms['index_add_'][0])}; {dev_ms['index_add_'][1]:.6f} ms, byte bound "
+          f"{bound * 1e3:.6f} ms")
 
     return rows
 
@@ -1011,7 +1126,7 @@ def phase_rdg(dev, sizes: dict) -> dict:
     real_dt, real_cs = rdg.batched_delaunay, rdg.circumspheres_kernel
 
     def capture_dt(points, counts, **kw):
-        captured.setdefault("triangulate", (points, counts))
+        captured.setdefault("triangulate", []).append((points, counts))
         return real_dt(points, counts, **kw)
 
     def capture_cs(simp):
@@ -1027,10 +1142,10 @@ def phase_rdg(dev, sizes: dict) -> dict:
     finally:
         rdg.batched_delaunay, rdg.circumspheres_kernel = real_dt, real_cs
     st = rdg.rdg_structure(n, 1, 2, "threefry2x32", 0, 8)
+    shapes = [tuple(np.shape(p)) for p, _ in captured["triangulate"]]
     print(f"  plan RDG(n={n}, dim=2) P=1: {plan.total_pairs} CERT rows, {st.last_rounds} halo "
-          f"rounds of the batched kernel ({tuple(captured['triangulate'][0].shape)} in the "
-          f"first; ok rows per round {st.last_ok_rows}), {st.last_qhull_chunks} chunks on "
-          f"Qhull, wall {plan_s:.3f}s")
+          f"rounds of the batched kernel (shapes {shapes}; ok rows per round "
+          f"{st.last_ok_rows}), {st.last_qhull_chunks} chunks on Qhull, wall {plan_s:.3f}s")
     print_breakdown("RDG 2-D plan", groups, plan_s)
     torch.cuda.reset_peak_memory_stats(dev)
     g, groups, wall = profiled(lambda: api.generate(spec, 1, device=dev, return_points=True))
@@ -1105,26 +1220,25 @@ def phase_rdg(dev, sizes: dict) -> dict:
             "cert_plan": cert}
 
 
-def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
-    """Phase 4, Delaunay kernels at the 2-D RDG run's first halo round."""
+def dt_round_timing(dev, errs: Errors, r: int, points, counts) -> tuple:
+    """triangulate at one halo round's shape: timed, held against its
+    plain version, its trips split into parts by the kernel's clock64
+    counters; returns the round's kernels-line row."""
     import numpy as np
     import torch
-    from repro_torch.distrib.runtime import plan_tensors
     from repro_torch.kernels.delaunay import ops as D
-    from repro_torch.kernels.delaunay.predicates import circumsphere
     from repro_torch.kernels.delaunay.ref import triangulate_ref
-    from repro_torch.kernels.geom import ops as G
-    from repro_torch.kernels.geom.ref import pair_edges_ref
 
-    rows = []
-    points, counts = rdgs["triangulate"]
     pts = torch.as_tensor(np.asarray(points, np.float64), device=dev)
     cnt = torch.as_tensor(np.asarray(counts, np.int64), device=dev)
     B, N, dim = pts.shape
+    C = D.cluster_size(B, N, dim, dev)
     kw = dict(dim=dim, num_simplices=D.simplex_capacity(N, dim), cavity=D.cavity_capacity(dim),
               group=D.group_size(dim))
     work = torch.zeros((B, 2), dtype=torch.int64, device=dev)
     out, ms = sync_time(lambda: D.triangulate(pts, cnt, work=work, **kw), reps=1)
+    parts = torch.zeros((B, len(D.TRIP_PARTS)), dtype=torch.int64, device=dev)
+    D.triangulate(pts, cnt, parts=parts, **kw)
     # the plain version once, at the same shape: its result is the check
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     wp = torch.zeros_like(work)
@@ -1133,29 +1247,59 @@ def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
     stop.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(stop)
-    ok = ref[2]
-    require(bool(ok.all()), "the first 2-D halo round holds a row that is not ok")
+    require(bool(ref[2].all()), f"halo round {r} of the 2-D plan holds a row that is not ok")
     for a, b, name in zip(out, ref, ("simp", "alive", "ok")):
-        errs.same("triangulate", a, b, f"triangulate {name} at the main path's first round")
-    errs.same("triangulate", work, wp, "triangulate trips at the main path's first round")
+        errs.same("triangulate", a, b, f"triangulate {name} at halo round {r}")
+    errs.same("triangulate", work, wp, f"triangulate trips at halo round {r}")
     trips, scanned = (int(x) for x in work.sum(dim=0))
+    longest = int(work[:, 0].max())
     # one in-sphere test per live slot and candidate: a d-term fma dot (2d
     # operations), the doubling, two adds and a compare
     tests = scanned * D.group_size(dim)
     in_bytes = pts.numel() * 8 + cnt.numel() * 8
     out_bytes = out[0].numel() * 4 + out[1].numel() + out[2].numel()
-    rows.append(("triangulate", "src/repro_torch/kernels/delaunay/csrc/delaunay.cu",
-                 "src/repro/kernels/delaunay/delaunay.py:39", ms, plain_ms,
-                 (in_bytes + out_bytes) / HBM_BYTES_PER_S,
-                 tests * (2 * dim + 4) / FP64_OPS_PER_S, None))
-    print(f"  triangulate shape: [{B}, {N}] 2-D rows (counts {int(cnt.min())}..{int(cnt.max())}), "
-          f"S = {kw['num_simplices']}; {trips} trips, {scanned} live slots scanned, "
-          f"{tests} in-sphere tests; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    del out, ref, work, wp
+    bytes_s, ops_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S, tests * (2 * dim + 4) / FP64_OPS_PER_S
+    # the trip's parts: clock64 cycles summed over rows and trips
+    cyc = parts.sum(dim=0).double()
+    share = cyc / cyc.sum()
+    trip_us = ms * 1e3 / longest
+    rec_bytes = (4 if dim == 2 else 6) * 8
+    scan_bytes = scanned * rec_bytes / trips
+    scan_us = trip_us * float(share[1])
+    print(f"  triangulate halo round {r}: [{B}, {N}] {dim}-D rows (counts "
+          f"{int(cnt.min())}..{int(cnt.max())}), S = {kw['num_simplices']}, clusters of {C} CTAs "
+          f"({B * C} CTAs); {trips} trips ({longest} in the longest row), {scanned} live slots "
+          f"scanned, {tests} in-sphere tests; kernel {ms:.3f} ms ({trip_us:.3f} us a trip), "
+          f"plain {plain_ms:.3f} ms, bound {max(bytes_s, ops_s) * 1e3:.3f} ms "
+          f"({'bytes' if bytes_s >= ops_s else 'operations'})")
+    print(f"    trip parts (cycles a trip, share, us a trip): " + ", ".join(
+        f"{name} {float(c) / trips:.0f} {float(f):.3f} {trip_us * float(f):.3f}"
+        for name, c, f in zip(D.TRIP_PARTS, cyc, share)))
+    print(f"    the scan reads {scan_bytes / 1e6:.3f} MB of live slot records a trip "
+          f"({rec_bytes}-byte records): {scan_bytes / (scan_us * 1e-6) / 1e9:.1f} GB/s over its "
+          f"share of the trip")
+    return ("triangulate", "src/repro_torch/kernels/delaunay/csrc/delaunay.cu",
+            "src/repro/kernels/delaunay/delaunay.py:39", ms, plain_ms, bytes_s, ops_s, None)
+
+
+def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
+    """Phase 4, Delaunay kernels at the 2-D RDG run's halo rounds."""
+    import torch
+    from repro_torch.distrib.runtime import plan_tensors
+    from repro_torch.kernels.delaunay import ops as D
+    from repro_torch.kernels.delaunay.predicates import circumsphere
+    from repro_torch.kernels.geom import ops as G
+    from repro_torch.kernels.geom.ref import pair_edges_ref
+
+    rows = []
+    for r, (points, counts) in enumerate(rdgs["triangulate"]):
+        row = dt_round_timing(dev, errs, r, points, counts)
+        if r == 0:
+            rows.append(row)
     torch.cuda.empty_cache()
 
     simp = rdgs["circumspheres"]
-    (ca, ra, na), ms = sync_time(lambda: D.circumspheres(simp), reps=10)
+    (ca, ra, na), ms = sync_time(lambda: D.circumspheres(simp), reps=10, label="circumspheres")
     (cb, rb, nb), plain_ms = sync_time(lambda: circumsphere(simp, fused=False), reps=3)
     for a, b, name in ((ca, cb, "center"), (ra, rb, "r2"), (na, nb, "nondeg")):
         errs.same("circumspheres", a, b, f"circumspheres {name} at the certification batch")
@@ -1172,7 +1316,8 @@ def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
     plan = rdgs["cert_plan"]
     full = [t.reshape(-1, *t.shape[2:]) for t in plan_tensors(plan, dev)]
     kwp = dict(capacity=plan.capacity, dim=plan.dim, kinds=plan.kinds_present)
-    (ea, ka), ms = sync_time(lambda: G.pair_edges(*full, **kwp), reps=5)
+    (ea, ka), ms = sync_time(lambda: G.pair_edges(*full, **kwp), reps=5,
+                             label="pair_edges, CERT rows")
     (eb, kb), plain_ms = sync_time(lambda: pair_edges_ref(*full, **kwp), reps=1)
     errs.same("pair_edges", ea, eb, "pair_edges CERT edges on the RDG 2-D plan")
     errs.same("pair_edges", ka, kb, "pair_edges CERT keep on the RDG 2-D plan")

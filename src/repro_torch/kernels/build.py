@@ -113,7 +113,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed.  Every entry
     point in ``signatures`` gets its ``argtypes`` and returns the
-    ``cudaError_t`` of its launch as an int."""
+    ``cudaError_t`` of its launch as an int.  A loaded library is
+    returned without taking the lock."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -135,13 +139,16 @@ def check(err: int, kernel: str) -> None:
 def check_arg(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
     on ``device``: what a kernel reads through a raw pointer."""
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
+    if t.dtype != dtype or t.shape != tuple(shape) or t.device != device:
         raise ValueError(f"{name}: want {dtype} {tuple(shape)} on {device}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def stream_arg(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``device``, for a launch."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_arg(device) -> int:
+    """PyTorch's current CUDA stream on ``device`` (a CUDA tensor's
+    device, which has an index), as the raw pointer a launch takes: the
+    getter PyTorch's own generated kernels use, since building a
+    ``torch.cuda.Stream`` costs microseconds on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

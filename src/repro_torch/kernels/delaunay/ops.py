@@ -17,6 +17,7 @@ overflow clears the row's ``ok`` and the planner expands the halo.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,9 +29,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_longlong
 _C = ctypes.c_int
 _SIGNATURES = {
-    "triangulate": [_P, _P, _I, _I, _I, _C, _C, _C, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "triangulate": [_P, _P, _I, _I, _I, _C, _C, _C, _C, _P, _P, _P, _P, _P, _P, _P],
+    "triangulate_cluster": [_I, _I, _C, _C, _C, ctypes.POINTER(_C)],
     "circumspheres": [_P, _I, _C, _P, _P, _P, _P],
 }
+#: trip parts whose clock64 cycles ``triangulate(parts=...)`` sums per row
+TRIP_PARTS = ("candidates", "scan", "gather", "cavity", "accept", "write")
 
 
 def _lib():
@@ -49,14 +53,39 @@ def group_size(dim: int) -> int:
     return 4
 
 
+@functools.lru_cache(maxsize=None)
+def _cluster(B: int, N: int, dim: int, cavity: int, group: int, device: int) -> int:
+    c = _C(0)
+    with torch.cuda.device(device):
+        build.check(_lib().triangulate_cluster(B, N, dim, cavity, group, ctypes.byref(c)),
+                    "triangulate cluster query")
+    return c.value
+
+
+def cluster_size(B: int, N: int, dim: int, device=None) -> int:
+    """CTAs per row of :func:`triangulate` for ``B`` rows of ``N`` points
+    on ``device``: the largest of 16, 8, 4, 2 for which the card holds the
+    ``B`` clusters at once (``cudaOccupancyMaxActiveClusters``), else 1.
+    Raises where a row's N-bit bitmap does not fit in shared memory."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _cluster(int(B), int(N), dim, cavity_capacity(dim), group_size(dim), index)
+
+
 def triangulate(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simplices: int,
-                cavity: int, group: int, work: torch.Tensor | None = None):
+                cavity: int, group: int, work: torch.Tensor | None = None,
+                parts: torch.Tensor | None = None):
     """``(simp int32 [B, S, d+1], alive bool [B, S], ok bool [B])`` of
     ``B`` padded rows (see :func:`.ref.triangulate_ref`): ``pts`` float64
     ``[B, N, d]``, ``cnt`` int64 ``[B]``.  ``work`` (int64 ``[B, 2]``)
     receives each row's trips and the alive slots its trips scanned; on
-    the card a row stops at the trip that clears its ``ok``."""
+    the card a row stops at the trip that clears its ``ok``, and ``parts``
+    (int64 ``[B, 6]``, card only) the clock64 cycles its trips spent in
+    each of :data:`TRIP_PARTS`.  On the card each row runs on a cluster
+    of :func:`cluster_size` CTAs."""
     if pts.device.type == "cpu":
+        if parts is not None:
+            raise ValueError("parts counts device clock cycles: CUDA tensors only")
         return triangulate_ref(pts, cnt, dim=dim, num_simplices=num_simplices,
                                cavity=cavity, group=group, work=work)
     B, N, d = pts.shape
@@ -71,18 +100,19 @@ def triangulate(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simplices
     simp = torch.empty((B, S, d + 1), dtype=torch.int32, device=dev)
     alive = torch.empty((B, S), dtype=torch.bool, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
-    cc = torch.empty((B, S, d), dtype=torch.float64, device=dev)
-    rr = torch.empty((B, S), dtype=torch.float64, device=dev)
-    ss = torch.empty((B, S), dtype=torch.float64, device=dev)
-    ins = torch.empty((B, N), dtype=torch.uint8, device=dev)
+    # one slot record: the circumcenter, |cc|^2 and r^2 (a pad in 3-D)
+    rec = torch.empty((B, S, 4 if dim == 2 else 6), dtype=torch.float64, device=dev)
     if work is None:
         work = torch.empty((B, 2), dtype=torch.int64, device=dev)
     build.check_arg(work, "work", torch.int64, (B, 2), dev)
+    if parts is not None:
+        build.check_arg(parts, "parts", torch.int64, (B, len(TRIP_PARTS)), dev)
     if B:
+        C = cluster_size(B, N, dim, dev)
         build.check(_lib().triangulate(
-            pts.data_ptr(), cnt.data_ptr(), B, N, S, dim, cavity, group, simp.data_ptr(),
-            alive.data_ptr(), ok.data_ptr(), cc.data_ptr(), rr.data_ptr(), ss.data_ptr(),
-            ins.data_ptr(), work.data_ptr(), build.stream_arg(dev)), "triangulate")
+            pts.data_ptr(), cnt.data_ptr(), B, N, S, dim, cavity, group, C, simp.data_ptr(),
+            alive.data_ptr(), ok.data_ptr(), rec.data_ptr(), work.data_ptr(),
+            0 if parts is None else parts.data_ptr(), build.stream_arg(dev)), "triangulate")
         build.LAUNCHES["triangulate"] += 1
     return simp, alive, ok
 

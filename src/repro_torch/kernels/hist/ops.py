@@ -35,23 +35,34 @@ _SIGNATURES = {"hist": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                         ctypes.c_void_p]}
 
 
+_ENTRY = []   # the loaded ``hist`` entry point, resolved at the first launch
+
+
+def _entry():
+    if not _ENTRY:
+        _ENTRY.append(build.library("hist", _SIGNATURES).hist)
+    return _ENTRY[0]
+
+
 def hist_counts(values: torch.Tensor, num_bins: int, *, log2: bool = False,
                 drop: bool = False,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int64 counts[num_bins] of ``values``, added into ``out`` when it is
     given (in place: the degree accumulators add every chunk into one
-    section array instead of allocating a histogram per chunk)."""
-    v = values.reshape(-1).to(torch.int64).contiguous()
+    degree array instead of allocating a histogram per chunk)."""
+    v = values if values.dim() == 1 else values.reshape(-1)
+    if v.dtype != torch.int64 or not v.is_contiguous():
+        v = v.to(torch.int64).contiguous()
+    dev = v.device
     if out is None:
-        out = torch.zeros(num_bins, dtype=torch.int64, device=v.device)
-    build.check_arg(out, "out", torch.int64, (num_bins,), v.device)
-    if v.device.type == "cpu":
+        out = torch.zeros(num_bins, dtype=torch.int64, device=dev)
+    build.check_arg(out, "out", torch.int64, (num_bins,), dev)
+    if dev.type == "cpu":
         return out.add_(hist_counts_ref(v, num_bins, log2=log2, drop=drop))
-    if v.numel() and num_bins:
-        lib = build.library("hist", _SIGNATURES)
-        build.check(lib.hist(v.data_ptr(), v.numel(), num_bins, int(log2),
-                             int(drop), out.data_ptr(),
-                             build.stream_arg(v.device)), "hist")
+    n = v.numel()
+    if n and num_bins:
+        build.check(_entry()(v.data_ptr(), n, num_bins, log2, drop, out.data_ptr(),
+                             build.stream_arg(dev)), "hist")
         build.LAUNCHES["hist"] += 1
     return out
 

@@ -7,16 +7,18 @@ belongs to exactly one PE's contiguous section (the generators' own
 vertex partition); that PE's :class:`SectionDegrees` counts it, and the
 per-PE results merge additively -- each vertex counted once, for any P.
 
-Routing happens on the device: every section is handed the whole id
-batch, shifted to its own origin, and the hist kernel's drop rule
-(``bincount_ids``) discards the ids outside ``[0, size)``.  That is the
-reference's host split (``VertexOwnership.split``) without the host
-round trip.
+The sections of one pass are contiguous and cover ``[0, n)``, so
+:func:`section_views` makes them views of one int64 ``[n]`` degree array
+and a chunk's endpoint ids take one ``bincount_ids`` launch into it:
+that is the reference's host split (``VertexOwnership.split``) without
+the host round trip, and without a launch per section.  A standalone
+:class:`SectionDegrees` owns its array and counts only its own ids,
+through the hist kernel's drop rule.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -34,12 +36,14 @@ class VertexOwnership:
 
 class SectionDegrees:
     """One PE's degree accumulator over its vertex section ``[lo, hi)``:
-    an int64 device array the chunks' endpoint ids are added into."""
+    an int64 device array the chunks' endpoint ids are added into (its
+    own, or ``deg``, a view of a whole pass's array)."""
 
-    def __init__(self, lo: int, hi: int, device):
+    def __init__(self, lo: int, hi: int, device, deg: Optional[torch.Tensor] = None):
         self.lo, self.hi = int(lo), int(hi)
         self.size = self.hi - self.lo
-        self.deg = torch.zeros(self.size, dtype=torch.int64, device=device)
+        self.deg = (torch.zeros(self.size, dtype=torch.int64, device=device)
+                    if deg is None else deg)
 
     def add(self, global_ids: torch.Tensor) -> None:
         """Count the ids that fall in this section; others are dropped."""
@@ -56,6 +60,15 @@ class SectionDegrees:
             return [0, 0, 0, 0]
         m = torch.stack([d.sum(), (d * d).sum(), d.max(), (d == 0).sum()])
         return [int(x) for x in m.tolist()]
+
+
+def section_views(bounds: List[int], device) -> Tuple[torch.Tensor, List[SectionDegrees]]:
+    """One int64 ``[n]`` degree array for the contiguous sections
+    ``bounds`` (``VertexOwnership.bounds``) and a :class:`SectionDegrees`
+    viewing each section of it."""
+    deg = torch.zeros(bounds[-1], dtype=torch.int64, device=device)
+    return deg, [SectionDegrees(lo, hi, device, deg[lo:hi])
+                 for lo, hi in zip(bounds, bounds[1:])]
 
 
 @dataclass

@@ -2,7 +2,9 @@
 of the degree path of ``repro.stats.collect``).
 
 Drives :func:`repro_torch.api.iter_edge_chunks` once and adds every
-chunk's endpoints into the per-PE section accumulators on the device.
+chunk's endpoints into the per-PE section accumulators on the device:
+the sections are views of one degree array, so a chunk is one hist
+launch whatever P is.
 Peak memory is the accumulators plus one chunk buffer, never the edge
 list; the report is identical for every P and equal to the reference's.
 """
@@ -14,7 +16,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..kernels.hist.ops import bincount_ids
-from .accumulate import DegreeSummary, SectionDegrees, VertexOwnership, merge_sections
+from .accumulate import DegreeSummary, VertexOwnership, merge_sections, section_views
 
 # above this the exact per-vertex degree array is no longer returned;
 # log2 histograms + moments remain exact at any scale
@@ -85,9 +87,8 @@ def collect(
         raise ValueError(f"unknown mode {mode!r}")
 
     bounds = VertexOwnership(n, P).bounds
-    out_acc = [SectionDegrees(bounds[pe], bounds[pe + 1], dev) for pe in range(P)]
-    in_acc = ([SectionDegrees(bounds[pe], bounds[pe + 1], dev) for pe in range(P)]
-              if directed else None)
+    out_deg, out_acc = section_views(bounds, dev)
+    in_deg, in_acc = section_views(bounds, dev) if directed else (None, None)
 
     # PairPlan rows are O(capacity^2) with tiny capacities; ChunkPlan
     # buffers are O(capacity) with large ones
@@ -97,11 +98,10 @@ def collect(
                                       batch=batch):
         e = chunk.edges()
         num_edges += len(e)
-        for acc in out_acc:
-            acc.add(e[:, 0] if directed else e)
-        if directed:
-            for acc in in_acc:
-                acc.add(e[:, 1])
+        if len(e):
+            bincount_ids(e[:, 0] if directed else e, n, out=out_deg)
+            if directed:
+                bincount_ids(e[:, 1], n, out=in_deg)
 
     exact = mode == "exact"
     return StatsReport(

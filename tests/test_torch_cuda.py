@@ -22,6 +22,7 @@ from repro_torch.kernels.pairmask import ops as M
 from repro_torch.kernels.pairmask.ref import pair_mask_ref
 from repro_torch.kernels.sampler import ops as S
 from repro_torch.kernels.sampler.ref import chunk_decode_ref, chunk_draw_ref
+from torch_dt_rows import overflow_row, tie_rows
 
 pytestmark = pytest.mark.gpu
 
@@ -81,6 +82,24 @@ def test_hist_matches_plain(cuda, bins, log2, drop):
     v = torch.randint(-5, 2 * bins, (50000,), device=cuda)
     assert torch.equal(H.hist_counts(v, bins, log2=log2, drop=drop),
                        hist_counts_ref(v, bins, log2=log2, drop=drop))
+
+
+@pytest.mark.parametrize("bins", [1 << 22, 8192, 1000])
+def test_bincount_ids_runs_drops_and_alignment(cuda, bins):
+    """Runs of equal ids (one aggregated atomic per run in a warp),
+    negative ids and ids past the end (dropped), and views that start off
+    the 16-byte load width or have an odd length."""
+    g = torch.Generator(device=cuda).manual_seed(bins)
+    runs = torch.randint(-3, bins + 3, (20000,), device=cuda, generator=g)
+    ids = torch.repeat_interleave(runs, torch.randint(1, 40, (20000,), device=cuda, generator=g))
+    ids[::7] = torch.randint(-2 ** 40, -1, ids[::7].shape, device=cuda, generator=g)
+    ids[3::11] = bins + torch.randint(0, 2 ** 40, ids[3::11].shape, device=cuda, generator=g)
+    edges = torch.stack([torch.sort(runs).values, runs.flip(0)], 1).reshape(-1)
+    for v in (ids, ids[1:], ids[1:-2], ids[:1], ids[1:2], edges, edges[3:]):
+        acc = torch.full((bins,), 5, dtype=torch.int64, device=cuda)
+        got = H.bincount_ids(v, bins, out=acc)
+        assert got is acc
+        assert torch.equal(got - 5, hist_counts_ref(v, bins, drop=True))
 
 
 def test_kernels_refuse_wrong_arguments(cuda):
@@ -215,6 +234,59 @@ def test_triangulate_ties_clear_ok_as_plain(cuda):
         cnt = torch.tensor([n])
         _, _, ok = D.batched_delaunay(pts.to(cuda), cnt.to(cuda), dim=2, device=cuda)
         assert not bool(ok[0])
+
+
+def _pool_rows(dim):
+    """Padded rows of every kind: random (some padded, one empty, one with
+    repeated points), exact in-sphere ties, a cavity overflow."""
+    pts, cnt = _dt_rows(dim, 90 + dim, B=6, N=160)
+    rows = [p[:c].numpy() for p, c in zip(pts, cnt)]
+    rows += list(tie_rows(dim, 3, 40 + dim)) + [overflow_row(dim, 60 + dim)]
+    N = max(len(r) for r in rows)
+    out = np.zeros((len(rows), N, dim))
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = r
+    return out, np.array([len(r) for r in rows])
+
+
+@pytest.mark.parametrize("B", [1, 16, 32, 64, 256])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_triangulate_clusters_match_plain(cuda, dim, B):
+    """B drives the cluster size (16, 8, 4, 2, 1 CTAs a row on an H100);
+    every row equals the plain version's: ok, and simp, alive and the
+    work counts on the ok rows."""
+    pool, pool_cnt = _pool_rows(dim)
+    idx = np.arange(B) % len(pool)
+    pts, cnt = torch.from_numpy(pool[idx]), torch.from_numpy(pool_cnt[idx])
+    N = pts.shape[1]
+    kw = dict(dim=dim, num_simplices=D.simplex_capacity(N, dim),
+              cavity=D.cavity_capacity(dim), group=D.group_size(dim))
+    wk = torch.zeros((B, 2), dtype=torch.int64, device=cuda)
+    parts = torch.zeros((B, len(D.TRIP_PARTS)), dtype=torch.int64, device=cuda)
+    ks, ka, ko = (t.cpu() for t in D.triangulate(pts.to(cuda), cnt.to(cuda), work=wk,
+                                                 parts=parts, **kw))
+    wp = torch.zeros((B, 2), dtype=torch.int64)
+    ps, pa, po = triangulate_ref(pts, cnt, work=wp, **kw)
+    assert torch.equal(ko, po)
+    assert torch.equal(ks[po], ps[po]) and torch.equal(ka[po], pa[po])
+    assert torch.equal(wk.cpu()[po], wp[po])
+    # the tie rows and the overflow row are never ok, the random rows are
+    bad = torch.from_numpy((idx >= 6) | (idx == 2))
+    assert not bool(ko[bad].any()) and bool(ko[~bad].all())
+    busy = wk.cpu()[:, 0] > 0
+    assert bool((parts.cpu()[busy] >= 0).all()) and bool((parts.cpu()[busy].sum(1) > 0).all())
+
+
+def test_triangulate_cluster_sizes(cuda):
+    """C comes from B and the card: more than one CTA a row for the main
+    path's batches (16 2-D rows, the second round's single row), one for a
+    batch the card cannot hold in clusters."""
+    sizes = [D.cluster_size(B, 69_888, 2, cuda) for B in (1, 16, 32, 64, 256, 1024)]
+    assert sizes[0] > 1 and sizes[1] > 1 and sizes[-1] == 1
+    assert all(a >= b for a, b in zip(sizes, sizes[1:]))
+    assert set(sizes) <= {1, 2, 4, 8, 16}
+    with pytest.raises(RuntimeError):
+        D.cluster_size(1, 1 << 24, 2, cuda)                  # its bitmap does not fit
 
 
 @pytest.mark.parametrize("dim", [2, 3])

@@ -30,7 +30,9 @@ from repro_torch.core import rdg as trdg
 from repro_torch.kernels.delaunay import ops as tops
 from repro_torch.kernels.delaunay.predicates import (circumsphere, circumsphere_in_box,
                                                      sqrt_rn)
-from repro_torch.kernels.delaunay.ref import _norm2, triangulate_ref
+from repro_torch.kernels.delaunay.ref import triangulate_ref
+from torch_dt_rows import overflow_row
+from torch_dt_rows import tie_rows as _tie_rows
 
 torch.set_num_threads(1)
 
@@ -155,40 +157,6 @@ def test_triangulate_matches_reference_on_degenerate_rows():
     assert not ok[1:].any()
 
 
-def _tie_rows(dim, rows, seed):
-    """Rows of d+2 points whose last point lies exactly on the circumsphere
-    of the first d+1 under the slot scan's arithmetic: ``d2 = (|cc|^2 -
-    2 cc.p) + |p|^2`` equals the squared radius ``rr`` bit for bit (the
-    simplex the insertion of point d builds has its vertices in id
-    order)."""
-    rng = np.random.default_rng(seed)
-    found = []
-    steps = np.arange(-6, 7)
-    while len(found) < rows:
-        s = 0.3 + 0.4 * rng.random((dim + 1, dim))
-        c, r2, nd = circumsphere(torch.from_numpy(s[None]))
-        if not bool(nd[0]):
-            continue
-        c, rr = c[0].numpy(), float(r2[0])
-        u = rng.normal(size=dim)
-        p0 = c + np.sqrt(rr) * u / np.linalg.norm(u)
-        grids = np.meshgrid(*[steps] * dim, indexing="ij")
-        cand = np.stack([p0[k] + grids[k].ravel() * np.spacing(p0[k]) for k in range(dim)], 1)
-        ct = torch.from_numpy(c)
-        dot = ct[0] * torch.from_numpy(cand[:, 0])
-        for k in range(1, dim):
-            dot = torch.addcmul(dot, ct[k], torch.from_numpy(cand[:, k]))
-        pt = torch.from_numpy(cand)
-        sp = pt[:, 0] * pt[:, 0]
-        for k in range(1, dim):
-            sp = torch.addcmul(sp, pt[:, k], pt[:, k])
-        d2 = ((_norm2(ct) - dot * 2.0) + sp).numpy()
-        hit = np.nonzero(d2 == rr)[0]
-        if len(hit):
-            found.append(np.concatenate([s, cand[hit[:1]]]))
-    return np.stack(found)
-
-
 @pytest.mark.parametrize("dim", [2, 3])
 def test_exact_insphere_ties_clear_ok_where_the_reference_does(dim):
     pts = _tie_rows(dim, 24, 40 + dim)
@@ -199,6 +167,22 @@ def test_exact_insphere_ties_clear_ok_where_the_reference_does(dim):
     c = off[:, :dim + 1].mean(axis=1)
     off[:, -1] += 1e-6 * (off[:, -1] - c)
     assert _compare(off, np.full(len(pts), dim + 2), dim).sum() >= 12
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_cavity_overflow_clears_ok_where_the_reference_does(dim):
+    """The centre of a near-spherical ring, inserted last, has a cavity
+    past the capacity; the ring alone triangulates."""
+    rows = [overflow_row(dim, 50 + dim + s) for s in range(2)]
+    ok = _compare(*_padded(rows + [r[:-1] for r in rows], len(rows[0])), dim)
+    assert ok.tolist() == [False, False, True, True]
+
+
+def test_trip_parts_are_card_only():
+    pts, cnt = torch.rand((1, 8, 2), dtype=torch.float64), torch.tensor([8])
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.triangulate(pts, cnt, dim=2, num_simplices=tops.simplex_capacity(8, 2),
+                         cavity=32, group=4, parts=torch.zeros((1, 6), dtype=torch.int64))
 
 
 def test_triangulate_matches_pallas_kernel_in_interpret_mode():

@@ -5,6 +5,8 @@ histograms and degree arrays with ``np.array_equal``.  The port runs on
 the CPU (``device="cpu"``), where the hist wrapper computes its plain
 PyTorch version.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -88,3 +90,46 @@ def test_sections_drop_foreign_ids():
     s = tstats.merge_sections(accs, exact=True)
     assert s.degrees.tolist() == [1, 0, 1, 2, 0, 1, 1, 0, 0, 3]
     assert (s.deg_sum, s.deg_max, s.num_isolated) == (9, 3, 4)
+
+
+@pytest.mark.parametrize("P", [1, 3, 16])
+@pytest.mark.parametrize("family,kw", SPECS, ids=IDS)
+def test_collect_with_section_views_matches_reference(family, kw, P, monkeypatch):
+    """The P sections are views of one degree array and every chunk is one
+    scatter into it (two for a directed spec); the report is the
+    reference's."""
+    tcollect = importlib.import_module("repro_torch.stats.collect")
+    calls = []
+    real = tcollect.bincount_ids
+    monkeypatch.setattr(tcollect, "bincount_ids",
+                        lambda ids, n, out=None: calls.append(n) or real(ids, n, out=out))
+    spec = getattr(tapi, family)(**kw)
+    nonempty = sum(len(c.edges()) > 0 for c in tapi.iter_edge_chunks(spec, P, device="cpu"))
+    ref = jstats.collect(getattr(japi, family)(**kw), P)
+    port = tstats.collect(spec, P, device="cpu")
+    sides = 2 if kw["directed"] else 1
+    assert calls == [kw["n"]] * (sides * nonempty)
+    assert port.num_edges == ref.num_edges
+    same_summary(port.degree, ref.degree, f"{family} P={P}")
+    if kw["directed"]:
+        same_summary(port.in_degree, ref.in_degree, f"{family} P={P} in")
+
+
+def test_section_views_share_one_array():
+    deg, accs = tstats.section_views([0, 3, 6, 10], "cpu")
+    assert deg.shape == (10,) and [a.size for a in accs] == [3, 3, 4]
+    deg[4] = 7
+    assert accs[1].deg.tolist() == [0, 7, 0]
+    s = tstats.merge_sections(accs, exact=True)
+    assert s.degrees.tolist() == deg.tolist() and s.deg_max == 7
+
+
+def test_standalone_section_counts_only_its_own_ids():
+    """A SectionDegrees made alone owns its array and drops every id
+    outside its section, negative ids and ids past n included."""
+    acc = tstats.SectionDegrees(4, 9, "cpu")
+    acc.add(torch.tensor([-3, 0, 3, 4, 4, 8, 9, 12, 6]))
+    assert acc.deg.tolist() == [2, 0, 1, 0, 1]
+    acc.add(torch.tensor([[5, 8], [2, 100]]))
+    assert acc.deg.tolist() == [2, 1, 1, 0, 2]
+    assert acc.moments() == [6, 10, 2, 1]
