@@ -8,14 +8,21 @@ or of the JAX package.  Phases, each printed with its seconds:
 0. the card's name and power limit; build the kernels from the
    checkout's ``csrc`` sources (one ``nvcc`` per source, in parallel).
 1. every kernel against its plain PyTorch version on the card, exactly
-   (and ``torch.addcmul`` on the card against an exact FMA).
+   (and ``torch.addcmul`` on the card against an exact FMA); the six
+   device functions of ``kernels/geom/csrc/libm.cuh`` (XLA-CPU's exp,
+   expm1, log1p; glibc's log, sin, cos) against their plain versions on
+   10^6 inputs each; ``pair_edges`` on batches of every row kind mixed
+   (capacities 1 to 256, past the staged tile) and ``cell_points`` on
+   cube and polar cells with empty ones (capacities 1 to 4000), and
+   ``pair_edges`` wave by wave on the stream of RHG(n=2^20, gamma=2.2) at
+   P=16, whose core disk makes capacity 224.
    The Delaunay kernels (``triangulate``, ``circumspheres``) and the
    GEOM_CERT rows of ``pair_edges`` likewise, on random, degenerate and
    real RDG rows.
 2. golden parity: the digests and statistics that the JAX package
    computed on the CPU (``src/repro_torch/golden/er.json``, ``geom.json``
-   and ``rdg.json``) recomputed on the card, and the card's RHG features
-   against the reference's, in ulps.
+   and ``rdg.json``) recomputed on the card, RHG radii included, and the
+   card's RHG features against the reference's, bit for bit.
 3. the two main paths at full width, each with the launch counters reset
    just before and read just after:
    a. Erdős–Rényi: ``generate(GNM(n=2^24, m=2^28), P=1)``, streamed
@@ -49,11 +56,21 @@ or of the JAX package.  Phases, each printed with its seconds:
    split into parts by the kernel's clock64 counters, ``circumspheres``
    and the CERT rows of ``pair_edges`` at the inputs of its first round;
    ``hist`` also by the profiler's device time per call, beside
-   ``index_add_``); then the ``kernels`` line and the result line.  The
-   kernel timings also print the median and min–max of their reps.
+   ``index_add_``; ``pair_edges`` also at the RGG generate shape and on
+   the CERT rows of the 2-D RDG plan, ``cell_points`` also at the RHG
+   point plan, each beside its bound, the short ones also by a replayed
+   CUDA graph); then the ``kernels`` line and the
+   result line.  The kernel timings also print the median and min–max of
+   their reps one at a time, and each ``kernels`` entry carries that
+   median as ``median_ms`` beside the back-to-back mean ``ms``.
 
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
+
+``--only PATH`` (``er``, ``geom``, ``rdg``; repeatable) builds and runs
+only that main path and its phase 4 timing, and ``--no-timing`` stops
+after the path: run the same script in two checkouts in turns to
+compare them on one card.
 """
 from __future__ import annotations
 
@@ -99,12 +116,14 @@ def sha256_edges(edges) -> str:
     return hashlib.sha256(np.ascontiguousarray(edges.cpu().numpy(), "<i8").tobytes()).hexdigest()
 
 
-def sync_time(fn, reps: int = 3, label: str = ""):
-    """(result of the last call, mean ms per call) timed with CUDA events
-    after one warm-up call: the span of ``reps`` back-to-back calls over
-    their count.  With a label and more than one rep, a second pass times
-    each call by an event pair of its own and prints their median and
-    min–max beside the mean."""
+def timed(fn, reps: int = 3, label: str = "", each: bool = True):
+    """(result of the last call, mean ms per call, median ms of a call)
+    timed with CUDA events after one warm-up call.  The mean is the span
+    of ``reps`` back-to-back calls over their count, so it carries the
+    host's gaps between calls; the median is that of ``reps`` calls each
+    timed by an event pair of its own (one at a time), printed with its
+    min–max when there is a label.  With one rep, or ``each`` false, the
+    median is the mean."""
     import statistics
     import torch
     out = fn()
@@ -116,19 +135,27 @@ def sync_time(fn, reps: int = 3, label: str = ""):
     stop.record()
     torch.cuda.synchronize()
     mean = start.elapsed_time(stop) / reps
-    if label and reps > 1:
-        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-        for a, b in ev:
-            a.record()
-            out = fn()
-            b.record()
-        torch.cuda.synchronize()
-        each = [a.elapsed_time(b) for a, b in ev]
+    if reps == 1 or not each:
+        return out, mean, mean
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps)]
+    for a, b in ev:
+        a.record()
+        out = fn()
+        b.record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in ev]
+    median = statistics.median(ms)
+    if label:
         print(f"  time {label}: mean {mean:.6f} ms back to back; one at a time median "
-              f"{statistics.median(each):.6f}, min {min(each):.6f}, max {max(each):.6f} "
-              f"({reps} reps)")
-    return out, mean
+              f"{median:.6f}, min {min(ms):.6f}, max {max(ms):.6f} ({reps} reps)")
+    return out, mean, median
+
+
+def sync_time(fn, reps: int = 3, label: str = ""):
+    """(result of the last call, mean ms per call): :func:`timed`, with the
+    calls one at a time only when there is a label."""
+    return timed(fn, reps, label, each=bool(label))[:2]
 
 
 class Errors:
@@ -252,6 +279,30 @@ GEOM_CHECK = [("RGG", dict(n=1 << 16, radius=0.0072, seed=61)),
               ("RHG", dict(n=1 << 16, avg_deg=16.0, gamma=2.8, seed=63))]
 
 
+def phase_libm(dev) -> None:
+    """Phase 1: each device function of libm.cuh against its plain version
+    on the card and on the CPU, bit for bit, on 10^6 inputs over its RHG
+    domain and its branch and table boundaries (tests/torch_libm_inputs.py;
+    the CPU tests hold the plain versions to XLA's and glibc's)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.geom import ops as G
+    from torch_libm_inputs import INPUTS
+
+    for k, name in enumerate(sorted(INPUTS)):
+        x = torch.from_numpy(INPUTS[name](np.random.default_rng(300 + k)))
+        got = G.libm_eval(name, x.to(dev))
+        card = G.LIBM_FUNCTIONS[name](x.to(dev))
+        cpu = G.LIBM_FUNCTIONS[name](x)
+        bits = got.view(torch.int64)
+        require(torch.equal(bits, card.view(torch.int64)),
+                f"libm {name} on the card differs from its plain version on the card")
+        require(torch.equal(bits.cpu(), cpu.view(torch.int64)),
+                f"libm {name} on the card differs from its plain version on the CPU")
+    print(f"  libm: {', '.join(sorted(INPUTS))} equal their plain versions (card and CPU) on "
+          f"{len(x)}+ inputs each")
+
+
 def phase_geom_kernels(dev, errs: Errors) -> None:
     """Phase 1, geometric kernels: pair_mask with thresholds set exactly on
     accumulator values, pair_edges and cell_points on whole plans."""
@@ -262,6 +313,8 @@ def phase_geom_kernels(dev, errs: Errors) -> None:
     from repro_torch.kernels.geom.ref import cell_points_ref, pair_edges_ref
     from repro_torch.kernels.pairmask import ops as M
     from repro_torch.kernels.pairmask.ref import pair_mask_ref
+    from repro_torch.kernels.geom.ref import GEOM_TORUS
+    from torch_geom_rows import ALL_KINDS, cell_rows, pair_rows
 
     check_addcmul(dev)
     g = torch.Generator(device=dev).manual_seed(2)
@@ -290,6 +343,31 @@ def phase_geom_kernels(dev, errs: Errors) -> None:
         errs.same("pair_mask", M.pair_mask(q, c, cosh_r, tile="hyp"),
                   pair_mask_ref(q, c, cosh_r, tile="hyp"), f"pair_mask hyp cosh_r={cosh_r}")
 
+    # every kind mixed in one launch, self pairs, inactive rows, row counts
+    # off a tile's rows, and rows past a staged tile (from capacity 128 with
+    # HYP rows, 142 with TORUS rows alone); cube and polar cells with empty
+    # ones, staged and (cap dim past 7260) drawn straight into the output
+    cases = [(ALL_KINDS, cap, dim) for cap in (1, 4, 24, 128, 144, 208, 256) for dim in (2, 3)]
+    cases += [((GEOM_TORUS,), cap, 2) for cap in (141, 142, 208, 256)]
+    for kinds, cap, dim in cases:
+        for R in (1, 777):
+            rows = pair_rows(R, cap, dim, seed=cap * 100 + dim * 10 + R, device=dev, kinds=kinds)
+            kw = dict(capacity=cap, dim=dim, kinds=kinds)
+            what = f"kinds={kinds} cap={cap} dim={dim} R={R}"
+            ea, ka = G.pair_edges(*rows, **kw)
+            eb, kb = pair_edges_ref(*rows, **kw)
+            errs.same("pair_edges", ea, eb, f"pair_edges edges {what}")
+            errs.same("pair_edges", ka, kb, f"pair_edges keep {what}")
+            del ea, ka, eb, kb
+    for kind, dim in (("cube", 2), ("cube", 3), ("polar", 2)):
+        for cap in (1, 25, 1024, 4000):
+            rows, scale = cell_rows(1001, cap, dim, kind, seed=cap, device=dev)
+            kw = dict(kind=kind, scale=scale, capacity=cap, dim=dim)
+            pa, ma = G.cell_points(*rows, **kw)
+            pb, mb = cell_points_ref(*rows, **kw)
+            errs.same("cell_points", pa, pb, f"cell_points {kind} dim={dim} cap={cap}")
+            errs.same("cell_points", ma, mb, f"cell_points mask {kind} dim={dim} cap={cap}")
+
     for fam, kw in GEOM_CHECK:
         spec = getattr(api, fam)(**kw)
         plan = spec.plan(4)
@@ -309,6 +387,46 @@ def phase_geom_kernels(dev, errs: Errors) -> None:
         errs.same("cell_points", pa, pb, f"cell_points {fam} {kw}")
         errs.same("cell_points", ma, mb, f"cell_points mask {fam} {kw}")
         torch.cuda.empty_cache()
+
+
+def phase_wide_rhg(dev, errs: Errors) -> None:
+    """Phase 1, pair_edges on wide rows at full width: RHG(n=2^20,
+    avg_deg=16, gamma=2.2), whose core cell holds some 230 points (one row
+    a tile, keep bytes stored as they are computed), streamed by
+    ``iter_edge_chunks`` at P=16 and held, wave by wave, against the plain
+    version on the same rows.  (Its P=1 ``generate`` would write 1.8 TB of
+    slots.)"""
+    import torch
+    from repro_torch import api
+    from repro_torch.distrib.runtime import plan_tensors, wave_schedule
+    from repro_torch.kernels.geom.ref import pair_edges_ref
+
+    t0 = time.perf_counter()
+    n, B = 1 << 20, 2048
+    spec = api.RHG(n=n, avg_deg=16.0, gamma=2.2, seed=64)
+    plan = spec.plan(16, device=dev)
+    require(plan.capacity >= 208, f"RHG gamma=2.2: capacity {plan.capacity}, want >= 208")
+    ws = wave_schedule(plan, 1, B)
+    tables = plan_tensors(plan, dev)
+    sched = torch.from_numpy(ws.sched[:, 0]).to(dev, torch.int64)
+    valid = torch.from_numpy(ws.valid[:, 0]).to(dev)
+    kw = dict(capacity=plan.capacity, dim=plan.dim, kinds=plan.kinds_present)
+    waves = edges = 0
+    for w, ch in enumerate(api.iter_edge_chunks(spec, 16, device=dev, batch=B)):
+        s = sched[w]
+        eb, kb = pair_edges_ref(*(t[s[:, 0], s[:, 1]] for t in tables), **kw)
+        errs.same("pair_edges", ch.buffer, eb, f"RHG gamma=2.2 wave {w}: edges")
+        errs.same("pair_edges", ch.mask, kb & valid[w][:, None], f"RHG gamma=2.2 wave {w}: keep")
+        edges += int(ch.mask.sum())
+        waves += 1
+        del ch, eb, kb
+    require(waves == ws.num_waves, f"RHG gamma=2.2: {waves} waves, the plan has {ws.num_waves}")
+    print(f"  pair_edges wide rows: RHG(n={n}, avg_deg=16, gamma=2.2) at P=16, capacity "
+          f"{plan.capacity}, {waves} waves of {B} rows streamed, each equal to the plain "
+          f"version; {edges} edges, average degree {2 * edges / n:.3f} "
+          f"({time.perf_counter() - t0:.1f}s)")
+    del tables, sched, valid
+    torch.cuda.empty_cache()
 
 
 def phase_golden(dev) -> None:
@@ -340,7 +458,7 @@ def floats_sha256(x) -> str:
 
 def phase_golden_geom(dev) -> None:
     """Phase 2, geometric: edge and point digests of the JAX package, and
-    the card's RHG features against the reference's in ulps."""
+    the card's RHG features against the reference's, bit for bit."""
     import numpy as np
     import torch
     from repro_torch import api
@@ -355,8 +473,8 @@ def phase_golden_geom(dev) -> None:
     for e in doc["points"]:
         spec = getattr(api, e["family"])(**e["params"])
         pts = torch.cat([c.points() for c in api.iter_points(spec, e["P"], device=dev, batch=64)])
-        got = pts[:, 1] if e["what"] == "theta" else pts
-        require(len(pts) == e["n"] and floats_sha256(got) == e["sha256"],
+        require(e["what"] == "points" and len(pts) == e["n"]
+                and floats_sha256(pts) == e["sha256"],
                 f"golden iter_points {e['family']} {e['params']}")
     f = doc["rhg_features"]
     plan = getattr(api, f["family"])(**f["params"]).plan(1)
@@ -365,21 +483,21 @@ def phase_golden_geom(dev) -> None:
     geom = torch.from_numpy(plan.geom_a[0, idx]).to(dev)
     alpha = torch.from_numpy(plan.fparams[0, idx, 0]).to(dev)
     N = plan.capacity
-    # the plain version on the card: the pair_edges kernel computes its
-    # features with the same libdevice functions in the same order
+    # the plain version on the card; the pair_edges kernel computes the same
+    # features with libm.cuh's device functions, which phase 1 holds to
+    # these plain ones bit for bit
     got = torch.cat([hyp_features(key, geom, alpha, N),
                      hyp_radius_theta(key, geom, alpha, N)[0][..., None]], dim=-1).cpu().numpy()
     valid = np.arange(N)[None, :] < plan.count_a[0, idx][:, None]
     want = np.array([[float.fromhex(x) for x in slot] for row in f["values"] for slot in row])
     got = got[valid]
-    ulp = np.abs(got - want) / np.spacing(np.abs(want))
-    # 8 ulps; 1/sinh r ~ 2 e^-r carries r's relative error times r
-    bound = 8 * np.stack([np.ones(len(want))] * 3 + [np.maximum(1.0, want[:, 4]), np.ones(len(want))], 1)
-    worst = {k: float(ulp[:, i].max()) for i, k in enumerate(f["features"])}
-    require(bool((ulp <= bound).all()), f"RHG features on the card off the reference: {worst}")
+    differ = {k: int((got[:, i].view(np.int64) != want[:, i].view(np.int64)).sum())
+              for i, k in enumerate(f["features"])}
+    require(not any(differ.values()), f"RHG features on the card differ from the reference's "
+                                      f"(slots differing per feature: {differ})")
     print(f"  golden: {len(doc['generate'])} RGG/RHG edge digests, {len(doc['points'])} point "
-          f"digests equal; RHG features on the card vs the reference, worst ulps {worst} "
-          f"(on the CPU: {f['cpu_ulps']})")
+          f"digests (RHG radii and angles) equal; RHG features of {len(want)} slots on the card "
+          f"equal the reference's bit for bit")
 
 
 def no_duplicates(key) -> bool:
@@ -698,7 +816,7 @@ def phase_geom(dev, sizes: dict) -> dict:
     print(f"  collect RHG(n={hn}) P={P}: mean degree {rep.mean_degree:.4f}, max {d.deg_max}, "
           f"{cwall:.3f}s; {hl} hist launches for {nc} non-empty waves")
     print_breakdown("RHG collect", groups, cwall)
-    return {"rgg_plan": plan, "rgg_spec": spec, "rhg_plan": hplan}
+    return {"rgg_plan": plan, "rgg_spec": spec, "rhg_plan": hplan, "rhg_spec": hspec}
 
 
 # the reference's oracles hand pair_mask cells padded to 128 rows of 8
@@ -751,23 +869,26 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
 
     rows = []
     # RGG at its generate shape: the kernel alone over every candidate pair
-    # of the P=1 plan in one launch (the plain version's temporaries would
-    # not fit), then kernel == plain on a slice of those rows
+    # of the P=1 plan in one launch, each call's 43 GB of output dropped as
+    # it returns (the plain version's temporaries would not fit), then
+    # kernel == plain on a slice of those rows
     plan = main["rgg_plan"]
     full = pair_rows(plan)
     cap = plan.capacity
     kw = dict(capacity=cap, dim=plan.dim, kinds=plan.kinds_present)
-    _, rgg_ms = sync_time(lambda: G.pair_edges(*full, **kw)[1].sum(), reps=2,
-                          label="pair_edges, RGG generate shape")
+    _, rgg_ms, rgg_med = timed(lambda: G.pair_edges(*full, **kw) and None, reps=3,
+                               label="pair_edges, RGG generate shape")
     slots = plan.active.size * cap ** 2
     points = int(((full[3] + full[4]) * full[-1]).sum())
     in_bytes = sum(t.numel() * t.element_size() for t in full)
     rgg_bytes = (in_bytes + 17 * slots) / HBM_BYTES_PER_S * 1e3
     rgg_ops = points * 5 * THREEFRY_OPS / INT32_OPS_PER_S * 1e3
+    rgg_bound = max(rgg_bytes, rgg_ops)
     print(f"  pair_edges at the RGG generate shape: {plan.active.size} rows x "
-          f"{cap}^2 slots: {rgg_ms:.3f} ms (with the keep sum), bound "
-          f"{max(rgg_bytes, rgg_ops):.3f} ms ({'bytes' if rgg_bytes >= rgg_ops else 'operations'}; "
-          f"bytes {rgg_bytes:.3f}, Threefry {rgg_ops:.3f})")
+          f"{cap}^2 slots: median {rgg_med:.3f} ms one at a time (mean {rgg_ms:.3f}), bound "
+          f"{rgg_bound:.3f} ms ({'bytes' if rgg_bytes >= rgg_ops else 'operations'}; "
+          f"bytes {rgg_bytes:.3f}, Threefry {rgg_ops:.3f}): {100 * rgg_bound / rgg_med:.1f} % "
+          f"of the bound")
     part = [t[:1 << 15] for t in full]
     del full
     torch.cuda.empty_cache()
@@ -787,7 +908,7 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     b = oracle_blocks((cube_draw(key_b, geom_b, cap, 2) / g).to(torch.float32), count_b,
                       EUCLID_PAD_ROW)
     r2 = float(fparams[0, 1])
-    out, ms = sync_time(lambda: pair_mask(a, b, r2, tile="euclid", dim=2), label="pair_mask")
+    out, ms, med = timed(lambda: pair_mask(a, b, r2, tile="euclid", dim=2), label="pair_mask")
     ref, plain_ms = sync_time(lambda: pair_mask_ref(a, b, r2, tile="euclid", dim=2), reps=1)
     errs.same("pair_mask", out, ref, "pair_mask euclid at its contract's shape")
     require(torch.equal(mask_to_keep(out, part, GEOM_TORUS, cap), rgg_keep),
@@ -795,7 +916,7 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     # read each point row once, write one byte per pair; 2 subtractions,
     # a multiply, an FMA (2) and a compare per pair
     rows.append(("pair_mask", "src/repro_torch/kernels/pairmask/csrc/pairmask.cu",
-                 "src/repro/kernels/pairmask/pairmask.py:56", ms, plain_ms,
+                 "src/repro/kernels/pairmask/pairmask.py:56", ms, med, plain_ms,
                  ((a.numel() + b.numel()) * 4 + out.numel()) / HBM_BYTES_PER_S,
                  out.numel() * 6 / FP32_OPS_PER_S, None))
     print(f"  pair_mask shape: euclid [{a.shape[0]}, {MASK_ROWS}, 8] x same, the "
@@ -811,7 +932,8 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     wave = pair_rows(hplan, s[:, 0] * hplan.pairs_per_pe + s[:, 1])
     cap = hplan.capacity
     kw = dict(capacity=cap, dim=hplan.dim, kinds=hplan.kinds_present)
-    (ea, ka), ms = sync_time(lambda: G.pair_edges(*wave, **kw), label="pair_edges, RHG wave")
+    (ea, ka), ms, med = timed(lambda: G.pair_edges(*wave, **kw), reps=20,
+                              label="pair_edges, RHG wave")
     (eb, kb), plain_ms = sync_time(lambda: pair_edges_ref(*wave, **kw), reps=1)
     errs.same("pair_edges", ea, eb, "pair_edges edges at the RHG wave shape")
     errs.same("pair_edges", ka, kb, "pair_edges keep at the RHG wave shape")
@@ -821,12 +943,19 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     in_bytes = sum(t.numel() * t.element_size() for t in wave)
     # 17 bytes written per slot; 1 + 2*2 Threefry blocks per regenerated point
     # (the transcendentals of the hyperbolic features are not counted)
+    wave_bytes = (in_bytes + 17 * slots) / HBM_BYTES_PER_S
     rows.append(("pair_edges", "src/repro_torch/kernels/geom/csrc/geom.cu",
-                 "src/repro/distrib/engine.py:1050", ms, plain_ms,
-                 (in_bytes + 17 * slots) / HBM_BYTES_PER_S,
+                 "src/repro/distrib/engine.py:1050", ms, med, plain_ms, wave_bytes,
                  points * 5 * THREEFRY_OPS / INT32_OPS_PER_S, None))
+    dev_ms = graph_ms_per_call(lambda: G.pair_edges(*wave, **kw), 20)
+    # the stores alone: every row inactive, so nothing is decoded
+    idle = wave[:-1] + [torch.zeros_like(live)]
+    _, _, idle_med = timed(lambda: G.pair_edges(*idle, **kw), reps=20)
     print(f"  pair_edges shape: one RHG wave, {R} rows x {cap}^2 slots, "
-          f"{points} points regenerated, {int(ka.sum())} edges kept")
+          f"{points} points regenerated, {int(ka.sum())} edges kept; median {med:.6f} ms "
+          f"(device {dev_ms:.6f} ms a call, graph replay; {idle_med:.6f} with every row "
+          f"inactive), byte bound {wave_bytes * 1e3:.6f} ms: {100 * wave_bytes * 1e3 / med:.1f} "
+          f"% of it")
     del ea, eb, kb
 
     # pair_mask's hyp tile over the wave's first 8192 rows, as
@@ -846,24 +975,40 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     del out, q, c, part, wave, ka
     torch.cuda.empty_cache()
 
-    pp = main["rgg_spec"].point_plan(1)
-    prow = pair_rows(pp)
-    kw = dict(kind=pp.kind, scale=pp.scale, capacity=pp.capacity, dim=pp.dim)
-    (pa, ma), ms = sync_time(lambda: G.cell_points(*prow, **kw), label="cell_points")
-    (pb, mb), plain_ms = sync_time(lambda: cell_points_ref(*prow, **kw), reps=1)
-    errs.same("cell_points", pa, pb, "cell_points at the RGG point-plan shape")
-    errs.same("cell_points", ma, mb, "cell_points mask at the RGG point-plan shape")
-    cells, cap, dim = pa.shape
-    drawn = int(prow[1].sum())
-    in_bytes = sum(t.numel() * t.element_size() for t in prow)
-    # every slot written once; 1 + 2 dim Threefry blocks per point, the
-    # work the function needs (the kernel also draws for padding slots)
-    rows.append(("cell_points", "src/repro_torch/kernels/geom/csrc/geom.cu",
-                 "src/repro/distrib/engine.py:644", ms, plain_ms,
-                 (in_bytes + cells * cap * (8 * dim + 1)) / HBM_BYTES_PER_S,
-                 drawn * (1 + 2 * dim) * THREEFRY_OPS / INT32_OPS_PER_S, None))
-    print(f"  cell_points shape: RGG point plan, {cells} cells x {cap} slots x {dim}, "
-          f"{drawn} points")
+    for tag, spec in (("RGG", main["rgg_spec"]), ("RHG", main["rhg_spec"])):
+        pp = spec.point_plan(1)
+        prow = pair_rows(pp)
+        kw = dict(kind=pp.kind, scale=pp.scale, capacity=pp.capacity, dim=pp.dim)
+        (pa, ma), ms, med = timed(lambda: G.cell_points(*prow, **kw), reps=20,
+                                  label=f"cell_points, {tag} point plan")
+        (pb, mb), plain_ms = sync_time(lambda: cell_points_ref(*prow, **kw), reps=1)
+        errs.same("cell_points", pa, pb, f"cell_points at the {tag} point-plan shape")
+        errs.same("cell_points", ma, mb, f"cell_points mask at the {tag} point-plan shape")
+        cells, cap, dim = pa.shape
+        drawn = int(prow[1].sum())
+        in_bytes = sum(t.numel() * t.element_size() for t in prow)
+        # every slot written once; 1 + 2 dim Threefry blocks per point (the
+        # polar decode's arccosh is not counted)
+        bytes_s = (in_bytes + cells * cap * (8 * dim + 1)) / HBM_BYTES_PER_S
+        ops_s = drawn * (1 + 2 * dim) * THREEFRY_OPS / INT32_OPS_PER_S
+        if tag == "RGG":
+            rows.append(("cell_points", "src/repro_torch/kernels/geom/csrc/geom.cu",
+                         "src/repro/distrib/engine.py:644", ms, med, plain_ms, bytes_s, ops_s,
+                         None))
+        bound = max(bytes_s, ops_s) * 1e3
+        # device time alone: at tens of µs the event pairs also time the
+        # wrapper's host work between them
+        dev_ms = graph_ms_per_call(lambda: G.cell_points(*prow, **kw), 20)
+        # the stores alone: every count 0, so nothing is drawn
+        empty = [prow[0], torch.zeros_like(prow[1])] + prow[2:]
+        _, _, empty_med = timed(lambda: G.cell_points(*empty, **kw), reps=20)
+        print(f"  cell_points shape: {tag} point plan, {cells} cells x {cap} slots x {dim}, "
+              f"{drawn} points; median {med:.6f} ms (mean {ms:.6f}; device {dev_ms:.6f} ms a "
+              f"call, graph replay; {empty_med:.6f} with every count 0), plain {plain_ms:.3f} "
+              f"ms, bound {bound:.6f} ms ({'bytes' if bytes_s >= ops_s else 'operations'}): "
+              f"{med / bound:.2f}x the bound")
+        del pa, ma, pb, mb, prow
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -885,25 +1030,25 @@ def phase_timing(dev, main: dict, errs: Errors) -> list:
     slots = kind.numel() * cap
     rows = []
 
-    out, ms = sync_time(lambda: S.chunk_draw(key, uni, cnt, 0, cap), label="chunk_draw")
+    out, ms, med = timed(lambda: S.chunk_draw(key, uni, cnt, 0, cap), label="chunk_draw")
     ref, plain_ms = sync_time(lambda: chunk_draw_ref(key, uni, cnt, 0, cap), reps=1)
     errs.same("chunk_draw", out, ref, "chunk_draw at full width")
     del out, ref
     drawn = int(cnt.sum())
     rows.append(("chunk_draw", "src/repro_torch/kernels/sampler/csrc/sampler.cu",
-                 "src/repro/core/sampling.py:110", ms, plain_ms,
+                 "src/repro/core/sampling.py:110", ms, med, plain_ms,
                  slots * 8 / HBM_BYTES_PER_S, drawn * 3 * THREEFRY_OPS / INT32_OPS_PER_S, None))
 
     vals = sample_rows(key, uni, cnt, cap)
     _, sort_ms = sync_time(lambda: torch.sort(vals, dim=-1))
-    (ea, ka), ms = sync_time(lambda: S.chunk_decode(vals, kind, params, cnt, owned), reps=10,
+    (ea, ka), ms, med = timed(lambda: S.chunk_decode(vals, kind, params, cnt, owned), reps=10,
                              label="chunk_decode")
     (eb, kb), plain_ms = sync_time(lambda: chunk_decode_ref(vals, kind, params, cnt, owned), reps=1)
     errs.same("chunk_decode", ea, eb, "chunk_decode at full width")
     errs.same("chunk_decode", ka, kb, "chunk_decode keep at full width")
     del ea, ka, eb, kb, vals
     rows.append(("chunk_decode", "src/repro_torch/kernels/sampler/csrc/sampler.cu",
-                 "src/repro/core/sampling.py:155", ms, plain_ms,
+                 "src/repro/core/sampling.py:155", ms, med, plain_ms,
                  slots * (8 + 16 + 1) / HBM_BYTES_PER_S, 0.0, None))
     torch.cuda.empty_cache()
     print(f"  torch.sort [{kind.numel()}, {cap}] int64 along rows: {sort_ms:.3f} ms")
@@ -922,10 +1067,11 @@ def phase_timing(dev, main: dict, errs: Errors) -> list:
     # and by replaying 100 captured calls
     hist_call = lambda: bincount_ids(ids, bins, out=acc)       # noqa: E731
     lib_call = lambda: acc.index_add_(0, ids, ones)            # noqa: E731
-    turns = [sync_time(f, reps=100, label=k)[1] for k, f in (
+    turns = [timed(f, reps=100, label=k)[1:] for k, f in (
         ("hist kernel, host loop", hist_call), ("hist index_add_, host loop", lib_call),
         ("hist index_add_, host loop", lib_call), ("hist kernel, host loop", hist_call))]
-    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    ms, lib_ms = (turns[0][0] + turns[3][0]) / 2, (turns[1][0] + turns[2][0]) / 2
+    med = (turns[0][1] + turns[3][1]) / 2            # the two kernel turns' medians
     _, plain_ms = sync_time(lambda: acc.add_(hist_counts_ref(ids, bins, drop=True)), reps=10)
     _, bincount_ms = sync_time(lambda: torch.bincount(ids, minlength=bins), reps=10)
     dev_ms = {k: (device_ms_per_call(f, 50), graph_ms_per_call(f, 100))
@@ -936,7 +1082,7 @@ def phase_timing(dev, main: dict, errs: Errors) -> list:
     # each id read once, each touched bin's count read and written once
     bound = (ids.numel() * 8 + touched * 16) / HBM_BYTES_PER_S
     rows.append(("hist", "src/repro_torch/kernels/hist/csrc/hist.cu",
-                 "src/repro/kernels/hist/hist.py:54", ms, plain_ms, bound, 0.0, lib_ms))
+                 "src/repro/kernels/hist/hist.py:54", ms, med, plain_ms, bound, 0.0, lib_ms))
     print(f"  hist shape: {ids.numel()} ids into {bins} bins ({touched} touched); host loop "
           f"kernel {ms:.6f} ms, index_add_ {lib_ms:.6f} ms, torch.bincount (new array) "
           f"{bincount_ms:.6f} ms; device time per call (profiler; graph replay) kernel "
@@ -1278,8 +1424,9 @@ def dt_round_timing(dev, errs: Errors, r: int, points, counts) -> tuple:
     print(f"    the scan reads {scan_bytes / 1e6:.3f} MB of live slot records a trip "
           f"({rec_bytes}-byte records): {scan_bytes / (scan_us * 1e-6) / 1e9:.1f} GB/s over its "
           f"share of the trip")
+    # one call (reps=1): the back-to-back time is the call's own
     return ("triangulate", "src/repro_torch/kernels/delaunay/csrc/delaunay.cu",
-            "src/repro/kernels/delaunay/delaunay.py:39", ms, plain_ms, bytes_s, ops_s, None)
+            "src/repro/kernels/delaunay/delaunay.py:39", ms, ms, plain_ms, bytes_s, ops_s, None)
 
 
 def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
@@ -1299,7 +1446,7 @@ def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
     torch.cuda.empty_cache()
 
     simp = rdgs["circumspheres"]
-    (ca, ra, na), ms = sync_time(lambda: D.circumspheres(simp), reps=10, label="circumspheres")
+    (ca, ra, na), ms, med = timed(lambda: D.circumspheres(simp), reps=10, label="circumspheres")
     (cb, rb, nb), plain_ms = sync_time(lambda: circumsphere(simp, fused=False), reps=3)
     for a, b, name in ((ca, cb, "center"), (ra, rb, "r2"), (na, nb, "nondeg")):
         errs.same("circumspheres", a, b, f"circumspheres {name} at the certification batch")
@@ -1307,7 +1454,7 @@ def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
     # read each simplex once, write center, r2 and the flag; the
     # determinants and the division are about 20 d^2 operations a simplex
     rows.append(("circumspheres", "src/repro_torch/kernels/delaunay/csrc/delaunay.cu",
-                 "src/repro/core/rdg.py:99", ms, plain_ms,
+                 "src/repro/core/rdg.py:99", ms, med, plain_ms,
                  (simp.numel() * 8 + R * (8 * d + 9)) / HBM_BYTES_PER_S,
                  R * 20 * d * d / FP64_OPS_PER_S, None))
     print(f"  circumspheres shape: the first round's certification batch, {R} simplices "
@@ -1316,8 +1463,8 @@ def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
     plan = rdgs["cert_plan"]
     full = [t.reshape(-1, *t.shape[2:]) for t in plan_tensors(plan, dev)]
     kwp = dict(capacity=plan.capacity, dim=plan.dim, kinds=plan.kinds_present)
-    (ea, ka), ms = sync_time(lambda: G.pair_edges(*full, **kwp), reps=5,
-                             label="pair_edges, CERT rows")
+    (ea, ka), ms, med = timed(lambda: G.pair_edges(*full, **kwp), reps=10,
+                              label="pair_edges, CERT rows")
     (eb, kb), plain_ms = sync_time(lambda: pair_edges_ref(*full, **kwp), reps=1)
     errs.same("pair_edges", ea, eb, "pair_edges CERT edges on the RDG 2-D plan")
     errs.same("pair_edges", ka, kb, "pair_edges CERT keep on the RDG 2-D plan")
@@ -1325,9 +1472,10 @@ def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
     slots = ka.numel()
     in_bytes = sum(t.numel() * t.element_size() for t in full)
     # not a row of the kernels line (pair_edges has its RHG row): printed
+    bound = (in_bytes + 17 * slots) / HBM_BYTES_PER_S * 1e3
     print(f"  pair_edges on GEOM_CERT rows: the RDG 2-D plan, {R} rows x 16 slots, "
-          f"{int(ka.sum())} edges kept; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{(in_bytes + 17 * slots) / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+          f"{int(ka.sum())} edges kept; kernel median {med:.4f} ms (mean {ms:.4f}), plain "
+          f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes): {100 * bound / med:.1f} % of it")
     return rows
 
 
@@ -1339,13 +1487,15 @@ OFF_PATH = {"pair_mask": "off the engine path, as in the reference: the engine r
 
 def kernel_lines(rows: list, errs: Errors, launches: dict) -> list:
     """The ``kernels`` line's entries; the bound is the larger of the
-    byte time and the operation time."""
+    byte time and the operation time.  ``ms`` is the mean of calls back to
+    back, ``median_ms`` the median of calls timed one at a time."""
     return [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
              "launches": launches[name], "max_abs_err": errs.max[name],
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_s, ops_s) * 1e3,
+             "ms": ms, "median_ms": median_ms, "plain_ms": plain_ms,
+             "bound_ms": max(bytes_s, ops_s) * 1e3,
              "bound_by": "bytes" if bytes_s >= ops_s else "operations",
              "library_ms": lib_ms, **({"note": OFF_PATH[name]} if name in OFF_PATH else {})}
-            for name, src, replaces, ms, plain_ms, bytes_s, ops_s, lib_ms in rows]
+            for name, src, replaces, ms, median_ms, plain_ms, bytes_s, ops_s, lib_ms in rows]
 
 
 FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 << 22,
@@ -1356,9 +1506,24 @@ GEOM_KERNELS = ("pair_edges", "cell_points", "hist")
 RDG_KERNELS = ("triangulate", "circumspheres", "pair_edges", "cell_points")
 
 
-def main() -> int:
+PATHS = {"er": ("3a Erdős–Rényi", phase_main, ER_KERNELS, phase_timing),
+         "geom": ("3b geometric", phase_geom, GEOM_KERNELS, geom_timing),
+         "rdg": ("3c Delaunay", phase_rdg, RDG_KERNELS, rdg_timing)}
+
+
+def main(argv=None) -> int:
+    import argparse
     import torch
 
+    ap = argparse.ArgumentParser(description="Card check of the PyTorch/CUDA port.")
+    ap.add_argument("--only", choices=sorted(PATHS), action="append",
+                    help="for comparing two checkouts on one card: build, run only this main "
+                         "path (repeatable) and its phase 4 timing, and skip phases 1 and 2; "
+                         "prints the kernels line, not the result line")
+    ap.add_argument("--no-timing", action="store_true", help="with --only: skip phase 4")
+    args = ap.parse_args(argv)
+    if args.no_timing and not args.only:
+        ap.error("--no-timing goes with --only")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's card check needs one", file=sys.stderr)
         return 2
@@ -1367,9 +1532,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))       # the seeded inputs the CPU tests use too
     from repro_torch.kernels import build
 
     dev = torch.device("cuda", 0)
+    torch.empty(1, device=dev)      # the allocator, whose peak the paths reset, exists
     t0 = time.perf_counter()
     print(card_line())
     logs = build.build()
@@ -1380,24 +1547,26 @@ def main() -> int:
           f"({len(logs)} of {len(build.SOURCES)} libraries compiled)", flush=True)
 
     errs = Errors()
-    t0 = time.perf_counter()
-    phase_kernels(dev, errs)
-    phase_geom_kernels(dev, errs)
-    phase_dt_kernels(dev, errs)
-    print(f"phase 1 kernels == plain {time.perf_counter() - t0:.3f}s", flush=True)
+    if not args.only:
+        t0 = time.perf_counter()
+        phase_kernels(dev, errs)
+        phase_libm(dev)
+        phase_geom_kernels(dev, errs)
+        phase_wide_rhg(dev, errs)
+        phase_dt_kernels(dev, errs)
+        print(f"phase 1 kernels == plain {time.perf_counter() - t0:.3f}s", flush=True)
 
-    t0 = time.perf_counter()
-    phase_golden(dev)
-    phase_golden_geom(dev)
-    phase_golden_rdg(dev)
-    print(f"phase 2 golden parity {time.perf_counter() - t0:.3f}s", flush=True)
+        t0 = time.perf_counter()
+        phase_golden(dev)
+        phase_golden_geom(dev)
+        phase_golden_rdg(dev)
+        print(f"phase 2 golden parity {time.perf_counter() - t0:.3f}s", flush=True)
 
     # each main path runs with the counters at 0 and is read right after
     launches = dict.fromkeys(build.LAUNCHES, 0)
+    paths = [PATHS[p] for p in PATHS if not args.only or p in args.only]
     outs = []
-    for tag, phase, kernels in (("3a Erdős–Rényi", phase_main, ER_KERNELS),
-                                ("3b geometric", phase_geom, GEOM_KERNELS),
-                                ("3c Delaunay", phase_rdg, RDG_KERNELS)):
+    for tag, phase, kernels, _ in paths:
         t0 = time.perf_counter()
         build.reset_launches()
         out = phase(dev, FULL)
@@ -1410,14 +1579,18 @@ def main() -> int:
             launches[name] += c
         outs.append(out)
 
+    if args.no_timing:
+        print(card_line())
+        return 0
     t0 = time.perf_counter()
-    rows = (phase_timing(dev, outs[0], errs) + geom_timing(dev, outs[1], errs)
-            + rdg_timing(dev, outs[2], errs))
+    rows = [r for (*_, timing), out in zip(paths, outs) for r in timing(dev, out, errs)]
     kernels = kernel_lines(rows, errs, launches)
     print(f"phase 4 timing {time.perf_counter() - t0:.3f}s", flush=True)
 
     print(card_line())
     print(json.dumps({"kernels": kernels}))
+    if args.only:
+        return 0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -47,7 +47,8 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     double ``sqrt`` give it.  PyTorch's vectorised CPU ``sqrt`` is not
     always correctly rounded, so CPU tensors take numpy's."""
     if x.device.type == "cpu":
-        return torch.from_numpy(np.sqrt(x.numpy()))
+        with np.errstate(invalid="ignore"):              # NaN for x < 0, as torch.sqrt
+            return torch.from_numpy(np.sqrt(x.numpy()))
     return torch.sqrt(x)
 
 

@@ -12,41 +12,75 @@
 // both from jnp; the threshold tests are the pair_mask tiles
 // (../../pairmask/csrc/tiles.cuh), shared with the pair_mask kernel.
 //
-// What bounds them on an H100, and what the design does about it:
+// What bounds them on an H100, and what the designs do about it:
 // * pair_edges writes 17 bytes per slot (a 16-byte edge and a keep byte)
-//   over cap^2 slots per row, and spends 2 cap (1 + 2 dim) Threefry-2x32
-//   blocks per row regenerating the two cells' points.  At the plans'
-//   capacities (16-24) the writes dominate: it is bound by memory.  One
-//   block per row: its threads first regenerate the row's 2 cap points (or
-//   hyperbolic features) into shared memory, once each, then every thread
-//   tests one slot pair out of shared memory and writes its edge and keep
-//   byte straight to the output; no [R, cap, cap] temporaries exist.
+//   over cap^2 slots per row; at the plans' capacities that is most of
+//   its time, so it is bound by memory, and the design keeps the stores
+//   streaming.  A persistent grid (as many CTAs as fit on the SMs) walks
+//   tiles of TR consecutive rows, about 4096 slots a tile, TR chosen so
+//   that a tile's slots start on a 512-slot boundary where the capacity
+//   allows (8 rows at cap 24, 256 CERT rows at cap 4).  Decode: one thread
+//   a row fills a shared-memory record of the row's scalars (a CERT row
+//   also evaluates its circumsphere-in-box test and copies its vertex
+//   ids); then the tile's points, only the slots that hold one, are spread
+//   evenly over all threads by a block prefix of the rows' counts: float32
+//   cube points, or the float64 features [cos t, sin t, coth r, 1/sinh r]
+//   of polar ones.  Write: the tile's slots are contiguous in the output,
+//   so thread t takes slots t, t + 256, ... (a warp instruction stores 512
+//   contiguous bytes of edges) and stages each keep byte in shared memory;
+//   the staged bytes leave as 16-byte vectors one tile later.  Shared
+//   memory holds two tiles: the decode of tile k+1 (and tile k-1's keep
+//   bytes) go through the other half while tile k's stores drain, with one
+//   barrier a tile.  Row, i and j come from 32-bit multiply-high
+//   divisions.  Rows too wide for a staged tile in 48 KB (capacity 128 on
+//   HYP rows, 142 on TORUS rows) go one a tile and store their keep bytes
+//   as they compute them (an instance of their own, so that the staged
+//   one's keep stores stay shared-memory stores); a row whose two halves
+//   do not fit in the card's 227 KB (HYP from capacity 1815) takes the
+//   whole of it, with a second barrier before the next decode.  A row
+//   needs 64 bytes a capacity on HYP rows and 32 on TORUS rows, so a
+//   launch takes capacity up to 3630 with HYP rows and 7261 with TORUS
+//   rows alone.
 // * cell_points writes 8 dim + 1 bytes per slot and draws 1 + 2 dim
-//   Threefry blocks (72 integer operations each) per slot, padding slots
-//   included, as the reference does.  One thread per slot, no shared state.
-//   Drawing only the points (about a fifth of the slots) was tried on the
-//   card, skipping padding lanes and, separately, one thread per point; it
-//   did not move the kernel's time, so the draws do not bound it.
+//   Threefry blocks (72 integer operations each) per point.  Threads map
+//   to points, not slots: a persistent CTA takes tiles of cells (about 16
+//   KB of points), prefixes their counts in shared memory, and each thread
+//   draws points of the tile (binary search for its cell) into a shared
+//   staging tile; padding slots draw nothing and are written as 0.  The
+//   tile then leaves as 16-byte stores of two doubles, and the mask as
+//   bytes, while the next tile's points are drawn into the other half of
+//   shared memory.  Cells too wide for two staged tiles in shared memory
+//   (capacity x dim above 7260) draw their points straight into the
+//   output, which then takes the mask and the padding's 0 (an instance of
+//   their own: a pointer that may address either memory cost the staged
+//   instance 15 registers a thread and a tenth of its time).
 //
 // Exactness: the draws are JAX's Threefry bits (threefry.cuh), the uniform
 // is (bits >> 11) * 2^-53, and the decodes use the operations XLA uses on
 // the CPU, in the same order, with fma only where XLA contracts (see
-// repro_torch/kernels/geom/ref.py).  The library is built with -fmad=false.
-// The libdevice transcendentals are those PyTorch's CUDA kernels call, so
-// the kernels equal their plain PyTorch versions on the card bit for bit.
+// repro_torch/kernels/geom/ref.py).  The transcendentals are libm.cuh's:
+// XLA-CPU's own exp, expm1 and log1p and glibc's log, sin and cos, the
+// functions the reference's compiled programs run, in the same operations
+// as libm.py's plain versions.  The library is built with -fmad=false, so
+// the kernels equal their plain PyTorch versions, and the reference, bit
+// for bit.
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #include "../../delaunay/csrc/predicates.cuh"
 #include "../../pairmask/csrc/tiles.cuh"
 #include "../../sampler/csrc/threefry.cuh"
+#include "libm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // cell_points' block
-constexpr int kRowThreads = 128;
+namespace L = repro_libm;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileAlign = 512;  // a tile's slots start on a multiple of this where they can
 constexpr int kGeomHyp = 1, kGeomTorus = 2, kGeomCert = 3;
+constexpr int kHyp = 1, kTorus = 2, kCert = 4;  // bits of the kinds a launch runs
 constexpr double kLog2 = 0.69314718055994529;
 constexpr double kAcoshLarge = 8.9884656743115785e+307;  // 2^1023
 constexpr double kTwoM53 = 1.1102230246251565e-16;       // 2^-53
@@ -60,9 +94,9 @@ __device__ __forceinline__ double uniform53(Key2x32 slot, uint32_t j) {
 }
 
 __device__ __forceinline__ double acosh_xla(double x) {
-  if (x >= kAcoshLarge) return log(x) + kLog2;
+  if (x >= kAcoshLarge) return L::glibc_log(x) + kLog2;
   const double sm = sqrt(x - 1.0);
-  return log1p(sm * (sqrt(x + 1.0) + sm));
+  return L::xla_log1p(sm * (sqrt(x + 1.0) + sm));
 }
 
 // polar draw of a slot: alpha r = arccosh(clo + u0 (chi - clo)) and the
@@ -82,157 +116,623 @@ __device__ __forceinline__ void hyp_features(Key2x32 slot, const double* geom,
   polar_draw(slot, geom[0], geom[1], geom[2], geom[3], &ar, &theta);
   double r = ar / alpha;
   r = r < 1e-12 ? 1e-12 : r;  // max(r, 1e-12), NaN passes through
-  const double e_hi = exp(r - kLog2), e_lo = exp(-kLog2 - r);
-  const double em1 = expm1(r);
+  const double e_hi = L::xla_exp(r - kLog2), e_lo = L::xla_exp(-kLog2 - r);
+  const double em1 = L::xla_expm1(r);
   const double sh = fabs(r) < 1.0 ? (em1 + em1 / (em1 + 1.0)) * 0.5 : e_hi - e_lo;
-  f[0] = cos(theta);
-  f[1] = sin(theta);
+  f[0] = L::glibc_cos(theta);
+  f[1] = L::glibc_sin(theta);
   f[2] = (e_hi + e_lo) / sh;
   f[3] = 1.0 / sh;
 }
 
-__global__ void pair_edges_kernel(
-    const int32_t* __restrict__ kind, const uint32_t* __restrict__ key_a,
-    const uint32_t* __restrict__ key_b, const int64_t* __restrict__ count_a,
-    const int64_t* __restrict__ count_b, const int64_t* __restrict__ gid_a,
-    const int64_t* __restrict__ gid_b, int64_t K, const double* __restrict__ geom_a,
-    const double* __restrict__ geom_b, int64_t G, const double* __restrict__ fparams,
-    int64_t F, const bool* __restrict__ self_pair, const bool* __restrict__ active,
-    int64_t cap, int dim, longlong2* __restrict__ edges, bool* __restrict__ keep) {
-  extern __shared__ double smem[];  // side a: [cap, 4], side b: [cap, 4]
-  __shared__ bool cert;
-  const int64_t r = blockIdx.x;
-  const int k = kind[r];
-  const bool hyp = k == kGeomHyp, cert_row = k == kGeomCert;
-  const bool live = active[r] && (hyp || k == kGeomTorus || cert_row);
-  const int64_t ca = count_a[r], cb = count_b[r];
-  const double* fp = fparams + r * F;
-  if (live && cert_row) {
-    // the simplex in geom_a[:(dim+1) dim], the region box in geom_b[:2 dim]
-    if (threadIdx.x == 0) {
-      const double* box = geom_b + r * G;
-      cert = dim == 2 ? dt_circumsphere_in_box<2>(geom_a + r * G, box, box + 2)
-                      : dt_circumsphere_in_box<3>(geom_a + r * G, box, box + 3);
-    }
-  } else if (live) {
-    for (int64_t t = threadIdx.x; t < 2 * cap; t += blockDim.x) {
-      const bool side_b = t >= cap;
-      const int64_t i = side_b ? t - cap : t;
-      if (i >= (side_b ? cb : ca)) continue;
-      const uint32_t* key = (side_b ? key_b : key_a) + 2 * r;
-      const double* geom = (side_b ? geom_b : geom_a) + r * G;
-      const Key2x32 slot = tf_fold_in(Key2x32{key[0], key[1]}, (uint32_t)i);
-      double* dst = smem + (side_b ? cap : 0) * 4 + 4 * i;
-      if (hyp) {
-        hyp_features(slot, geom, fp[0], dst);
-      } else {
-        float* p = (float*)dst;
-        for (int d = 0; d < dim; ++d)
-          p[d] = (float)((geom[d] + uniform53(slot, (uint32_t)d)) / fp[0]);
-      }
-    }
+// floor(s / d) for s, d < 2^16, with m = ceil(2^32 / d) (0 for d = 1,
+// whose 2^32 does not fit): the multiply-high overshoots by at most one
+__device__ __forceinline__ uint32_t div_small(uint32_t s, uint32_t d, uint32_t m) {
+  if (d == 1) return s;
+  const uint32_t q = __umulhi(s, m);
+  return q * d > s ? q - 1 : q;
+}
+
+// one candidate-pair row of a tile, in shared memory
+struct alignas(16) RowRec {
+  long long ga, gb;  // gid_a[0], gid_b[0] (a CERT row's emit mask)
+  double thr;        // HYP: cosh R; TORUS: r^2 (rounded to float when used)
+  int ca, cb;        // counts, 0 on a row that keeps nothing
+  int flags;         // kRowSelf | effective kind << 1 | kRowCert
+};
+constexpr int kRowSelf = 1, kRowCert = 8;
+
+struct PairArgs {
+  const int32_t* kind;
+  const uint32_t *key_a, *key_b;
+  const int64_t *count_a, *count_b, *gid_a, *gid_b;
+  const double *geom_a, *geom_b, *fparams;
+  const bool *self_pair, *active;
+  int64_t K, G, F, rows;
+  int cap, dim, kinds;   // kinds: the bits of the row kinds the launch runs
+  int tile_rows, area;   // rows a tile, bytes of a row's point area (16-aligned)
+  int stage_keep;        // 1: keep bytes staged in shared memory, 0: stored as computed
+  int halves;            // shared-memory halves: 2, or 1 for rows too wide for two
+  uint32_t m_cap;        // ceil(2^32 / cap)
+  int step_row, step_i, step_j;  // kThreads = (step_row cap + step_i) cap + step_j
+  longlong2* edges;
+  uint8_t* keep;
+};
+
+// the kind a row runs as: its kind when the launch runs it, else 0
+__device__ __forceinline__ int effective_kind(int k, int kinds) {
+  if (k == kGeomHyp && (kinds & kHyp)) return kGeomHyp;
+  if (k == kGeomTorus && (kinds & kTorus)) return kGeomTorus;
+  if (k == kGeomCert && (kinds & kCert)) return kGeomCert;
+  return 0;
+}
+
+// exclusive prefix of each thread's v over the block (v = 0 on threads
+// past the items): off[t] for t < n, off[n] = the total.  Ends on a barrier.
+__device__ void block_prefix(int v, int n, int* off, int* warp_sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += y;
   }
+  if (lane == 31) warp_sum[warp] = incl;
   __syncthreads();
-  const bool once_only = self_pair[r];
-  const int64_t* ids = gid_a + r * K;
-  const int64_t ga = ids[0], gb = gid_b[r * K];
-  const float r2 = k == kGeomTorus ? (float)fp[1] : 0.0f;  // CERT rows may have F = 1
-  const double* fa = smem;
-  const double* fb = smem + 4 * cap;
-  const int64_t slots = cap * cap;
-  for (int64_t s = threadIdx.x; s < slots; s += blockDim.x) {
-    const int64_t i = s / cap, j = s % cap;
-    bool hit = live && i < ca && j < cb && (!once_only || i < j);
-    int64_t u = ga + i, v = gb + j;
-    if (cert_row) {
-      // edge (ids[i], ids[j]) when bit pair_slot_index(i, j, cap) of gid_b[0] is set
-      int64_t bit = i * (cap - 1) - i * (i - 1) / 2 + (j - i - 1);
-      bit = bit < 0 ? 0 : (bit > 62 ? 62 : bit);
-      hit = hit && cert && ((gb >> bit) & 1);
-      u = ids[i < K ? i : K - 1];
-      v = ids[j < K ? j : K - 1];
-    } else if (hit) {
-      hit = hyp ? hyp_tile(fa + 4 * i, fb + 4 * j, fp[1])
-                : euclid_tile((const float*)(fa + 4 * i), (const float*)(fb + 4 * j), dim, r2);
+  int base = 0;
+  for (int w = 0; w < warp; ++w) base += warp_sum[w];
+  if (threadIdx.x < n) off[threadIdx.x] = base + incl - v;
+  if (threadIdx.x == kThreads - 1) off[n] = base + incl;
+  __syncthreads();
+}
+
+// the last item whose offset is <= p, of n items with offsets off[]
+__device__ __forceinline__ int find_item(const int* off, int n, int p) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (off[mid] <= p) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// a tile's half of the shared memory: TR row records, the prefix of the
+// rows' point counts, one keep byte a slot (when staged), and the rows'
+// point areas
+struct TileBuf {
+  RowRec* rec;
+  int* off;
+  uint8_t* keep;
+  char* area;
+};
+
+__device__ __forceinline__ TileBuf tile_buf(const PairArgs& a, char* base) {
+  const int TR = a.tile_rows;
+  TileBuf b;
+  b.rec = (RowRec*)base;
+  b.off = (int*)(base + TR * sizeof(RowRec));
+  b.keep = (uint8_t*)b.off + ((TR + 1) * sizeof(int) + 15) / 16 * 16;
+  b.area = (char*)b.keep + (a.stage_keep ? (TR * a.cap * a.cap + 15) / 16 * 16 : 0);
+  return b;
+}
+
+__host__ __device__ __forceinline__ size_t tile_buf_bytes(int TR, int cap, int area,
+                                                          bool stage_keep) {
+  return TR * sizeof(RowRec) + ((TR + 1) * sizeof(int) + 15) / 16 * 16 +
+         (stage_keep ? ((size_t)TR * cap * cap + 15) / 16 * 16 : 0) + (size_t)TR * area;
+}
+
+// decode tile `tile` into `b`: one thread a row fills the row's record
+// (and a CERT row's test and ids), then the rows' points (only slots that
+// hold one) are spread over all threads by a prefix of their counts
+__device__ void pair_decode(const PairArgs& a, int64_t tile, TileBuf b, int* warp_sum) {
+  const int TR = a.tile_rows, cap = a.cap;
+  const int64_t r0 = tile * TR;
+  const int nr = (int)(a.rows - r0 < TR ? a.rows - r0 : TR);
+  int npts = 0;
+  if (threadIdx.x < nr) {  // TR <= kThreads
+    const int t = threadIdx.x;
+    const int64_t r = r0 + t;
+    const int ek = effective_kind(a.kind[r], a.kinds);
+    const bool live = a.active[r] && ek != 0;
+    RowRec rr;
+    rr.ga = a.gid_a[r * a.K];
+    rr.gb = a.gid_b[r * a.K];
+    const int64_t ca = a.count_a[r], cb = a.count_b[r];
+    rr.ca = live ? (int)(ca < 0 ? 0 : (ca > cap ? cap : ca)) : 0;
+    rr.cb = live ? (int)(cb < 0 ? 0 : (cb > cap ? cap : cb)) : 0;
+    rr.thr = ek == kGeomHyp || ek == kGeomTorus ? a.fparams[r * a.F + 1] : 0.0;
+    int flags = (a.self_pair[r] ? kRowSelf : 0) | ek << 1;
+    if (ek == kGeomCert) {
+      // the simplex in geom_a[:(dim+1) dim], the region box in geom_b[:2 dim]
+      if (live) {
+        const double* box = a.geom_b + r * a.G;
+        const bool ok = a.dim == 2 ? dt_circumsphere_in_box<2>(a.geom_a + r * a.G, box, box + 2)
+                                   : dt_circumsphere_in_box<3>(a.geom_a + r * a.G, box, box + 3);
+        flags |= ok ? kRowCert : 0;
+      }
+      long long* ids = (long long*)(b.area + (size_t)t * a.area);
+      for (int k = 0; k < a.K; ++k) ids[k] = a.gid_a[r * a.K + k];
+    } else if (ek == kGeomHyp || ek == kGeomTorus) {
+      npts = rr.ca + rr.cb;
     }
-    edges[r * slots + s] = make_longlong2(u > v ? u : v, u > v ? v : u);
-    keep[r * slots + s] = hit;
+    rr.flags = flags;
+    b.rec[t] = rr;
+  }
+  block_prefix(npts, nr, b.off, warp_sum);
+  const int total = b.off[nr];
+  for (int p = threadIdx.x; p < total; p += kThreads) {
+    const int t = find_item(b.off, nr, p);
+    const int k = p - b.off[t];
+    const int64_t r = r0 + t;
+    const RowRec& rr = b.rec[t];
+    const bool side_b = k >= rr.ca;
+    const int i = side_b ? k - rr.ca : k;
+    const int s = side_b ? cap + i : i;
+    const uint32_t* key = (side_b ? a.key_b : a.key_a) + 2 * r;
+    const double* geom = (side_b ? a.geom_b : a.geom_a) + r * a.G;
+    const Key2x32 slot = tf_fold_in(Key2x32{key[0], key[1]}, (uint32_t)i);
+    const double g0 = a.fparams[r * a.F];
+    if (((rr.flags >> 1) & 3) == kGeomHyp) {
+      hyp_features(slot, geom, g0, (double*)(b.area + (size_t)t * a.area) + 4 * s);
+    } else {
+      float* pt = (float*)(b.area + (size_t)t * a.area) + 4 * s;
+      for (int d = 0; d < a.dim; ++d)
+        pt[d] = (float)((geom[d] + uniform53(slot, (uint32_t)d)) / g0);
+    }
   }
 }
 
-__global__ void cell_points_kernel(const uint32_t* __restrict__ key,
-                                   const int64_t* __restrict__ count,
-                                   const int64_t* __restrict__ cell, int64_t Kc,
-                                   const double* __restrict__ geom, int64_t G, int polar,
-                                   double inv_scale, int64_t cap, int dim, int64_t total,
-                                   double* __restrict__ out, bool* __restrict__ mask) {
-  const int64_t at = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (at >= total) return;
-  const int64_t r = at / cap, i = at % cap;
-  const Key2x32 slot = tf_fold_in(Key2x32{key[2 * r], key[2 * r + 1]}, (uint32_t)i);
-  // the reference divides by the plan's constant scale, which XLA compiles
-  // as a multiplication by its float64 reciprocal
-  if (polar) {
-    const double* g = geom + r * G;  // (clo, chi, width)
-    double ar;
-    polar_draw(slot, g[0], g[1], (double)cell[r * Kc + 1], g[2], &ar, out + 2 * at + 1);
-    out[2 * at] = ar * inv_scale;
-  } else {
-    for (int d = 0; d < dim; ++d)
-      out[at * dim + d] = ((double)cell[r * Kc + d] + uniform53(slot, (uint32_t)d)) * inv_scale;
+// write the edges of tile `tile` from `b`, slots spread evenly over the
+// threads (a warp instruction stores 512 contiguous bytes), and stage
+// their keep bytes in b.keep (STAGE) or store them
+template <bool STAGE>
+__device__ void pair_write(const PairArgs& a, int64_t tile, TileBuf b) {
+  const int TR = a.tile_rows, cap = a.cap, cc = cap * cap;
+  const int64_t r0 = tile * TR;
+  const int nr = (int)(a.rows - r0 < TR ? a.rows - r0 : TR);
+  longlong2* edges = a.edges + r0 * cc;
+  uint8_t* keep = a.keep + r0 * cc;
+  // slot s = (row cap + i) cap + j, stepped by kThreads with carries
+  const uint32_t q0 = div_small(threadIdx.x, (uint32_t)cap, a.m_cap);
+  int j = (int)(threadIdx.x - q0 * cap);
+  int row = (int)div_small(q0, (uint32_t)cap, a.m_cap);
+  int i = (int)(q0 - row * cap);
+  for (int s = threadIdx.x; s < nr * cc; s += kThreads) {
+    const RowRec& rr = b.rec[row];
+    const int ek = (rr.flags >> 1) & 3;
+    const bool valid = i < rr.ca && j < rr.cb && (!(rr.flags & kRowSelf) || i < j);
+    long long u = rr.ga + i, v = rr.gb + j;
+    const char* pts = b.area + (size_t)row * a.area;
+    bool kp = false;
+    if (ek == kGeomCert) {
+      const long long* ids = (const long long*)pts;
+      const int kmax = (int)a.K - 1;
+      u = ids[i < kmax ? i : kmax];
+      v = ids[j < kmax ? j : kmax];
+      if (valid) {
+        int bit = i * (cap - 1) - i * (i - 1) / 2 + (j - i - 1);
+        bit = bit < 0 ? 0 : (bit > 62 ? 62 : bit);
+        kp = (rr.flags & kRowCert) && ((rr.gb >> bit) & 1);
+      }
+    } else if (valid) {
+      if (ek == kGeomHyp) {
+        kp = hyp_tile((const double*)pts + 4 * i, (const double*)pts + 4 * (cap + j), rr.thr);
+      } else {
+        kp = euclid_tile((const float*)pts + 4 * i, (const float*)pts + 4 * (cap + j), a.dim,
+                         (float)rr.thr);
+      }
+    }
+    edges[s] = make_longlong2(u > v ? u : v, u > v ? v : u);
+    if (STAGE) b.keep[s] = kp;
+    else keep[s] = kp;
+    j += a.step_j;
+    const int cj = j >= cap;
+    j -= cj ? cap : 0;
+    i += a.step_i + cj;
+    const int ci = i >= cap;
+    i -= ci ? cap : 0;
+    row += a.step_row + ci;
   }
-  mask[at] = i < count[r];
 }
+
+// store tile `tile`'s staged keep bytes: 16 a thread where the tile's
+// slots start on a 16-byte boundary, else one at a time
+__device__ void pair_keep(const PairArgs& a, int64_t tile, TileBuf b) {
+  const int TR = a.tile_rows, cc = a.cap * a.cap;
+  const int64_t r0 = tile * TR;
+  const int n = (int)(a.rows - r0 < TR ? a.rows - r0 : TR) * cc;
+  uint8_t* keep = a.keep + r0 * cc;
+  int done = 0;
+  if (((uintptr_t)keep & 15) == 0) {
+    for (int v = threadIdx.x; v < n / 16; v += kThreads)
+      ((uint4*)keep)[v] = ((const uint4*)b.keep)[v];
+    done = n / 16 * 16;
+  }
+  for (int s = done + threadIdx.x; s < n; s += kThreads) keep[s] = b.keep[s];
+}
+
+// STAGE: keep bytes staged in shared memory (a separate instance from the
+// wide rows', which store them as computed, so that its stores stay
+// shared-memory stores)
+template <bool STAGE>
+__global__ void __launch_bounds__(kThreads) pair_edges_kernel(PairArgs a, int64_t tiles) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int warp_sum[kWarps];
+  const size_t half = a.halves == 2 ? tile_buf_bytes(a.tile_rows, a.cap, a.area, STAGE) : 0;
+  int64_t tile = blockIdx.x;
+  if (tile >= tiles) return;
+  pair_decode(a, tile, tile_buf(a, smem), warp_sum);
+  __syncthreads();
+  int k = 0;
+  for (; tile < tiles; ++k, tile += gridDim.x) {
+    // tile k's edges and staged keep bytes from one half; tile k-1's keep
+    // and tile k+1's decode in the other; one barrier (two with one half)
+    const TileBuf cur = tile_buf(a, smem + (k & 1) * half);
+    const TileBuf other = tile_buf(a, smem + ((k + 1) & 1) * half);
+    pair_write<STAGE>(a, tile, cur);
+    if (STAGE && k > 0) pair_keep(a, tile - gridDim.x, other);
+    if (tile + gridDim.x < tiles) {
+      if (a.halves == 1) __syncthreads();
+      pair_decode(a, tile + gridDim.x, other, warp_sum);
+    }
+    __syncthreads();
+  }
+  if (STAGE) pair_keep(a, tile - gridDim.x, tile_buf(a, smem + ((k + 1) & 1) * half));
+}
+
+// the card's SM count, read once
+cudaError_t sm_count(int* sms) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached;
+  return cudaSuccess;
+}
+
+// the dynamic shared memory a block of `fn` may take (227 KB on an H100,
+// less the kernel's static shared memory)
+template <typename F>
+cudaError_t shared_room(F* fn, size_t* room) {
+  cudaFuncAttributes fa;
+  int dev, optin = 0;
+  cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *room = (size_t)optin - fa.sharedSizeBytes;
+  return err;
+}
+
+// launch a persistent kernel: as many CTAs as fit on the SMs, at most one a
+// tile, with `shared` bytes of dynamic shared memory each
+template <typename F, typename A>
+int launch_persistent(F* fn, const A& a, int64_t tiles, size_t shared, void* stream) {
+  cudaError_t err = cudaSuccess;
+  if (shared > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  int sms, per_sm = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, shared);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int64_t grid = tiles < (int64_t)sms * per_sm ? tiles : (int64_t)sms * per_sm;
+  fn<<<(unsigned)grid, kThreads, shared, (cudaStream_t)stream>>>(a, tiles);
+  return (int)cudaGetLastError();
+}
+
+template <bool STAGE>
+int launch_pair_edges(PairArgs a, void* stream) {
+  size_t room;
+  const cudaError_t err = shared_room(pair_edges_kernel<STAGE>, &room);
+  if (err != cudaSuccess) return (int)err;
+  const size_t half = tile_buf_bytes(a.tile_rows, a.cap, a.area, STAGE);
+  if (half > room) return (int)cudaErrorInvalidValue;
+  a.halves = 2 * half <= room ? 2 : 1;
+  const int64_t tiles = (a.rows + a.tile_rows - 1) / a.tile_rows;
+  return launch_persistent(pair_edges_kernel<STAGE>, a, tiles, a.halves * half, stream);
+}
+
+// cell_points ----------------------------------------------------------
+
+struct CellArgs {
+  const uint32_t* key;
+  const int64_t *count, *cell;
+  const double* geom;
+  int64_t Kc, G, rows;
+  int polar, cap, dim, tile_cells;
+  double inv_scale;
+  uint32_t m_cap;
+  double* out;
+  bool* mask;
+};
+
+// a tile's half of cell_points' shared memory: the cells' counts, their
+// prefix, and the staged points (none when direct)
+struct CellBuf {
+  int* cnt;
+  int* off;
+  double* stage;
+};
+
+__host__ __device__ __forceinline__ size_t cell_buf_bytes(int TC, int cap, int dim,
+                                                          bool direct) {
+  return ((2 * TC + 1) * sizeof(int) + 15) / 16 * 16 + (direct ? 0 : (size_t)TC * cap * dim * 8);
+}
+
+__device__ __forceinline__ CellBuf cell_buf(const CellArgs& a, char* base) {
+  CellBuf b;
+  b.cnt = (int*)base;
+  b.off = b.cnt + a.tile_cells;
+  b.stage = (double*)(base + ((2 * a.tile_cells + 1) * sizeof(int) + 15) / 16 * 16);
+  return b;
+}
+
+// draw tile `tile`'s points into `b` (into out when DIRECT): the cells'
+// counts and their prefix, then one thread a point (the last cell whose
+// offset is <= its index)
+template <bool DIRECT>
+__device__ void cell_draw(const CellArgs& a, int64_t tile, CellBuf b, int* warp_sum) {
+  const int TC = a.tile_cells, cap = a.cap, dim = a.dim;
+  const int64_t c0 = tile * TC;
+  const int nc = (int)(a.rows - c0 < TC ? a.rows - c0 : TC);
+  int c = 0;
+  if (threadIdx.x < nc) {  // TC <= kThreads
+    const int64_t v = a.count[c0 + threadIdx.x];
+    c = (int)(v < 0 ? 0 : (v > cap ? cap : v));
+    b.cnt[threadIdx.x] = c;
+  }
+  block_prefix(c, nc, b.off, warp_sum);
+  const int total = b.off[nc];
+  for (int p = threadIdx.x; p < total; p += kThreads) {
+    const int cl = find_item(b.off, nc, p);
+    const int i = p - b.off[cl];
+    const int64_t r = c0 + cl;
+    const Key2x32 slot = tf_fold_in(Key2x32{a.key[2 * r], a.key[2 * r + 1]}, (uint32_t)i);
+    double* dst = (DIRECT ? a.out + (size_t)c0 * cap * dim : b.stage) +
+                  ((size_t)cl * cap + i) * dim;
+    // the reference divides by the plan's constant scale, which XLA
+    // compiles as a multiplication by its float64 reciprocal
+    if (a.polar) {
+      const double* g = a.geom + r * a.G;  // (clo, chi, width)
+      double ar;
+      polar_draw(slot, g[0], g[1], (double)a.cell[r * a.Kc + 1], g[2], &ar, dst + 1);
+      dst[0] = ar * a.inv_scale;
+    } else {
+      for (int d = 0; d < dim; ++d)
+        dst[d] = ((double)a.cell[r * a.Kc + d] + uniform53(slot, (uint32_t)d)) * a.inv_scale;
+    }
+  }
+}
+
+// store tile `tile` from `b`: its slots in units of one slot (even dim)
+// or two (odd dim), so that a unit is whole 16-byte pairs of doubles (c0
+// cap is even: TC is), 0 on padding slots, and the mask; (cell, slot) is
+// stepped with carries, not divided
+template <int DIM>
+__device__ void cell_store(const CellArgs& a, int64_t tile, CellBuf b) {
+  constexpr int U = DIM & 1 ? 2 : 1;
+  const int TC = a.tile_cells, cap = a.cap;
+  const int64_t c0 = tile * TC;
+  const int nc = (int)(a.rows - c0 < TC ? a.rows - c0 : TC);
+  const int slots = nc * cap;
+  double* out = a.out + c0 * cap * DIM;
+  bool* mask = a.mask + c0 * cap;
+  const int first = U * threadIdx.x, step = U * kThreads;
+  int cl = (int)div_small((uint32_t)first, (uint32_t)cap, a.m_cap);
+  int i = first - cl * cap;
+  const int step_cl = step / cap, step_i = step - step_cl * cap;
+  for (int s = first; s < slots; s += step) {
+    double v[U * DIM];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      int ci = cl, ii = i + u;
+      if (ii >= cap) ii -= cap, ++ci;
+      const bool live = s + u < slots && ii < b.cnt[ci];
+      if (s + u < slots) mask[s + u] = live;
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) v[u * DIM + d] = live ? b.stage[(s + u) * DIM + d] : 0.0;
+    }
+    double2* o = (double2*)(out + (size_t)s * DIM);
+    if (s + U <= slots) {
+#pragma unroll
+      for (int h = 0; h < U * DIM / 2; ++h) o[h] = make_double2(v[2 * h], v[2 * h + 1]);
+    } else {  // an odd dim's last single slot
+#pragma unroll
+      for (int h = 0; h < DIM / 2; ++h) o[h] = make_double2(v[2 * h], v[2 * h + 1]);
+      out[(size_t)s * DIM + DIM - 1] = v[DIM - 1];
+    }
+    i += step_i;
+    const int ci = i >= cap;
+    i -= ci ? cap : 0;
+    cl += step_cl + ci;
+  }
+}
+
+// the mask of tile `tile`, and 0 on its padding slots, of cells drawn
+// straight into out
+__device__ void cell_pad(const CellArgs& a, int64_t tile, CellBuf b) {
+  const int TC = a.tile_cells, cap = a.cap, dim = a.dim;
+  const int64_t c0 = tile * TC;
+  const int nc = (int)(a.rows - c0 < TC ? a.rows - c0 : TC);
+  for (int s = threadIdx.x; s < nc * cap; s += kThreads) {
+    const bool live = s % cap < b.cnt[s / cap];
+    a.mask[c0 * cap + s] = live;
+    if (!live)
+      for (int d = 0; d < dim; ++d) a.out[(c0 * cap + s) * dim + d] = 0.0;
+  }
+}
+
+// two halves: tile k+1's draws go into one while tile k's stores drain
+// from the other, one barrier a tile.  DIRECT: the cells are too wide to
+// stage; their points go straight to out (a separate instance, so that
+// the staged one addresses its tile as shared memory)
+template <bool DIRECT>
+__global__ void __launch_bounds__(kThreads) cell_points_kernel(CellArgs a, int64_t tiles) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int warp_sum[kWarps];
+  const size_t half = cell_buf_bytes(a.tile_cells, a.cap, a.dim, DIRECT);
+  int64_t tile = blockIdx.x;
+  if (tile >= tiles) return;
+  cell_draw<DIRECT>(a, tile, cell_buf(a, smem), warp_sum);
+  __syncthreads();
+  for (int k = 0; tile < tiles; ++k, tile += gridDim.x) {
+    const CellBuf cur = cell_buf(a, smem + (k & 1) * half);
+    if (DIRECT) cell_pad(a, tile, cur);
+    else if (a.dim == 2) cell_store<2>(a, tile, cur);
+    else if (a.dim == 3) cell_store<3>(a, tile, cur);
+    else cell_store<1>(a, tile, cur);
+    if (tile + gridDim.x < tiles)
+      cell_draw<DIRECT>(a, tile + gridDim.x, cell_buf(a, smem + ((k + 1) & 1) * half), warp_sum);
+    __syncthreads();
+  }
+}
+
+__device__ double libm_apply(int fn, double x) {
+  switch (fn) {
+    case 0: return L::xla_exp(x);
+    case 1: return L::xla_expm1(x);
+    case 2: return L::xla_log1p(x);
+    case 3: return L::glibc_log(x);
+    case 4: return L::glibc_sin(x);
+    default: return L::glibc_cos(x);
+  }
+}
+
+__global__ void libm_kernel(int fn, const double* __restrict__ x, double* __restrict__ y,
+                            int64_t n) {
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += (int64_t)gridDim.x * blockDim.x)
+    y[t] = libm_apply(fn, x[t]);
+}
+
+uint32_t magic(uint32_t d) { return (uint32_t)((((uint64_t)1 << 32) + d - 1) / d); }
+
 
 }  // namespace
 
 // Candidate-pair rows: kind int32 [R]; key_a, key_b uint32 [R, 2]; count_a,
 // count_b int64 [R]; gid_a, gid_b int64 [R, K]; geom_a, geom_b float64
-// [R, G]; fparams float64 [R, F]; self_pair, active bool [R].  Out: edges
-// int64 [R, cap^2, 2], keep bool [R, cap^2].  Returns the cudaError_t.
+// [R, G]; fparams float64 [R, F]; self_pair, active bool [R]; kinds = the
+// bits of the row kinds the launch runs (1 HYP, 2 TORUS, 4 CERT); a row of
+// another kind keeps nothing, as in the plain version.  Out: edges int64
+// [R, cap^2, 2], keep bool [R, cap^2] (16-byte aligned).  Returns the
+// cudaError_t: cudaErrorInvalidValue for a row too wide for shared memory.
 extern "C" int pair_edges(const void* kind, const void* key_a, const void* key_b,
                           const void* count_a, const void* count_b, const void* gid_a,
                           const void* gid_b, long long K, const void* geom_a,
                           const void* geom_b, long long G, const void* fparams,
                           long long F, const void* self_pair, const void* active,
-                          long long rows, long long cap, int dim, void* edges,
+                          long long rows, long long cap, int dim, int kinds, void* edges,
                           void* keep, void* stream) {
   if (rows == 0 || cap == 0) return 0;
-  if (rows > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  // a few warps per row: the threads loop over the row's slots, and small
-  // blocks (the kernel takes ~58 registers a thread) let several rows'
-  // decode phases overlap on one SM
-  const long long slots = cap * cap;
-  const int threads = slots >= kRowThreads ? kRowThreads : (int)((slots + 31) / 32 * 32);
-  const size_t shared = (size_t)cap * 2 * 4 * sizeof(double);
-  if (shared > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pair_edges_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
-    if (err != cudaSuccess) return (int)err;
+  if (cap > 32768 || kinds < 0 || kinds > 7 || ((uintptr_t)keep & 15) ||
+      ((uintptr_t)edges & 15))
+    return (int)cudaErrorInvalidValue;
+  PairArgs a;
+  a.kind = (const int32_t*)kind;
+  a.key_a = (const uint32_t*)key_a;
+  a.key_b = (const uint32_t*)key_b;
+  a.count_a = (const int64_t*)count_a;
+  a.count_b = (const int64_t*)count_b;
+  a.gid_a = (const int64_t*)gid_a;
+  a.gid_b = (const int64_t*)gid_b;
+  a.geom_a = (const double*)geom_a;
+  a.geom_b = (const double*)geom_b;
+  a.fparams = (const double*)fparams;
+  a.self_pair = (const bool*)self_pair;
+  a.active = (const bool*)active;
+  a.K = K, a.G = G, a.F = F, a.rows = rows;
+  a.cap = (int)cap, a.dim = dim, a.kinds = kinds;
+  a.edges = (longlong2*)edges;
+  a.keep = (uint8_t*)keep;
+  const int cc = (int)(cap * cap);
+  a.m_cap = magic((uint32_t)cap);
+  a.step_j = kThreads % (int)cap;
+  a.step_i = kThreads / (int)cap % (int)cap;
+  a.step_row = kThreads / (int)cap / (int)cap;
+  // a row's point area: 2 cap float64 features (HYP), 2 cap float32 x 4
+  // points (TORUS), K ids (CERT)
+  int area = 0;
+  if (kinds & kHyp) area = 2 * (int)cap * 32;
+  if ((kinds & kTorus) && 2 * (int)cap * 16 > area) area = 2 * (int)cap * 16;
+  if ((kinds & kCert) && 8 * (int)K > area) area = 8 * (int)K;
+  a.area = (area + 15) / 16 * 16;
+  // about 4096 slots a tile, in whole 512-slot windows where a multiple of
+  // a few rows makes one; at most 256 rows and 48 KB for the two halves
+  // with their keep bytes staged.  Wider rows (capacity above about 120)
+  // go one a tile with their keep bytes stored as they are computed, in
+  // two halves where the card's shared memory holds them, else in one
+  int g = cc, w = kTileAlign;
+  while (w) { const int t = g % w; g = w; w = t; }  // gcd(cc, 512)
+  const int unit = kTileAlign / g;
+  int tr;
+  if (unit <= 256 && unit * cc <= 8192) {
+    int m = 4096 / (unit * cc);
+    m = m < 1 ? 1 : (m > 256 / unit ? 256 / unit : m);
+    tr = unit * m;
+  } else {
+    tr = 4096 / cc < 1 ? 1 : (4096 / cc > 256 ? 256 : 4096 / cc);
   }
-  pair_edges_kernel<<<(unsigned)rows, threads, shared, (cudaStream_t)stream>>>(
-      (const int32_t*)kind, (const uint32_t*)key_a, (const uint32_t*)key_b,
-      (const int64_t*)count_a, (const int64_t*)count_b, (const int64_t*)gid_a,
-      (const int64_t*)gid_b, K, (const double*)geom_a, (const double*)geom_b, G,
-      (const double*)fparams, F, (const bool*)self_pair, (const bool*)active, cap, dim,
-      (longlong2*)edges, (bool*)keep);
-  return (int)cudaGetLastError();
+  while (tr > 1 && 2 * tile_buf_bytes(tr, (int)cap, a.area, true) > 48 * 1024) tr /= 2;
+  a.stage_keep = 2 * tile_buf_bytes(tr, (int)cap, a.area, true) <= 48 * 1024;
+  a.tile_rows = a.stage_keep ? tr : 1;
+  return a.stage_keep ? launch_pair_edges<true>(a, stream) : launch_pair_edges<false>(a, stream);
 }
 
 // Point-plan cells: key uint32 [R, 2]; count int64 [R]; cell int64 [R, Kc];
-// geom float64 [R, G].  Out: points float64 [R, cap, dim], mask bool
-// [R, cap].  polar = 0 for cube cells, 1 for polar cells (dim 2);
-// inv_scale = 1 / the plan's scale.
+// geom float64 [R, G].  Out: points float64 [R, cap, dim] (0 on padding
+// slots), mask bool [R, cap].  polar = 0 for cube cells, 1 for polar cells
+// (dim 2); inv_scale = 1 / the plan's scale.
 extern "C" int cell_points(const void* key, const void* count, const void* cell,
                            long long Kc, const void* geom, long long G, int polar,
                            double inv_scale, long long rows, long long cap, int dim,
                            void* out, void* mask, void* stream) {
-  const long long total = rows * cap;
-  if (total == 0) return 0;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  cell_points_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)key, (const int64_t*)count, (const int64_t*)cell, Kc,
-      (const double*)geom, G, polar, inv_scale, cap, dim, total, (double*)out, (bool*)mask);
+  if (rows == 0 || cap == 0) return 0;
+  if (cap > (1 << 24) || dim < 1 || dim > 3 || ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
+  CellArgs a;
+  a.key = (const uint32_t*)key;
+  a.count = (const int64_t*)count;
+  a.cell = (const int64_t*)cell;
+  a.geom = (const double*)geom;
+  a.Kc = Kc, a.G = G, a.rows = rows;
+  a.polar = polar, a.cap = (int)cap, a.dim = dim;
+  a.inv_scale = inv_scale;
+  a.m_cap = magic((uint32_t)cap);
+  a.out = (double*)out;
+  a.mask = (bool*)mask;
+  // an even number of cells a tile, about 16 KB of staging, at most 256;
+  // cells whose two staged tiles the card's shared memory cannot hold
+  // (cap dim above about 7000) are drawn straight into out
+  int tc = (int)(16 * 1024 / (cap * dim * 8));
+  tc = tc > 256 ? 256 : tc;
+  tc = tc < 2 ? 2 : tc & ~1;
+  a.tile_cells = tc;
+  size_t room;
+  const cudaError_t err = shared_room(cell_points_kernel<false>, &room);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = (rows + tc - 1) / tc;
+  if (2 * cell_buf_bytes(tc, (int)cap, dim, false) <= room)
+    return launch_persistent(cell_points_kernel<false>, a, tiles,
+                             2 * cell_buf_bytes(tc, (int)cap, dim, false), stream);
+  return launch_persistent(cell_points_kernel<true>, a, tiles,
+                           2 * cell_buf_bytes(tc, (int)cap, dim, true), stream);
+}
+
+// The device libm functions on a float64 array, for holding them against
+// their plain versions: fn 0 xla_exp, 1 xla_expm1, 2 xla_log1p, 3
+// glibc_log, 4 glibc_sin, 5 glibc_cos.
+extern "C" int libm_eval(int fn, const void* x, void* y, long long n, void* stream) {
+  if (n == 0) return 0;
+  if (fn < 0 || fn > 5) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+  libm_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(fn, (const double*)x,
+                                                                  (double*)y, n);
   return (int)cudaGetLastError();
 }

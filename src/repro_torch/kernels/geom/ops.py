@@ -12,6 +12,7 @@ import ctypes
 import torch
 
 from .. import build
+from . import libm
 from .ref import (GEOM_CERT, GEOM_EMPTY, GEOM_HYP, GEOM_TORUS, POINTS_CUBE, POINTS_POLAR,
                   cell_points_ref, pair_edges_ref)
 
@@ -20,10 +21,17 @@ _I = ctypes.c_longlong
 _C = ctypes.c_int
 _SIGNATURES = {
     "pair_edges": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P,
-                   _I, _I, _C, _P, _P, _P],
+                   _I, _I, _C, _C, _P, _P, _P],
     "cell_points": [_P, _P, _P, _I, _P, _I, _C, ctypes.c_double, _I, _I, _C,
                     _P, _P, _P],
+    "libm_eval": [_C, _P, _P, _I, _P],
 }
+# the row kinds a pair_edges launch runs, as the kernel's bits
+_KIND_BITS = {GEOM_HYP: 1, GEOM_TORUS: 2, GEOM_CERT: 4}
+#: the device libm functions ``libm_eval`` runs, in the kernel's order
+LIBM_FUNCTIONS = {"xla_exp": libm.xla_exp, "xla_expm1": libm.xla_expm1,
+                  "xla_log1p": libm.xla_log1p, "glibc_log": libm.glibc_log,
+                  "glibc_sin": libm.glibc_sin, "glibc_cos": libm.glibc_cos}
 
 
 def _lib():
@@ -37,7 +45,10 @@ def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_
     :func:`.ref.pair_edges_ref`).  ``kind`` int32 ``[R]``; keys int32
     ``[R, 2]`` (the uint32 words' bits); counts int64 ``[R]``; gids int64
     ``[R, K]``; geoms float64 ``[R, G]``; ``fparams`` float64 ``[R, F]``;
-    ``self_pair`` and ``active`` bool ``[R]``."""
+    ``self_pair`` and ``active`` bool ``[R]``.  On the card a row's points
+    (32 bytes each on HYP rows, 16 on TORUS rows, 2 capacity of them) must
+    fit in a block's shared memory: capacity up to 3630 with HYP rows and
+    7261 with TORUS rows alone on an H100; the launch raises beyond."""
     if kind.device.type == "cpu":
         return pair_edges_ref(kind, key_a, key_b, count_a, count_b, gid_a, gid_b,
                               geom_a, geom_b, fparams, self_pair, active,
@@ -64,6 +75,7 @@ def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_
     if F < need_f or G < need or K < 1 or dim not in (2, 3):
         raise ValueError(f"pair_edges: want F >= {need_f}, G >= {need}, K >= 1, dim 2 or 3; "
                          f"got F={F}, G={G}, K={K}, dim={dim}")
+    bits = sum(_KIND_BITS[k] for k in set(kinds) - {GEOM_EMPTY})
     slots = capacity * capacity
     edges = torch.empty((R, slots, 2), dtype=torch.int64, device=dev)
     keep = torch.empty((R, slots), dtype=torch.bool, device=dev)
@@ -72,7 +84,7 @@ def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_
             kind.data_ptr(), key_a.data_ptr(), key_b.data_ptr(), count_a.data_ptr(),
             count_b.data_ptr(), gid_a.data_ptr(), gid_b.data_ptr(), K,
             geom_a.data_ptr(), geom_b.data_ptr(), G, fparams.data_ptr(), F,
-            self_pair.data_ptr(), active.data_ptr(), R, capacity, dim,
+            self_pair.data_ptr(), active.data_ptr(), R, capacity, dim, bits,
             edges.data_ptr(), keep.data_ptr(), build.stream_arg(dev)), "pair_edges")
         build.LAUNCHES["pair_edges"] += 1
     return edges, keep
@@ -92,7 +104,8 @@ def cell_points(key, count, cell, geom, *, kind: str, scale: float, capacity: in
     R, dev = count.shape[0], count.device
     Kc, G = cell.shape[-1], geom.shape[-1]
     polar = kind == POINTS_POLAR
-    if (polar and (dim != 2 or Kc < 2 or G < 3)) or (not polar and Kc < dim):
+    if (polar and (dim != 2 or Kc < 2 or G < 3)) or (not polar and Kc < dim) or \
+            not 0 < dim < 4:
         raise ValueError(f"cell_points: {kind} cells with dim={dim}, Kc={Kc}, G={G}")
     build.check_arg(key, "key", torch.int32, (R, 2), dev)
     build.check_arg(count, "count", torch.int64, (R,), dev)
@@ -107,3 +120,18 @@ def cell_points(key, count, cell, geom, *, kind: str, scale: float, capacity: in
             mask.data_ptr(), build.stream_arg(dev)), "cell_points")
         build.LAUNCHES["cell_points"] += 1
     return out, mask
+
+
+def libm_eval(name: str, x: torch.Tensor) -> torch.Tensor:
+    """One of :data:`LIBM_FUNCTIONS` (``csrc/libm.cuh``) on float64 ``x``:
+    its plain version on the CPU, the device function on the card.  Not a
+    kernel of any path: it holds the device functions against the plain
+    ones."""
+    fn = LIBM_FUNCTIONS[name]
+    if x.device.type == "cpu":
+        return fn(x)
+    build.check_arg(x, "x", torch.float64, tuple(x.shape), x.device)
+    y = torch.empty_like(x)
+    build.check(_lib().libm_eval(list(LIBM_FUNCTIONS).index(name), x.data_ptr(), y.data_ptr(),
+                                 x.numel(), build.stream_arg(x.device)), "libm_eval")
+    return y

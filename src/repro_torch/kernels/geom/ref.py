@@ -13,14 +13,16 @@ them as the reference does:
   ``θ = (cell + u1) w``; the edge test adds the features ``[cos θ,
   sin θ, cosh r / sinh r, 1 / sinh r]`` of ``r = max(r, 1e-12)``.
 
-The transcendentals are written as XLA expands them on the CPU, so the
-features follow the reference's to a few ulp: ``clo + u0 (chi - clo)``
-is one fused multiply-add, ``arccosh(x) = log1p(sqrt(x - 1) (sqrt(x +
-1) + sqrt(x - 1)))`` (``log x + log 2`` from 2^1023 on), ``cosh r =
-exp(r - log 2) + exp(-log 2 - r)`` and ``sinh r`` is ``(e + e / (e +
-1)) / 2`` with ``e = expm1(r)`` below 1, ``exp(r - log 2) - exp(-log 2
-- r)`` above.  Every divisor is a tensor: on the card a division by a
-Python float would be a multiplication by its reciprocal.
+The transcendentals are those of the reference's compiled programs, bit
+for bit (:mod:`.libm`): XLA-CPU's own ``exp``, ``expm1`` and ``log1p``,
+glibc's ``log``, ``sin`` and ``cos``.  Around them, ``clo + u0 (chi -
+clo)`` is one fused multiply-add, ``arccosh(x) = log1p(sqrt(x - 1)
+(sqrt(x + 1) + sqrt(x - 1)))`` (``log x + log 2`` from 2^1023 on),
+``cosh r = exp(r - log 2) + exp(-log 2 - r)`` and ``sinh r`` is ``(e +
+e / (e + 1)) / 2`` with ``e = expm1(r)`` below 1, ``exp(r - log 2) -
+exp(-log 2 - r)`` above, as XLA expands them.  Every divisor is a
+tensor: on the card a division by a Python float would be a
+multiplication by its reciprocal.
 
 A GEOM_CERT row (RDG) re-certifies one Delaunay simplex: the Cramer
 circumsphere of ``geom_a[:(d+1) d]`` must lie inside the box ``geom_b[:2
@@ -28,16 +30,18 @@ d]`` (:func:`repro_torch.kernels.delaunay.predicates.circumsphere_in_box`),
 and slot pair ``(i, j)`` emits the edge of the row's vertex ids ``gid_a[i],
 gid_a[j]`` when bit ``pair_slot_index(i, j, cap)`` of ``gid_b[0]`` is set.
 
-The CUDA kernels (``csrc/geom.cu``) compute the same operations in the
-same order, so on the card they equal these functions bit for bit.
+The CUDA kernels (``csrc/geom.cu``, with ``csrc/libm.cuh``) compute the
+same operations in the same order, so on the card they equal these
+functions bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
 from ...core.prng import counter_uniform
-from ..delaunay.predicates import circumsphere_in_box
+from ..delaunay.predicates import circumsphere_in_box, sqrt_rn
 from ..pairmask.ref import euclid_tile, hyp_tile
+from .libm import glibc_cos, glibc_log, glibc_sin, xla_exp, xla_expm1, xla_log1p
 
 # geometry kinds of the pair table and point kinds of the cell table (the
 # reference's codes)
@@ -49,10 +53,10 @@ _ACOSH_LARGE = 8.9884656743115785e+307   # 2^1023
 
 
 def acosh_xla(x: torch.Tensor) -> torch.Tensor:
-    """arccosh as XLA expands it."""
-    sm = torch.sqrt(x - 1.0)
-    small = torch.log1p(sm * (torch.sqrt(x + 1.0) + sm))
-    return torch.where(x >= _ACOSH_LARGE, torch.log(x) + _LOG2, small)
+    """arccosh as XLA expands it, for ``x >= 1``."""
+    sm = sqrt_rn(x - 1.0)
+    small = xla_log1p(sm * (sqrt_rn(x + 1.0) + sm))
+    return torch.where(x >= _ACOSH_LARGE, glibc_log(x) + _LOG2, small)
 
 
 def polar_draw(key, geom: torch.Tensor, capacity: int):
@@ -75,11 +79,11 @@ def hyp_radius_theta(key, geom: torch.Tensor, scale: torch.Tensor, capacity: int
 def hyp_features(key, geom: torch.Tensor, scale: torch.Tensor, capacity: int) -> torch.Tensor:
     """float64 ``[R, capacity, 4]``: ``[cos θ, sin θ, coth r, 1/sinh r]``."""
     r, theta = hyp_radius_theta(key, geom, scale, capacity)
-    e_hi = torch.exp(r - _LOG2)
-    e_lo = torch.exp(-_LOG2 - r)
-    em1 = torch.expm1(r)
+    e_hi = xla_exp(r - _LOG2)
+    e_lo = xla_exp(-_LOG2 - r)
+    em1 = xla_expm1(r)
     sh = torch.where(r.abs() < 1.0, (em1 + em1 / (em1 + 1.0)) * 0.5, e_hi - e_lo)
-    return torch.stack([torch.cos(theta), torch.sin(theta),
+    return torch.stack([glibc_cos(theta), glibc_sin(theta),
                         (e_hi + e_lo) / sh, 1.0 / sh], dim=-1)
 
 
@@ -141,7 +145,8 @@ def pair_edges_ref(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a,
 def cell_points_ref(key, count, cell, geom, *, kind: str, scale: float,
                     capacity: int, dim: int):
     """(points float64 ``[R, capacity, dim]``, mask bool ``[R, capacity]``)
-    of ``R`` point-plan cells.  Cube cells: ``(cell + u) / scale``.
+    of ``R`` point-plan cells; padding slots (``mask`` false) hold 0.
+    Cube cells: ``(cell + u) / scale``.
     Polar cells: ``(r, θ)`` with ``geom = (clo, chi, width)`` and
     ``cell = (ring, angular index)``; ``scale`` is alpha.
 
@@ -160,5 +165,5 @@ def cell_points_ref(key, count, cell, geom, *, kind: str, scale: float,
     else:
         raise ValueError(f"unknown point kind {kind!r}")
     mask = torch.arange(capacity, device=dev)[None, :] < count[:, None]
-    return pts, mask
+    return torch.where(mask[..., None], pts, torch.zeros((), dtype=pts.dtype, device=dev)), mask
 

@@ -15,7 +15,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.delaunay import ops as D
 from repro_torch.kernels.delaunay.ref import triangulate_ref
 from repro_torch.kernels.geom import ops as G
-from repro_torch.kernels.geom.ref import cell_points_ref, pair_edges_ref
+from repro_torch.kernels.geom.ref import (GEOM_CERT, GEOM_HYP, GEOM_TORUS, cell_points_ref,
+                                          pair_edges_ref)
 from repro_torch.kernels.hist import ops as H
 from repro_torch.kernels.hist.ref import hist_counts_ref
 from repro_torch.kernels.pairmask import ops as M
@@ -23,6 +24,8 @@ from repro_torch.kernels.pairmask.ref import pair_mask_ref
 from repro_torch.kernels.sampler import ops as S
 from repro_torch.kernels.sampler.ref import chunk_decode_ref, chunk_draw_ref
 from torch_dt_rows import overflow_row, tie_rows
+from torch_geom_rows import ALL_KINDS, cell_rows, pair_rows
+from torch_libm_inputs import INPUTS
 
 pytestmark = pytest.mark.gpu
 
@@ -178,11 +181,90 @@ def test_geometric_generate_and_collect_on_the_card_equal_cpu(cuda, spec):
     a = api.generate(spec, 3, device=cuda, return_points=True)
     b = api.generate(spec, 3, device="cpu", return_points=True)
     assert torch.equal(a.edges.cpu(), b.edges)
-    if isinstance(spec, api.RGG):
-        assert torch.equal(a.points.cpu(), b.points)
+    assert torch.equal(a.points.cpu(), b.points)          # RHG radii too, bit for bit
     ca, cb = api.collect(spec, 3, device=cuda), api.collect(spec, 3, device="cpu")
     assert ca.num_edges == cb.num_edges == len(b.edges)
     assert torch.equal(ca.degree.degrees.cpu(), cb.degree.degrees)
+
+
+@pytest.mark.parametrize("name", sorted(INPUTS))
+def test_device_libm_equals_plain(cuda, name):
+    """Each device function of libm.cuh equals its plain version on the
+    card and on the CPU, bit for bit, on 10^6 inputs and its boundaries."""
+    x = torch.from_numpy(INPUTS[name](np.random.default_rng(17)))
+    got = G.libm_eval(name, x.to(cuda))
+    assert torch.equal(got.view(torch.int64), G.LIBM_FUNCTIONS[name](x.to(cuda)).view(torch.int64))
+    assert torch.equal(got.cpu().view(torch.int64), G.LIBM_FUNCTIONS[name](x).view(torch.int64))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("cap", [1, 2, 4, 16, 24])
+def test_pair_edges_mixed_rows_match_plain(cuda, cap, dim):
+    """TORUS, HYP, CERT and EMPTY rows in one launch, with self pairs,
+    inactive rows, empty and full cells; one row, and row counts that are
+    no multiple of a tile's rows."""
+    for R in (1, 37, 1000):
+        rows = pair_rows(R, cap, dim, seed=100 * cap + 10 * dim + R, device=cuda)
+        kw = dict(capacity=cap, dim=dim, kinds=ALL_KINDS)
+        before = build.LAUNCHES["pair_edges"]
+        ea, ka = G.pair_edges(*rows, **kw)
+        assert build.LAUNCHES["pair_edges"] == before + 1
+        eb, kb = pair_edges_ref(*rows, **kw)
+        assert torch.equal(ea, eb) and torch.equal(ka, kb), (cap, dim, R)
+
+
+@pytest.mark.parametrize("kinds", [(GEOM_HYP,), (GEOM_TORUS,), (GEOM_CERT,),
+                                   (GEOM_HYP, GEOM_CERT), ()])
+def test_pair_edges_runs_only_the_kinds_it_is_given(cuda, kinds):
+    rows = pair_rows(500, 24, 2, seed=5, device=cuda)
+    ea, ka = G.pair_edges(*rows, capacity=24, dim=2, kinds=kinds)
+    eb, kb = pair_edges_ref(*rows, capacity=24, dim=2, kinds=kinds)
+    assert torch.equal(ea, eb) and torch.equal(ka, kb)
+
+
+def _ref_in_parts(rows, kw, step):
+    """pair_edges_ref over ``step`` rows at a time, concatenated."""
+    parts = [pair_edges_ref(*(t[i:i + step] for t in rows), **kw)
+             for i in range(0, len(rows[0]), step)]
+    return torch.cat([e for e, _ in parts]), torch.cat([k for _, k in parts])
+
+
+# capacities past the one-row staged tile (HYP from 128, TORUS from 142:
+# keep bytes stored as computed), up to one shared-memory half a row (HYP
+# from 1815), and the largest a launch takes (HYP 3630, TORUS 7261), with
+# rows enough at 1815 (140) that a CTA takes a second tile
+WIDE = [(ALL_KINDS, 128, 37), (ALL_KINDS, 144, 37), (ALL_KINDS, 208, 37),
+        (ALL_KINDS, 256, 37), (ALL_KINDS, 300, 37), ((GEOM_HYP,), 127, 37),
+        ((GEOM_HYP,), 128, 37), ((GEOM_HYP,), 208, 37), ((GEOM_HYP,), 1815, 140),
+        ((GEOM_HYP,), 3630, 1), ((GEOM_TORUS,), 141, 37), ((GEOM_TORUS,), 142, 37),
+        ((GEOM_TORUS,), 144, 37), ((GEOM_TORUS,), 256, 37), ((GEOM_TORUS,), 7261, 1)]
+
+
+@pytest.mark.parametrize("kinds,cap,R", WIDE, ids=[f"{''.join(map(str, k))}-{c}"
+                                                    for k, c, _ in WIDE])
+def test_pair_edges_wide_rows_match_plain(cuda, kinds, cap, R):
+    for dim in (2, 3):
+        rows = pair_rows(R, cap, dim, seed=cap + dim, device=cuda, kinds=kinds)
+        rows[-1][:R // 2 + 1] = True                     # the first rows run
+        assert any(int(k) in kinds for k in rows[0][:R // 2 + 1])
+        kw = dict(capacity=cap, dim=dim, kinds=kinds)
+        ea, ka = G.pair_edges(*rows, **kw)
+        eb, kb = _ref_in_parts(rows, kw, max(1, (1 << 24) // (cap * cap)))
+        assert torch.equal(ea, eb) and torch.equal(ka, kb), (kinds, cap, dim, R)
+        del ea, ka, eb, kb
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("kind,dim", [("cube", 2), ("cube", 3), ("polar", 2)])
+@pytest.mark.parametrize("cap", [1, 7, 25, 1024, 4000])
+def test_cell_points_with_empty_cells_match_plain(cuda, kind, dim, cap):
+    for R in (1, 3, 1001):
+        rows, scale = cell_rows(R, cap, dim, kind, seed=cap + R, device=cuda)
+        kw = dict(kind=kind, scale=scale, capacity=cap, dim=dim)
+        pa, ma = G.cell_points(*rows, **kw)
+        pb, mb = cell_points_ref(*rows, **kw)
+        assert torch.equal(pa, pb) and torch.equal(ma, mb), (kind, dim, cap, R)
+        assert not pa[~ma].any()
 
 
 def test_geometric_kernels_refuse_wrong_arguments(cuda):
@@ -193,6 +275,11 @@ def test_geometric_kernels_refuse_wrong_arguments(cuda):
         G.pair_edges(*([rows[0].to(torch.int64)] + rows[1:]), **kw)
     with pytest.raises(ValueError):
         G.pair_edges(*rows, capacity=plan.capacity, dim=4, kinds=plan.kinds_present)
+    one = pair_rows(1, 4, 2, seed=1, device=cuda)   # a row too wide for shared memory
+    with pytest.raises(RuntimeError):
+        G.pair_edges(*one, capacity=3631, dim=plan.dim, kinds=(GEOM_HYP,))
+    with pytest.raises(RuntimeError):
+        G.pair_edges(*one, capacity=7262, dim=plan.dim, kinds=(GEOM_TORUS,))
     a = torch.zeros((2, 4, 8), device=cuda)
     with pytest.raises(ValueError):
         M.pair_mask(a.double(), a.double(), 1.0, tile="euclid")

@@ -2,10 +2,11 @@
 pair program, ``generate``, ``iter_edge_chunks`` and ``collect``.
 
 The port runs on the CPU (``device="cpu"``), where the ``pair_edges``
-wrapper computes its plain PyTorch version.  Edges, keep masks and plan
-tables are compared exactly.  RHG's hyperbolic features are computed
-with other transcendental implementations than XLA's, so they are held
-to a stated tolerance, and the edges they decide must still be equal.
+wrapper computes its plain PyTorch version.  Edges, keep masks, plan
+tables and RHG's hyperbolic features are compared exactly: the features
+go through the same ``exp``, ``expm1``, ``log1p``, ``log``, ``sin`` and
+``cos`` as the reference's compiled program
+(``repro_torch.kernels.geom.libm``).
 """
 import math
 
@@ -22,6 +23,8 @@ from repro_torch import api as tapi
 from repro_torch.distrib import engine as teng
 from repro_torch.distrib import runtime as trt
 from repro_torch.kernels.geom.ref import hyp_features
+from repro_torch.kernels.geom.ref import GEOM_EMPTY, pair_edges_ref
+from torch_geom_rows import ALL_KINDS, pair_rows
 from torch_golden import jax_hyp_features
 
 # one intra-op thread: the suite runs in several worker processes at once,
@@ -124,12 +127,9 @@ def test_unbatched_stream_matches_reference_stream():
     assert one.buffer.shape == (tspec.plan(2).capacity ** 2, 2) and one.mask.ndim == 1
 
 
-# features agree with XLA's to this many ulps; 1/sinh r ~ 2 e^-r inherits
-# r's relative error times r, so its bound scales with max(1, r)
-FEATURE_ULPS = 8
-
-
 def test_rhg_features_within_tolerance():
+    """The features of every active row's side-a slots equal the
+    reference decode's bit for bit: the tolerance is 0."""
     jspec, _ = specs("rhg-steep")
     plan = jspec.plan(1)
     rows = np.argwhere(plan.active[0])[:, 0]
@@ -140,13 +140,20 @@ def test_rhg_features_within_tolerance():
         kd, geom, alpha))
     got = hyp_features(torch.from_numpy(kd.astype(np.int64)), torch.from_numpy(geom),
                        torch.from_numpy(alpha), N).numpy()
-    r = want[..., 4]
-    eps = np.finfo(np.float64).eps
-    scale = np.stack([np.ones_like(r)] * 3 + [np.maximum(1.0, r)], axis=-1)
-    err = np.abs(got - want[..., :4]) / np.maximum(np.abs(want[..., :4]), 1e-300)
-    assert np.all(err <= FEATURE_ULPS * eps * scale), err.max() / eps
-    # cos and sin of the exact same angle: one ulp at most
-    assert np.all(np.abs(got[..., :2] - want[..., :2]) <= eps)
+    np.testing.assert_array_equal(got, want[..., :4])
+
+
+@pytest.mark.parametrize("name", ["rhg", "rhg-steep"])
+def test_rhg_radii_of_iter_points_equal_run_points(name):
+    """The radii (and angles) of ``iter_points`` equal the reference's
+    ``engine.run_points`` on every valid slot, in plan order."""
+    jspec, tspec = specs(name)
+    pts, mask, _ = jeng.run_points(jspec.point_plan(1))
+    want = np.asarray(pts)[np.asarray(mask)]            # pe-major, cell, slot: stream order
+    got = torch.cat([c.points() for c in tapi.iter_points(tspec, 1, device="cpu", batch=64)])
+    assert len(want) == tspec.n
+    np.testing.assert_array_equal(got.numpy()[:, 0], want[:, 0])
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("name", sorted(SPECS))
@@ -260,3 +267,16 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
             next(tapi.iter_points(tspec, 1))
         with pytest.raises(RuntimeError, match="CUDA"):
             tapi.collect(tspec, 1)
+
+
+@pytest.mark.parametrize("cap,dim", [(4, 2), (24, 3)])
+def test_synthetic_pair_rows_keep_edges_of_every_kind(cap, dim):
+    """The mixed rows that the card tests hand ``pair_edges`` exercise
+    every kind: each keeps edges, EMPTY and inactive rows none."""
+    rows = pair_rows(600, cap, dim, seed=cap + dim)
+    edges, keep = pair_edges_ref(*rows, capacity=cap, dim=dim, kinds=ALL_KINDS)
+    kind, active = rows[0], rows[-1]
+    for k in ALL_KINDS:
+        assert bool(keep[kind == k].any()), k
+    assert not keep[kind == GEOM_EMPTY].any() and not keep[~active].any()
+    assert bool((edges[..., 0] >= edges[..., 1]).all())

@@ -8,11 +8,12 @@ digests, ``iter_points`` digests and a sample of RHG features;
 planning path.  The JAX
 package must still reproduce every entry except the mid-size ones (the
 command is in the files), and the port on the CPU must reproduce the
-small ones.  Digests and integers are compared exactly; the port's RHG
-features are held to the tolerance of ``tests/test_torch_geom.py``.
+small ones.  Digests, integers and the port's RHG features are compared
+exactly.
 """
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -103,11 +104,24 @@ def test_points_digests(entry):
 
 
 def test_rhg_features_sample():
+    """The reference still gives the stored features and radii, and the
+    port's plain version gives them bit for bit."""
+    from repro import api as japi
+    from repro_torch.kernels.geom.ref import hyp_features, hyp_radius_theta
+
     e = GEOM["rhg_features"]
-    fresh = torch_golden.features_entry(e["family"], e["params"])
-    assert {k: v for k, v in fresh.items() if k != "cpu_ulps"} == {
-        k: v for k, v in e.items() if k != "cpu_ulps"}
-    assert all(u <= 64 for u in fresh["cpu_ulps"].values()), fresh["cpu_ulps"]
+    assert torch_golden.features_entry(e["family"], e["params"]) == e
+    plan = getattr(japi, e["family"])(**e["params"]).plan(1)
+    idx = np.asarray(e["rows"])
+    key, geom, alpha = (torch.from_numpy(x) for x in (
+        plan.key_a[0, idx].astype(np.int64), plan.geom_a[0, idx], plan.fparams[0, idx, 0]))
+    N = plan.capacity
+    got = torch.cat([hyp_features(key, geom, alpha, N),
+                     hyp_radius_theta(key, geom, alpha, N)[0][..., None]], dim=-1).numpy()
+    valid = np.arange(N)[None, :] < plan.count_a[0, idx][:, None]
+    want = [[float.fromhex(x) for x in slot] for row in e["values"] for slot in row]
+    assert [[float(x).hex() for x in slot] for slot in got[valid]] == [
+        [float(x).hex() for x in slot] for slot in want]
 
 
 def port_rdg_entry(family: str, params: dict, P: int, size: str) -> dict:

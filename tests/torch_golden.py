@@ -14,10 +14,9 @@ and, into ``src/repro_torch/golden/geom.json``:
 * edge digests of small RGG (2-D, 3-D) and RHG specs at P in {1, 8} and
   of one mid-size RGG (n = 2^16) at P = 1;
 * digests of ``repro.api.iter_points`` (float64 positions in stream
-  order; for RHG the angles only, since its radii match to a few ulp);
+  order; for RHG the radii and the angles);
 * the reference's hyperbolic features ``[cos θ, sin θ, coth r, 1/sinh r]``
-  and radii of a few RHG candidate-pair rows, as hex floats, and the
-  worst ulp distance of the port's plain version on the CPU from them;
+  and radii of a few RHG candidate-pair rows, as hex floats;
 and, into ``src/repro_torch/golden/rdg.json``:
 * for one 2-D RDG spec (at P in {1, 8}) and one 3-D RDG spec (P = 1,
   mid-size), the digests of the edges, of every table of the plan
@@ -103,15 +102,13 @@ def floats_sha256(x: np.ndarray) -> str:
 
 
 def points_entry(family: str, params: dict, P: int) -> dict:
-    """Digest of ``iter_points`` in stream order (RHG: the angles)."""
+    """Digest of ``iter_points`` in stream order."""
     from repro import api
 
     pts = np.concatenate([c.points() for c in api.iter_points(
         getattr(api, family)(**params), P, batch=64)])
-    polar = family == "RHG"
     return {"family": family, "params": params, "P": P, "n": int(len(pts)),
-            "what": "theta" if polar else "points",
-            "sha256": floats_sha256(pts[:, 1] if polar else pts)}
+            "what": "points", "sha256": floats_sha256(pts)}
 
 
 def jax_hyp_features(kd, geom, scale, N):
@@ -145,18 +142,9 @@ def feature_rows(plan, rows: int):
 FEATURE_NAMES = ["cos", "sin", "coth", "1/sinh", "r"]
 
 
-def ulps(got: np.ndarray, want: np.ndarray) -> dict:
-    """Worst distance of ``got`` from ``want`` per feature column, in
-    ulps of ``want``."""
-    d = np.abs(got - want) / np.spacing(np.abs(want))
-    return {k: float(d[..., i].max()) for i, k in enumerate(FEATURE_NAMES)}
-
-
 def features_entry(family: str, params: dict) -> dict:
     import jax
-    import torch
     from repro import api
-    from repro_torch.kernels.geom.ref import hyp_features, hyp_radius_theta
 
     plan = getattr(api, family)(**params).plan(1)
     idx, kd, geom, alpha, cnt = feature_rows(plan, FEATURE_ROWS)
@@ -164,14 +152,10 @@ def features_entry(family: str, params: dict) -> dict:
     want = np.asarray(jax.jit(jax.vmap(lambda k, g, s: jax_hyp_features(k, g, s, N)))(
         kd, geom, alpha))
     valid = np.arange(N)[None, :] < cnt[:, None]
-    key, g, a = (torch.from_numpy(x) for x in (kd.astype(np.int64), geom, alpha))
-    got = torch.cat([hyp_features(key, g, a, N), hyp_radius_theta(key, g, a, N)[0][..., None]],
-                    dim=-1).numpy()
     return {"family": family, "params": params, "P": 1, "rows": [int(i) for i in idx],
             "features": FEATURE_NAMES,
             "values": [[[float(x).hex() for x in want[k, i]] for i in range(N) if valid[k, i]]
-                       for k in range(len(idx))],
-            "cpu_ulps": ulps(got[valid], want[valid])}
+                       for k in range(len(idx))]}
 
 
 def geom_doc() -> dict:
