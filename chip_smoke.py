@@ -18,12 +18,15 @@ or of the JAX package.  Phases, each printed with its seconds:
    P=16, whose core disk makes capacity 224.
    The Delaunay kernels (``triangulate``, ``circumspheres``) and the
    GEOM_CERT rows of ``pair_edges`` likewise, on random, degenerate and
-   real RDG rows.
+   real RDG rows.  ``chunk_rmat`` and ``chunk_ba`` on chunk rows of every
+   kind mixed, ``close_wedges`` on neighbour tables with all-sentinel
+   rows, up to 1024 samples and 40000 neighbours, chunk and pair buffers.
 2. golden parity: the digests and statistics that the JAX package
-   computed on the CPU (``src/repro_torch/golden/er.json``, ``geom.json``
-   and ``rdg.json``) recomputed on the card, RHG radii included, and the
-   card's RHG features against the reference's, bit for bit.
-3. the two main paths at full width, each with the launch counters reset
+   computed on the CPU (``src/repro_torch/golden/er.json``, ``geom.json``,
+   ``rdg.json`` and ``families.json``) recomputed on the card, RHG radii
+   included, the card's RHG features against the reference's, and the
+   sampled clustering reports, bit for bit.
+3. the main paths at full width, each with the launch counters reset
    just before and read just after:
    a. Erdős–Rényi: ``generate(GNM(n=2^24, m=2^28), P=1)``, streamed
       ``GNP(n=2^24, p=16/2^24, directed)`` at P=16, and
@@ -42,8 +45,17 @@ or of the JAX package.  Phases, each printed with its seconds:
       insertion, so its halo rounds end on Qhull once the regions wrap,
       and RDG(n=2^18, dim=3) raises "halo did not converge" there as here;
       see ROADMAP §3);
+   d. families: ``generate(RMAT(log_n=26, m=2^30), P=1)`` (top-bit
+      shares within 0.5 % of a + b and a + c) and ``BA(n=2^25, d=8)``
+      (n d edges, every target at or before its source), each against its
+      stream at P=16 by an order-free checksum; ``SBM(n=2^24, 16 blocks,
+      p_in=2^-17, p_out=2^-21)`` at P=1 (u > v, no duplicate, every block
+      region's density within 2 % of its p) against its stream at P=16;
+      ``collect`` with clustering of RHG(n=2^20) at P=16 (the same report
+      at P=1) and of that SBM at P=1 (its triangles recounted from the
+      generated edges);
    each checked on the device; each ``collect`` must launch ``hist`` once
-   per non-empty chunk plus once per section histogram.  ``pair_mask`` is
+   per non-empty chunk of its first pass plus once per section histogram.  ``pair_mask`` is
    not on any path: as in
    the reference, the engine runs its tiles inside ``pair_edges``, and
    only the reference's per-PE oracles call the kernel itself.
@@ -59,7 +71,10 @@ or of the JAX package.  Phases, each printed with its seconds:
    ``index_add_``; ``pair_edges`` also at the RGG generate shape and on
    the CERT rows of the 2-D RDG plan, ``cell_points`` also at the RHG
    point plan, each beside its bound, the short ones also by a replayed
-   CUDA graph); then the ``kernels`` line and the
+   CUDA graph; ``chunk_rmat`` and ``chunk_ba`` at their generate shapes,
+   the plain versions on the first 2^22 slots, ``chunk_ba`` with the
+   chain steps it counted; ``close_wedges`` at the largest SBM chunk and
+   RHG wave of the clustering collects); then the ``kernels`` line and the
    result line.  The kernel timings also print the median and min–max of
    their reps one at a time, and each ``kernels`` entry carries that
    median as ``median_ms`` beside the back-to-back mean ``ms``.
@@ -67,7 +82,7 @@ or of the JAX package.  Phases, each printed with its seconds:
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
 
-``--only PATH`` (``er``, ``geom``, ``rdg``; repeatable) builds and runs
+``--only PATH`` (``er``, ``geom``, ``rdg``, ``families``; repeatable) builds and runs
 only that main path and its phase 4 timing, and ``--no-timing`` stops
 after the path: run the same script in two checkouts in turns to
 compare them on one card.
@@ -84,10 +99,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 bandwidth,
-# int32 ALU issue = 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock, and
-# float32 outside the tensor cores
+# int32 issue = 132 SMs x 128 lanes x 1.98 GHz boost clock (the 64 INT32
+# lanes, and the 64 FMA lanes, where the compiler issues integer adds and
+# multiply-adds as IMAD: chunk_rmat ran its 72-operation Threefry blocks
+# at 1.2x the 64-lane rate on the card), and float32 outside the tensor
+# cores
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 FP32_OPS_PER_S = 67e12
 # float64 outside the tensor cores = 132 SMs x 64 FP64 lanes x 2 (an FMA)
 # x 1.98 GHz: the in-sphere scan of triangulate and the circumspheres are
@@ -164,7 +182,8 @@ class Errors:
     def __init__(self):
         self.max = {"chunk_draw": 0, "chunk_decode": 0, "hist": 0,
                     "pair_mask": 0, "pair_edges": 0, "cell_points": 0,
-                    "triangulate": 0, "circumspheres": 0}
+                    "triangulate": 0, "circumspheres": 0,
+                    "chunk_rmat": 0, "chunk_ba": 0, "close_wedges": 0}
 
     def same(self, name: str, a, b, what: str) -> None:
         import torch
@@ -512,7 +531,9 @@ KERNEL_GROUPS = (("sort", "sort"), ("chunk_draw_kernel", "chunk_draw"),
                  ("chunk_decode_kernel", "chunk_decode"), ("hist_kernel", "hist"),
                  ("pair_mask_kernel", "pair_mask"),
                  ("pair_edges_kernel", "pair_edges"), ("cell_points_kernel", "cell_points"),
-                 ("triangulate_kernel", "triangulate"), ("circumspheres_kernel", "circumspheres"))
+                 ("triangulate_kernel", "triangulate"), ("circumspheres_kernel", "circumspheres"),
+                 ("chunk_rmat_kernel", "chunk_rmat"), ("chunk_ba_kernel", "chunk_ba"),
+                 ("close_wedges_kernel", "close_wedges"))
 
 
 def profiled(fn):
@@ -595,11 +616,14 @@ def counted_collect(spec, P: int, dev, **kw):
     from repro_torch.kernels import build
 
     real = api.iter_edge_chunks
-    nonempty = [0]
+    nonempty, passes = [0], [0]
 
     def chunks(*a, **k):
+        passes[0] += 1
+        first = passes[0] == 1      # clustering's second pass launches no hist
         for ch in real(*a, **k):
-            nonempty[0] += ch.count > 0 if ch.count is not None else bool(ch.mask.any())
+            if first:
+                nonempty[0] += ch.count > 0 if ch.count is not None else bool(ch.mask.any())
             yield ch
 
     before = build.LAUNCHES["hist"]
@@ -1479,6 +1503,389 @@ def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
     return rows
 
 
+# ---------------------------------------------------------------- families --
+
+def phase_family_kernels(dev, errs: Errors) -> None:
+    """Phase 1, families: chunk_rmat and chunk_ba on mixed chunk rows of
+    every kind (log_n 1, 26, 40; d 1 and 8; counts 0 up to capacity; a
+    fresh output and one whose other rows stay), close_wedges on tables
+    with all-sentinel rows, S up to 1024, NB up to 8192 (shared memory)
+    and 40000 (searched in place), chunk (prefix) and batched pair
+    (mask) buffers."""
+    import torch
+    from repro_torch.kernels.sampler import ops as S
+    from repro_torch.kernels.sampler.ref import chunk_ba_ref, chunk_rmat_ref
+    from repro_torch.kernels.wedges import ops as W
+    from repro_torch.kernels.wedges.ref import close_wedges_ref
+    from torch_family_rows import chunk_rows, wedge_inputs
+
+    def both(name, got, want, what):
+        errs.same(name, got[0], want[0], what + " edges")
+        errs.same(name, got[1], want[1], what + " keep")
+
+    R, cap = 512, 2048
+    for log_n in (1, 26, 40):
+        key, kind, params, fparams, count, owned = chunk_rows(R, cap, 8, log_n, dev)
+        both("chunk_rmat", S.chunk_rmat(key, kind, params, fparams, count, owned, log_n, cap),
+             chunk_rmat_ref(key, kind, params, fparams, count, owned, log_n, cap),
+             f"chunk_rmat log_n={log_n}")
+        out = (torch.full((R, cap, 2), -3, dtype=torch.int64, device=dev),
+               torch.ones((R, cap), dtype=torch.bool, device=dev))
+        ref = (out[0].clone(), out[1].clone())
+        both("chunk_rmat", S.chunk_rmat(key, kind, params, fparams, count, owned, log_n, cap, out),
+             chunk_rmat_ref(key, kind, params, fparams, count, owned, log_n, cap, ref),
+             f"chunk_rmat log_n={log_n} into out")
+    for d in (1, 8):
+        key, kind, params, _, count, owned = chunk_rows(R, cap, d, 100 + d, dev)
+        st, st_ref = (torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(2))
+        both("chunk_ba", S.chunk_ba(key, kind, params, count, owned, cap, steps=st),
+             chunk_ba_ref(key, kind, params, count, owned, cap, steps=st_ref), f"chunk_ba d={d}")
+        require(torch.equal(st, st_ref) and int(st[0]) > 0, f"chunk_ba d={d}: chain steps "
+                f"(walked, issued) {st.tolist()}, plain {st_ref.tolist()}")
+        out = (torch.full((R, cap, 2), -3, dtype=torch.int64, device=dev),
+               torch.ones((R, cap), dtype=torch.bool, device=dev))
+        ref = (out[0].clone(), out[1].clone())
+        both("chunk_ba", S.chunk_ba(key, kind, params, count, owned, cap, out),
+             chunk_ba_ref(key, kind, params, count, owned, cap, ref), f"chunk_ba d={d} into out")
+    cases = ((1, 1, 4096, 0), (1024, 64, 100_000, 0), (64, 8192, 400_000, 0),
+             (64, 8192, 400_000, 64), (3, 40_000, 100_000, 0))
+    for Sn, NB, N, batch in cases:
+        edges, mask, nb = wedge_inputs(Sn, NB, N, Sn + NB, dev, batch=batch)
+        flat, fmask = edges.reshape(-1, 2), mask.reshape(-1)
+        errs.same("close_wedges", W.close_wedges(flat, nb, mask=fmask),
+                  close_wedges_ref(flat, nb, mask=fmask), f"close_wedges S={Sn} NB={NB} mask")
+        for k in (0, N // 3, N):
+            errs.same("close_wedges", W.close_wedges(flat, nb, count=k),
+                      close_wedges_ref(flat, nb, count=k), f"close_wedges S={Sn} NB={NB} count={k}")
+        empty = torch.full_like(nb, 1 << 62)
+        require(not bool(W.close_wedges(flat, empty, mask=fmask).any()),
+                "close_wedges: an all-sentinel table counted a wedge")
+    print(f"  families kernels == plain: chunk_rmat, chunk_ba on {R} mixed rows of capacity {cap}; "
+          f"close_wedges on {len(cases)} tables")
+
+
+def family_spec(api, e):
+    p = e["params"]
+    return getattr(api, e["family"])(**(dict(p, probs=tuple(p["probs"])) if "probs" in p else p))
+
+
+def phase_golden_families(dev) -> None:
+    """Phase 2, families: the BA, R-MAT and SBM edge digests and the
+    sampled clustering reports of families.json, recomputed on the card."""
+    from repro_torch import api
+
+    doc = json.loads((ROOT / "src" / "repro_torch" / "golden" / "families.json").read_text())
+    for e in doc["generate"]:
+        edges = api.generate(family_spec(api, e), e["P"], device=dev).edges
+        require(len(edges) == e["m"] and sha256_edges(edges) == e["sha256"],
+                f"golden generate {e['family']} {e['params']} P={e['P']}")
+    for e in doc["clustering"]:
+        rep = api.collect(family_spec(api, e), e["P"], device=dev,
+                          metrics=("degree", "clustering"))
+        require(rep.num_edges == e["num_edges"], f"golden clustering {e['family']}: edges")
+        for f in CLUSTER_FIELDS:
+            require([int(x) for x in getattr(rep.clustering, f)] == e[f],
+                    f"golden clustering {e['family']} {e['params']}: {f} differs")
+    print(f"  golden families: {len(doc['generate'])} edge digests, {len(doc['clustering'])} "
+          f"clustering reports equal")
+
+
+CLUSTER_FIELDS = ("sample", "degree", "triangles", "wedges", "valid")
+
+
+def big_checksum(e, rows: int = 1 << 26) -> int:
+    """:func:`edge_checksum` of a large edge list, a slice at a time."""
+    return sum(edge_checksum(e[i:i + rows]) for i in range(0, len(e), rows)) % (1 << 64)
+
+
+def stream_checksum(spec, P: int, dev, **kw):
+    """(edges, waves, order-free checksum) of ``iter_edge_chunks``."""
+    from repro_torch import api
+    total = waves = c = 0
+    for ch in api.iter_edge_chunks(spec, P, device=dev, **kw):
+        ce = ch.edges()
+        total += len(ce)
+        c = (c + big_checksum(ce)) % (1 << 64)
+        waves += 1
+    return total, waves, c
+
+
+def capture_wedges(store: dict):
+    """Wrap ``ClusteringSampler.count_triangles_chunk`` to keep, per kind
+    of buffer, the inputs of its call with the most valid slots (phase 4
+    times close_wedges there).  Returns the undo."""
+    from repro_torch.stats.accumulate import ClusteringSampler
+
+    real = ClusteringSampler.count_triangles_chunk
+
+    def wrapped(self, buffer, count=None, mask=None):
+        form = "mask" if mask is not None else "prefix"
+        valid = int(mask.sum()) if mask is not None else int(count)
+        if valid > store.get(form, (0,))[0] and self.neighbors is not None:
+            store[form] = (valid, buffer.reshape(-1, 2),
+                           None if mask is None else mask.reshape(-1), count,
+                           self._neighbor_table())
+        return real(self, buffer, count=count, mask=mask)
+
+    ClusteringSampler.count_triangles_chunk = wrapped
+    return lambda: setattr(ClusteringSampler, "count_triangles_chunk", real)
+
+
+def recount_triangles(e, sample, cap: int):
+    """Each sampled vertex's triangles recomputed from the whole edge list
+    ``e`` (its neighbour table built from ``e``, then the plain wedge
+    count over slices), independent of the sampler."""
+    import torch
+    from repro_torch.kernels.wedges.ref import close_wedges_ref
+
+    rows = []
+    for s in sample.tolist():
+        nb = torch.cat([e[e[:, 0] == s, 1], e[e[:, 1] == s, 0]]).unique()
+        rows.append(nb if len(nb) <= cap else nb[:0])
+    width = max(1, max(len(r) for r in rows))
+    tbl = torch.full((len(rows), width), 1 << 62, dtype=torch.int64, device=e.device)
+    for i, r in enumerate(rows):
+        tbl[i, : len(r)] = r
+    step = max(1, (1 << 28) // max(1, len(rows)))
+    tri = sum(close_wedges_ref(e[i:i + step], tbl) for i in range(0, len(e), step))
+    return tri.cpu().numpy()
+
+
+def phase_families(dev, sizes: dict) -> dict:
+    """Phase 3d: R-MAT, BA and SBM at full width, and the sampled
+    clustering collects of RHG (pair path) and SBM (chunk path)."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+
+    log_n, m = sizes["rmat_log_n"], sizes["rmat_m"]
+    rspec = api.RMAT(log_n=log_n, m=m, probs=(0.57, 0.19, 0.19, 0.05), seed=8)
+    rplan = rspec.plan(1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    g, groups, wall = profiled(lambda: api.generate(rspec, 1, device=dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    e = g.edges
+    require(g.m == m, f"RMAT: {g.m} edges, want {m}")
+    top = log_n - 1
+    a_b = float(((e[:, 0] >> top) == 0).double().mean())     # quadrants a, b: source top bit 0
+    a_c = float(((e[:, 1] >> top) == 0).double().mean())     # quadrants a, c
+    require(abs(a_b / 0.76 - 1) < 0.005 and abs(a_c / 0.76 - 1) < 0.005,
+            f"RMAT: top-bit shares {a_b:.6f}, {a_c:.6f}, want a+b = a+c = 0.76 within 0.5 %")
+    require(int(e.max()) < 1 << log_n and int(e.min()) >= 0, "RMAT: a vertex out of range")
+    chk = big_checksum(e)
+    print(f"  generate RMAT(log_n={log_n}, m={m}) P=1: capacity {rplan.capacity}, wall "
+          f"{wall:.3f}s, {m / wall:.4g} edges/s, peak device memory {peak / 2**30:.3f} GiB; "
+          f"top-bit shares a+b {a_b:.6f}, a+c {a_c:.6f} (want 0.76)")
+    print_breakdown("RMAT generate", groups, wall)
+    del g, e
+    torch.cuda.empty_cache()
+    (total, waves, c), groups, swall = profiled(lambda: stream_checksum(rspec, 16, dev))
+    require(total == m and c == chk, "RMAT: the stream at P=16 differs from generate at P=1")
+    print(f"  stream RMAT P=16: {waves} chunks, {total} edges, the same checksum, {swall:.3f}s, "
+          f"{total / swall:.4g} edges/s")
+    print_breakdown("RMAT stream", groups, swall)
+
+    n, d = sizes["ba_n"], 8
+    bspec = api.BA(n=n, d=d, seed=9)
+    torch.cuda.reset_peak_memory_stats(dev)
+    g, groups, wall = profiled(lambda: api.generate(bspec, 1, device=dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    e = g.edges
+    require(g.m == n * d, f"BA: {g.m} edges, want n d = {n * d}")
+    require(bool((e[:, 0] == torch.arange(n * d, device=dev) // d).all()),
+            "BA: sources are not e // d in edge order")
+    require(bool((e[:, 1] <= e[:, 0]).all()), "BA: a target after its source")
+    chk = big_checksum(e)
+    indeg = torch.bincount(e[:, 1], minlength=n)
+    print(f"  generate BA(n={n}, d={d}) P=1: {g.m} edges, wall {wall:.3f}s, {g.m / wall:.4g} "
+          f"edges/s, peak device memory {peak / 2**30:.3f} GiB, largest in-degree "
+          f"{int(indeg.max())}")
+    print_breakdown("BA generate", groups, wall)
+    del g, e, indeg
+    torch.cuda.empty_cache()
+    (total, waves, c), groups, swall = profiled(lambda: stream_checksum(bspec, 16, dev))
+    require(total == n * d and c == chk, "BA: the stream at P=16 differs from generate at P=1")
+    print(f"  stream BA P=16: {waves} chunks, {total} edges, the same checksum, {swall:.3f}s")
+    print_breakdown("BA stream", groups, swall)
+
+    sn, B = sizes["sbm_n"], sizes["sbm_blocks"]
+    p_in, p_out = sizes["sbm_p"]
+    sspec = api.SBM(n=sn, blocks=B, p_in=p_in, p_out=p_out, seed=10)
+    t0 = time.perf_counter()
+    splan = sspec.plan(1)
+    plan_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    g, groups, wall = profiled(lambda: api.generate(sspec, 1, device=dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    e = g.edges
+    require(g.m == splan.total_edges, f"SBM: {g.m} edges, plan says {splan.total_edges}")
+    require(bool((e[:, 0] > e[:, 1]).all()), "SBM: an edge without u > v (or a self loop)")
+    require(no_duplicates(e[:, 0] * sn + e[:, 1]), "SBM: duplicate edges")
+    w = sn // B
+    region = torch.bincount((e[:, 0] // w) * B + e[:, 1] // w, minlength=B * B).cpu().numpy()
+    region = region.reshape(B, B)
+    worst = 0.0
+    for i in range(B):
+        for j in range(i + 1):
+            pairs = w * (w - 1) // 2 if i == j else w * w
+            dens = region[i, j] / pairs / (p_in if i == j else p_out)
+            worst = max(worst, abs(dens - 1))
+    require(worst < 0.02 and region[np.triu_indices(B, 1)].sum() == 0,
+            f"SBM: a block density {worst:.4f} off its p, or an edge above the diagonal")
+    chk = big_checksum(e)
+    sdeg = torch.bincount(e.reshape(-1), minlength=sn)
+    print(f"  generate SBM(n={sn}, blocks={B}) P=1: {splan.chunks_per_pe} regions, capacity "
+          f"{splan.capacity}, {g.m} edges, worst block density off by {worst:.5f}, wall "
+          f"{wall:.3f}s (host plan {plan_s:.3f}s), {g.m / wall:.4g} edges/s, peak device "
+          f"memory {peak / 2**30:.3f} GiB")
+    print_breakdown("SBM generate", groups, wall)
+    s_edges = e
+    del g
+    (total, waves, c), groups, swall = profiled(lambda: stream_checksum(sspec, 16, dev))
+    require(total == len(s_edges) and c == chk, "SBM: the stream at P=16 differs from P=1")
+    print(f"  stream SBM P=16: {waves} chunks, {total} edges, the same checksum, {swall:.3f}s")
+    print_breakdown("SBM stream", groups, swall)
+
+    wedges: dict = {}
+    undo = capture_wedges(wedges)
+    try:
+        hspec = api.RHG(n=sizes["rhg_n"], avg_deg=16.0, gamma=2.8, seed=5)
+        (rep, hl, nc), groups, cwall = profiled(lambda: counted_collect(
+            hspec, 16, dev, batch=sizes["batch"], metrics=("degree", "clustering")))
+        h1 = api.collect(hspec, 1, device=dev, batch=sizes["batch"],
+                         metrics=("degree", "clustering"))
+        cc = rep.clustering
+        for f in CLUSTER_FIELDS:
+            require(np.array_equal(getattr(cc, f), getattr(h1.clustering, f)),
+                    f"clustering RHG: {f} at P=16 differs from P=1")
+        require(np.array_equal(cc.degree, h1.degree.degrees[torch.from_numpy(cc.sample).to(dev)]
+                               .cpu().numpy()), "clustering RHG: sample degrees off")
+        print(f"  collect RHG(n={sizes['rhg_n']}) P=16 with clustering: {len(cc.sample)} samples, "
+              f"{int(cc.valid.sum())} valid, global cc {cc.global_cc:.6f}, mean local cc "
+              f"{cc.mean_local_cc:.6f}, {cwall:.3f}s; {hl} hist launches for {nc} non-empty "
+              f"waves; the same report at P=1")
+        print_breakdown("RHG clustering collect", groups, cwall)
+        (rep, hl, nc), groups, cwall = profiled(lambda: counted_collect(
+            sspec, 1, dev, metrics=("degree", "clustering")))
+    finally:
+        undo()
+    cc = rep.clustering
+    require(rep.num_edges == len(s_edges), "clustering SBM: edge count differs from generate")
+    require(np.array_equal(cc.degree, sdeg[torch.from_numpy(cc.sample).to(dev)].cpu().numpy()),
+            "clustering SBM: sample degrees differ from the generated edges'")
+    want = recount_triangles(s_edges, cc.sample, 8192)
+    require(np.array_equal(cc.triangles, want), "clustering SBM: triangles differ from a "
+            "recount over the generated edges")
+    print(f"  collect SBM P=1 with clustering: {len(cc.sample)} samples, {int(cc.valid.sum())} "
+          f"valid, {int(cc.triangles.sum())} triangles (= a recount over the generated edges), "
+          f"global cc {cc.global_cc:.6f}, {cwall:.3f}s; {hl} hist launches for {nc} chunks")
+    print_breakdown("SBM clustering collect", groups, cwall)
+    del s_edges, sdeg
+    torch.cuda.empty_cache()
+    return {"rmat_plan": rplan, "ba_plan": bspec.plan(1), "wedges": wedges}
+
+
+def families_timing(dev, fam: dict, errs: Errors) -> list:
+    """Phase 4, families: chunk_rmat and chunk_ba at their generate
+    shapes (the plain versions on the first 2^22 slots: the whole shape
+    does not fit), close_wedges at the largest buffer of each clustering
+    collect (an SBM chunk, prefix form; an RHG wave, mask form)."""
+    import math
+    import torch
+    from repro_torch.distrib.runtime import plan_tensors
+    from repro_torch.kernels.sampler import ops as S
+    from repro_torch.kernels.sampler.ref import chunk_ba_ref, chunk_rmat_ref
+    from repro_torch.kernels.wedges import ops as W
+    from repro_torch.kernels.wedges.ref import close_wedges_ref
+
+    rows, sub = [], 1 << 22
+
+    def tables(plan):
+        kind, key, _, cnt, params, fparams, owned = (
+            t.reshape(-1, *t.shape[2:]) for t in plan_tensors(plan, dev))
+        return key, kind, params, fparams, cnt, owned
+
+    plan = fam["rmat_plan"]
+    key, kind, params, fparams, cnt, owned = tables(plan)
+    cap, log_n = plan.capacity, plan.rmat_log_n
+    slots = kind.numel() * cap
+    out = (torch.empty((kind.numel(), cap, 2), dtype=torch.int64, device=dev),
+           torch.empty((kind.numel(), cap), dtype=torch.bool, device=dev))
+    _, ms, med = timed(lambda: S.chunk_rmat(key, kind, params, fparams, cnt, owned, log_n, cap,
+                                            out), label=f"chunk_rmat [{kind.numel()}, {cap}]")
+    del out
+    torch.cuda.empty_cache()
+    a = S.chunk_rmat(key, kind, params, fparams, cnt, owned, log_n, sub)
+    b, plain_ms = sync_time(lambda: chunk_rmat_ref(key, kind, params, fparams, cnt, owned,
+                                                   log_n, sub), reps=1)
+    errs.same("chunk_rmat", a[0], b[0], "chunk_rmat on its first 2^22 slots")
+    errs.same("chunk_rmat", a[1], b[1], "chunk_rmat keep on its first 2^22 slots")
+    del a, b
+    ops = slots * (2 + log_n) * THREEFRY_OPS / INT32_OPS_PER_S
+    rows.append(("chunk_rmat", "src/repro_torch/kernels/sampler/csrc/sampler.cu",
+                 "src/repro/distrib/engine.py:426", ms, med, plain_ms,
+                 slots * 17 / HBM_BYTES_PER_S, ops, None))
+    print(f"  chunk_rmat: {slots} slots x {2 + log_n} Threefry blocks; bound {ops * 1e3:.3f} ms "
+          f"(operations), {ms / (ops * 1e3):.2f}x; plain version {plain_ms:.3f} ms on the first "
+          f"{sub} slots")
+    torch.cuda.empty_cache()
+
+    plan = fam["ba_plan"]
+    key, kind, params, fparams, cnt, owned = tables(plan)
+    cap = plan.capacity
+    slots = kind.numel() * cap
+    out = (torch.empty((kind.numel(), cap, 2), dtype=torch.int64, device=dev),
+           torch.empty((kind.numel(), cap), dtype=torch.bool, device=dev))
+    _, ms, med = timed(lambda: S.chunk_ba(key, kind, params, cnt, owned, cap, out),
+                       label=f"chunk_ba [{kind.numel()}, {cap}]")
+    steps = torch.zeros(2, dtype=torch.int64, device=dev)
+    S.chunk_ba(key, kind, params, cnt, owned, cap, out, steps=steps)
+    steps, issued = steps.tolist()
+    del out
+    torch.cuda.empty_cache()
+    a = S.chunk_ba(key, kind, params, cnt, owned, sub)
+    b, plain_ms = sync_time(lambda: chunk_ba_ref(key, kind, params, cnt, owned, sub), reps=1)
+    errs.same("chunk_ba", a[0], b[0], "chunk_ba on its first 2^22 slots")
+    errs.same("chunk_ba", a[1], b[1], "chunk_ba keep on its first 2^22 slots")
+    del a, b
+    # a step: fold_in64 (2 blocks), split (2), two 64-bit words (2); the
+    # four 64-bit remainders are not counted, so this is a lower bound
+    ops = steps * 6 * THREEFRY_OPS / INT32_OPS_PER_S
+    rows.append(("chunk_ba", "src/repro_torch/kernels/sampler/csrc/sampler.cu",
+                 "src/repro/distrib/engine.py:446", ms, med, plain_ms,
+                 slots * 17 / HBM_BYTES_PER_S, ops, None))
+    print(f"  chunk_ba: {slots} slots, {steps} chain steps ({steps / slots:.4f} a slot) x 6 "
+          f"Threefry blocks; the warps issued {issued} steps ({issued / steps:.4f}x, waiting "
+          f"for each warp's longest chain); bound {ops * 1e3:.3f} ms (operations), "
+          f"{ms / (ops * 1e3):.2f}x; plain version {plain_ms:.3f} ms on the first {sub} slots")
+    torch.cuda.empty_cache()
+
+    for form, label in (("prefix", "SBM chunk"), ("mask", "RHG wave")):
+        valid, flat, mask, count, nb = fam["wedges"][form]
+        Sn, NB = nb.shape
+        live = int((nb[:, 0] != 1 << 62).sum())
+        kw = {"mask": mask} if mask is not None else {"count": count}
+        got, ms, med = timed(lambda: W.close_wedges(flat, nb, **kw), reps=10,
+                             label=f"close_wedges {label}")
+        want, plain_ms = sync_time(lambda: close_wedges_ref(flat, nb, **kw), reps=1)
+        errs.same("close_wedges", got, want, f"close_wedges at the {label}")
+        steps = math.ceil(math.log2(NB + 1)) + 1
+        # bytes: the mask (or nothing) once, each valid edge once, the table
+        # once; operations: per live row and valid slot two binary searches
+        # of `steps` steps, 4 integer operations a step (int64 compares
+        # count as one, so this is a lower bound)
+        nbytes = (flat.shape[0] if mask is not None else 0) + valid * 16 + Sn * NB * 8 + Sn * 8
+        ops = live * valid * 2 * steps * 4 / INT32_OPS_PER_S
+        if form == "prefix":     # the kernels line's entry; the wave is printed only
+            rows.append(("close_wedges", "src/repro_torch/kernels/wedges/csrc/wedges.cu",
+                         "src/repro/stats/accumulate.py:42", ms, med, plain_ms,
+                         nbytes / HBM_BYTES_PER_S, ops, None))
+        print(f"  close_wedges at the {label}: {flat.shape[0]} slots, {valid} valid, {Sn} samples "
+              f"({live} with neighbours), table width {NB}; bound "
+              f"{max(nbytes / HBM_BYTES_PER_S, ops) * 1e3:.6f} ms; plain {plain_ms:.3f} ms")
+    return rows
+
+
 # kernels that no main path launches, and why
 OFF_PATH = {"pair_mask": "off the engine path, as in the reference: the engine runs its "
                          "tiles inside pair_edges, and only the reference's per-PE oracles "
@@ -1500,15 +1907,20 @@ def kernel_lines(rows: list, errs: Errors, launches: dict) -> list:
 
 FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 << 22,
         "rgg_n": 1 << 22, "rhg_n": 1 << 20, "batch": 1 << 15,
-        "rdg2_n": 1 << 20, "rdg3_n": 1 << 16, "brute2_n": 1 << 16, "brute3_n": 1 << 13}
+        "rdg2_n": 1 << 20, "rdg3_n": 1 << 16, "brute2_n": 1 << 16, "brute3_n": 1 << 13,
+        "rmat_log_n": 26, "rmat_m": 1 << 30, "ba_n": 1 << 25, "sbm_n": 1 << 24,
+        "sbm_blocks": 16, "sbm_p": (2.0 ** -17, 2.0 ** -21)}
 ER_KERNELS = ("chunk_draw", "chunk_decode", "hist")
 GEOM_KERNELS = ("pair_edges", "cell_points", "hist")
 RDG_KERNELS = ("triangulate", "circumspheres", "pair_edges", "cell_points")
+FAMILY_KERNELS = ("chunk_rmat", "chunk_ba", "close_wedges", "hist", "chunk_draw",
+                  "chunk_decode", "pair_edges")
 
 
 PATHS = {"er": ("3a Erdős–Rényi", phase_main, ER_KERNELS, phase_timing),
          "geom": ("3b geometric", phase_geom, GEOM_KERNELS, geom_timing),
-         "rdg": ("3c Delaunay", phase_rdg, RDG_KERNELS, rdg_timing)}
+         "rdg": ("3c Delaunay", phase_rdg, RDG_KERNELS, rdg_timing),
+         "families": ("3d families", phase_families, FAMILY_KERNELS, families_timing)}
 
 
 def main(argv=None) -> int:
@@ -1554,12 +1966,14 @@ def main(argv=None) -> int:
         phase_geom_kernels(dev, errs)
         phase_wide_rhg(dev, errs)
         phase_dt_kernels(dev, errs)
+        phase_family_kernels(dev, errs)
         print(f"phase 1 kernels == plain {time.perf_counter() - t0:.3f}s", flush=True)
 
         t0 = time.perf_counter()
         phase_golden(dev)
         phase_golden_geom(dev)
         phase_golden_rdg(dev)
+        phase_golden_families(dev)
         print(f"phase 2 golden parity {time.perf_counter() - t0:.3f}s", flush=True)
 
     # each main path runs with the counters at 0 and is read right after

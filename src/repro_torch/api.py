@@ -1,13 +1,15 @@
-"""``GraphSpec -> plan -> run`` front door of the PyTorch/CUDA port (the
-Erdős-Rényi, RGG, RHG and RDG slice of ``repro.api``).
+"""``GraphSpec -> plan -> run`` front door of the PyTorch/CUDA port (port
+of ``repro.api``, all eight families).
 
 1. **Spec**: :class:`GNM` / :class:`GNP` / :class:`RGG` / :class:`RHG` /
-   :class:`RDG`, frozen dataclasses carrying the seed and the model
-   parameters.
+   :class:`RDG` / :class:`BA` / :class:`RMAT` / :class:`SBM`, frozen
+   dataclasses carrying the seed and the model parameters
+   (:class:`GraphSpec` is what each provides).
 2. **Plan**: ``spec.plan(P, rng_impl=..., device=...)`` runs the host
    recursion and emits the ``[P, C]`` table (a ChunkPlan for G(n,m) /
-   G(n,p), a PairPlan of candidate cell pairs for RGG / RHG, of certified
-   Delaunay simplices for RDG), equal field by field to the reference's;
+   G(n,p), BA, R-MAT and SBM, a PairPlan of candidate cell pairs for RGG
+   / RHG, of certified Delaunay simplices for RDG), equal field by field
+   to the reference's;
    ``spec.point_plan(P)`` emits the geometric families' vertex cells.
    Only RDG's planning launches kernels (the triangulation and its
    certificates), on ``device``; the other families ignore it.
@@ -15,8 +17,8 @@ Erdős-Rényi, RGG, RHG and RDG slice of ``repro.api``).
    returns a :class:`Graph`; :func:`iter_edge_chunks` yields one row's
    fixed-capacity buffer at a time (or ``batch`` rows), and
    :func:`iter_points` streams vertex positions the same way.
-   :func:`collect` measures degrees while streaming
-   (:mod:`repro_torch.stats`).
+   :func:`collect` measures degrees (and sampled clustering) while
+   streaming (:mod:`repro_torch.stats`).
 
 Every entry point takes ``device``: the work runs on CUDA unless the
 caller passes ``device="cpu"`` (the plain PyTorch versions of the
@@ -32,15 +34,18 @@ P)``, for every P.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Protocol, Tuple, runtime_checkable
 
 import torch
 
+from .core import ba as _ba
 from .core import er as _er
 from .core import graph as _graph
 from .core import rdg as _rdg
 from .core import rgg as _rgg
 from .core import rhg as _rhg
+from .core import rmat as _rmat
+from .core import sbm as _sbm
 from .core.prng import THREEFRY
 from .distrib import engine, runtime
 
@@ -101,6 +106,20 @@ class PointChunk:
     def points(self) -> torch.Tensor:
         """The chunk's valid positions, on its device."""
         return self.buffer[self.mask]
+
+
+@runtime_checkable
+class GraphSpec(Protocol):
+    """What every family spec provides: parameters + a plan emitter."""
+    seed: int
+
+    @property
+    def num_vertices(self) -> int: ...
+
+    @property
+    def directed(self) -> bool: ...
+
+    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None): ...
 
 
 @dataclass(frozen=True)
@@ -221,6 +240,61 @@ class RDG:
                                    chunk_P=self.chunks or 0)
 
 
+@dataclass(frozen=True)
+class BA:
+    """Barabási-Albert preferential attachment, d edges per vertex
+    (Sanders-Schulz chain resolution, paper §3.5.1)."""
+    n: int
+    d: int
+    seed: int = 0
+    directed: bool = True
+
+    @property
+    def num_vertices(self) -> int:
+        return self.n
+
+    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
+        return _ba.ba_plan(self.seed, self.n, self.d, P, rng_impl)
+
+
+@dataclass(frozen=True)
+class RMAT:
+    """R-MAT with 2^log_n vertices and m edges (Graph 500 semantics:
+    self-loops and duplicates kept; paper §3.5.2)."""
+    log_n: int
+    m: int
+    probs: Tuple[float, float, float, float] = (0.57, 0.19, 0.19, 0.05)
+    seed: int = 0
+    directed: bool = True
+
+    @property
+    def num_vertices(self) -> int:
+        return 1 << self.log_n
+
+    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
+        return _rmat.rmat_plan(self.seed, self.log_n, self.m, P, self.probs, rng_impl)
+
+
+@dataclass(frozen=True)
+class SBM:
+    """Stochastic block model: ``blocks`` equal groups, within-block
+    probability p_in, cross-block p_out (paper §Future-Work)."""
+    n: int
+    blocks: int
+    p_in: float
+    p_out: float
+    seed: int = 0
+    directed: bool = False
+
+    @property
+    def num_vertices(self) -> int:
+        return self.n
+
+    def plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
+        return _sbm.sbm_plan(self.seed, self.n, self.blocks, self.p_in, self.p_out,
+                             P, rng_impl)
+
+
 def _all_points(spec, P: int, dev, rng_impl: str) -> torch.Tensor:
     """Every vertex position of a geometric spec in vertex-id order: the
     point plan's cells run at once and scattered by their first id."""
@@ -293,7 +367,7 @@ def iter_points(spec, P: int = 1, *, device=None, rng_impl: str = DEFAULT_RNG,
 
 
 def collect(spec, P: int = 1, **kwargs):
-    """Streaming degree statistics of ``spec``:
+    """Streaming degree (and clustering) statistics of ``spec``:
     :func:`repro_torch.stats.collect` (re-export)."""
     from .stats import collect as _collect
 

@@ -1,0 +1,37 @@
+"""Barabási-Albert plan emitter (port of the plan half of
+``repro.core.ba``; Sanders & Schulz, adapted in paper §3.5.1).
+
+Batagelj-Brandes fill the edge array M sequentially: ``M[2k] = k // d``
+and ``M[2k + 1] = M[r]`` for a uniform ``r`` in ``[0, 2k]``.  Each target
+resolves independently by replaying its chain of positions with a
+hash-keyed draw per position (``chunk_ba`` on the device), so the plan
+is one KIND_BA chunk per PE covering the edge ids of its vertex section.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..distrib.engine import KIND_BA, chunk_plan_from_columns, reseedable_chunk_plan
+from .prng import THREEFRY, device_key
+
+_TAG_BA = 41
+
+
+def ba_plan(seed: int, n: int, d: int, P: int, rng_impl: str = THREEFRY):
+    """ChunkPlan equal, field by field, to ``repro.core.ba.ba_plan``."""
+
+    def key_of(s: int) -> np.ndarray:
+        one = device_key(s, _TAG_BA, impl=rng_impl).numpy().astype(np.uint32)
+        return np.broadcast_to(one, (P, one.size))
+
+    sec = n * np.arange(P + 1, dtype=np.int64) // P
+    ids = np.arange(P, dtype=np.int64)
+    z = np.zeros(P, np.int64)
+    plan = chunk_plan_from_columns(
+        P, ids, np.full(P, KIND_BA, np.int32), key_of(seed), z,
+        (sec[1:] - sec[:-1]) * d,
+        np.stack([np.full(P, d, np.int64), sec[:-1] * d, z], axis=1),
+        np.ones(P, bool), n, rng_impl=rng_impl)
+    # edge-id ranges (and so counts and capacity) are seed-independent:
+    # reseeding is a key swap
+    return reseedable_chunk_plan(plan, key_fn=key_of)

@@ -16,6 +16,12 @@ written out so that the port draws the same bits as the JAX package:
   half and word ``2j + 1`` as its low half of ``bits(fold_in(key, i),
   (w, 2))``.
 
+The 64-bit draws of ``jax.random`` (:func:`fold_in64`, :func:`split`,
+:func:`random_bits64`, :func:`uniform64`, :func:`randint64`, which R-MAT,
+BA and the Gumbel sampler use) take another layout: 64-bit word ``i`` of
+``bits(k, 64, shape)`` is ``TF(k, (i >> 32, i mod 2^32))`` with output
+word 0 as its high half and word 1 as its low half, not XORed.
+
 Key words are carried as int64 tensors holding values in ``[0, 2^32)``
 (torch's CPU build has no unsigned 64-bit shifts or remainders), and
 :func:`threefry2x32` masks after every add.  The CUDA sampler
@@ -213,3 +219,95 @@ def mod_u64(hi, lo, u):
         r = torch.where(r >= u - r, r - (u - r), r + r)
     a = lo % u
     return torch.where(r >= u - a, r - (u - a), r + a)
+
+
+# --------------------------------------------------------------------------
+# the 64-bit draws of jax.random (partitionable layout, no XOR)
+# --------------------------------------------------------------------------
+
+_MAX63 = (1 << 63) - 1
+_MIN64 = -(1 << 63)
+
+
+def fold_in64(key, x) -> torch.Tensor:
+    """``repro.core.prng.fold_in64``: ``fold_in`` of ``x >> 31``, then of
+    ``x & 0x7FFFFFFF`` (``x`` an int64 tensor or int)."""
+    x = torch.as_tensor(x, dtype=torch.int64)
+    return fold_in(fold_in(key, x >> 31), x & 0x7FFFFFFF)
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: int64 words ``[..., num, 2]``,
+    subkey ``i`` being ``TF(k, (0, i))``, both output words."""
+    k = key_words(key)
+    i = torch.arange(num, dtype=torch.int64, device=k.device)
+    y0, y1 = threefry2x32(k[..., None, 0], k[..., None, 1], 0, i)
+    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def _ids(shape, device) -> torch.Tensor:
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return torch.arange(n, dtype=torch.int64, device=device).reshape(tuple(shape))
+
+
+def _batched(key, shape):
+    """Key words ``[..., 1 x len(shape), 2]`` and the flat ids of ``shape``."""
+    k = key_words(key)
+    return k.reshape(*k.shape[:-1], *([1] * len(shape)), 2), _ids(shape, k.device)
+
+
+def random_bits64(key, shape=()) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint64)`` as int64 bit patterns,
+    ``[..., *shape]`` for keys ``[..., 2]``."""
+    k, ids = _batched(key, shape)
+    hi, lo = threefry2x32(k[..., 0], k[..., 1], ids >> 32, ids & _M32)
+    return (hi << 32) | lo
+
+
+def uniform64(key, shape=()) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float64)`` in [0, 1): the top 52
+    bits of each 64-bit word as the mantissa of a float in [1, 2), less
+    1, exactly as ``jax._src.random._uniform`` computes it."""
+    k, ids = _batched(key, shape)
+    hi, lo = threefry2x32(k[..., 0], k[..., 1], ids >> 32, ids & _M32)
+    one = 0x3FF0000000000000
+    return ((hi << 20) | (lo >> 12) | one).view(torch.float64) - 1.0
+
+
+def _ult64(a, b) -> torch.Tensor:
+    """``a < b`` for the uint64 bit patterns held in int64 tensors."""
+    return (a ^ _MIN64) < (b ^ _MIN64)
+
+
+def umod64(x, u) -> torch.Tensor:
+    """``x mod u`` for uint64 bit patterns ``x`` and ``u >= 1`` held in
+    int64 tensors (torch has no unsigned 64-bit remainder).  Below 2^63,
+    ``u`` takes the top bit of ``x`` as ``2^63 mod u`` added with a
+    conditional subtract; from 2^63 on, ``x mod u`` is ``x`` or ``x - u``."""
+    top = torch.where(x < 0, (_MAX63 % u + 1) % u, 0)
+    a = (x & _MAX63) % u
+    small = torch.where(a >= u - top, a - (u - top), a + top)
+    big = torch.where(_ult64(x, u), x, x - u)
+    return torch.where(u < 0, big, small)
+
+
+def randint64(key, minval, maxval, shape=()) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int64)``, with
+    JAX's arithmetic (``jax._src.random._randint``) in unsigned 64 bits:
+    two subkeys give a high and a low word, reduced by ``span`` with the
+    multiplier ``(2^32 mod span)^2 mod span``, products and sums wrapping
+    mod 2^64; ``maxval <= minval`` gives ``minval``.  ``minval`` and
+    ``maxval`` are int64 tensors (or ints) broadcasting against the
+    output ``[..., *shape]``."""
+    k = split(key)
+    hi = random_bits64(k[..., 0, :], shape)
+    lo = random_bits64(k[..., 1, :], shape)
+    minval = torch.as_tensor(minval, dtype=torch.int64, device=hi.device)
+    maxval = torch.as_tensor(maxval, dtype=torch.int64, device=hi.device)
+    span = torch.where(maxval <= minval, 1, maxval - minval)
+    mult = umod64(torch.full_like(span, 1 << 32), span)
+    mult = umod64(mult * mult, span)
+    off = umod64(umod64(hi, span) * mult + umod64(lo, span), span)
+    return minval + off

@@ -1,0 +1,40 @@
+"""R-MAT plan emitter (port of the plan half of ``repro.core.rmat``, paper
+§3.5.2): the Graph 500 comparison baseline.
+
+Each of the m edges descends log2(n) levels of the recursive adjacency
+matrix with probabilities (a, b, c, d); one hashed key per edge id makes
+it communication-free.  The plan is one KIND_RMAT chunk per PE covering
+its edge-id section ``[m i // P, m (i + 1) // P)``; the descent runs on
+the device in ``chunk_rmat``.  Graph 500 semantics: self-loops and
+duplicate edges are kept.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..distrib.engine import KIND_RMAT, chunk_plan_from_columns, reseedable_chunk_plan
+from .prng import THREEFRY, device_key
+
+_TAG_RMAT = 51
+
+
+def rmat_plan(seed: int, log_n: int, m: int, P: int,
+              probs=(0.57, 0.19, 0.19, 0.05), rng_impl: str = THREEFRY):
+    """ChunkPlan equal, field by field, to ``repro.core.rmat.rmat_plan``."""
+
+    def key_of(s: int) -> np.ndarray:
+        one = device_key(s, _TAG_RMAT, impl=rng_impl).numpy().astype(np.uint32)
+        return np.broadcast_to(one, (P, one.size))
+
+    a, b, c, _ = probs
+    sec = m * np.arange(P + 1, dtype=np.int64) // P
+    ids = np.arange(P, dtype=np.int64)
+    z = np.zeros(P, np.int64)
+    fparams = np.broadcast_to(np.array([float(a), float(b), float(c), 0.0]), (P, 4))
+    plan = chunk_plan_from_columns(
+        P, ids, np.full(P, KIND_RMAT, np.int32), key_of(seed), z,
+        sec[1:] - sec[:-1],
+        np.stack([np.full(P, log_n, np.int64), sec[:-1], z], axis=1),
+        np.ones(P, bool), 1 << log_n, fparams=fparams, rng_impl=rng_impl)
+    # edge-id sections are seed-independent: reseeding is a key swap
+    return reseedable_chunk_plan(plan, key_fn=key_of)

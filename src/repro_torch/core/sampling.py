@@ -14,14 +14,21 @@ the host once per round (one synchronisation per round).
 Slot ``i``'s draw depends only on ``(key, round, i)``, never on the
 capacity, so two PEs padding the same chunk differently recompute the
 same values.
+
+``method="gumbel"`` is the reference's exact Gumbel-top-k sampler, off
+the engine path: plain PyTorch on either device, with JAX's float64
+uniforms and glibc's ``log`` (which the reference's fused program calls).
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels.geom.libm import glibc_log_any
 from ..kernels.sampler.ops import chunk_draw
 from ..kernels.sampler.ref import decode_directed, decode_rect, decode_tri  # noqa: F401
-from .prng import key_words
+from .prng import key_words, uniform64
+
+_TINY = 2.2250738585072014e-308     # float64's smallest normal, jnp.finfo(f64).tiny
 
 MAX_FIX_ROUNDS = 64
 
@@ -67,15 +74,45 @@ def _sample_collision(key, universe: int, count: int, capacity: int):
     return vals, torch.arange(capacity, device=dev) < count
 
 
+def gumbel(key, universe: int) -> torch.Tensor:
+    """``jax.random.gumbel(key, (universe,), float64)``: ``-log(-log(u))``
+    of JAX's uniforms on ``[tiny, 1)`` (``u * (1 - tiny) + tiny``, where
+    ``1 - tiny`` rounds to 1), through glibc's ``log``."""
+    u = torch.clamp(uniform64(key, (universe,)) + _TINY, min=_TINY)
+    return -glibc_log_any(-glibc_log_any(u))
+
+
+def _sample_gumbel(key, universe: int, count: int, capacity: int):
+    """Exact uniform k-subset by Gumbel-top-k (``repro.core.sampling.
+    _sample_gumbel``): the indices of the ``min(capacity, universe)``
+    largest scores, ties to the lower index first (a stable descending
+    sort, as XLA's TopK), then the first ``count`` kept and sorted, the
+    other slots holding the sentinels ``universe + i``."""
+    k_words = key_words(key)
+    dev = k_words.device
+    k = min(capacity, universe)
+    top = torch.sort(gumbel(k_words, universe), descending=True, stable=True).indices[:k]
+    idx = torch.arange(capacity, dtype=torch.int64, device=dev)
+    vals = universe + idx
+    vals[:k] = top
+    vals = torch.sort(torch.where(idx < count, vals, universe + idx)).values
+    return vals, idx < count
+
+
 def sample_wo_replacement(key, universe: int, count: int, capacity: int, *,
                           method: str = "collision"):
     """`count` distinct sorted int64 samples from [0, universe):
     (vals [capacity] sorted, mask [capacity]); padding slots hold
-    distinct sentinels >= universe."""
+    distinct sentinels >= universe.  ``method="gumbel"`` needs a
+    universe small enough to score every element, and ``count <=
+    min(capacity, universe)``."""
     if method == "gumbel":
-        raise NotImplementedError(
-            "the exact Gumbel-top-k sampler is not ported: it is off the "
-            "engine path (ROADMAP queue 1, item 2)")
+        universe = int(universe)
+        if count > min(capacity, universe):
+            raise ValueError(
+                f"gumbel path holds min(capacity, universe) = "
+                f"{min(capacity, universe)} samples, got count={count}")
+        return _sample_gumbel(key, universe, count, capacity)
     if method != "collision":
         raise ValueError(f"unknown sampling method {method!r}")
     return _sample_collision(key, universe, count, capacity)

@@ -16,9 +16,10 @@ concatenated output is exactly the global edge set.
 
 Where the reference ``vmap``s a per-chunk function over the table, the
 port's :func:`_edge_chunk_fn` is one batched function over ``[R]`` chunk
-rows: the sampler runs every row at once (``chunk_draw`` + ``torch.sort``
-rounds), then ``chunk_decode`` decodes every slot and writes the keep
-mask.  Likewise :func:`_point_cell_fn` is one ``cell_points`` launch and
+rows: the sampler runs every sampled row at once (``chunk_draw`` +
+``torch.sort`` rounds), then ``chunk_decode`` decodes every slot and
+writes the keep mask; ``chunk_rmat`` and ``chunk_ba`` write the R-MAT and
+BA rows.  Likewise :func:`_point_cell_fn` is one ``cell_points`` launch and
 :func:`_pair_fn` one ``pair_edges`` launch over ``[R]`` table rows.
 """
 from __future__ import annotations
@@ -35,11 +36,9 @@ from ..core.sampling import round_up_capacity, sample_rows
 from ..kernels.geom.ops import cell_points, pair_edges
 from ..kernels.geom.ref import (GEOM_CERT, GEOM_EMPTY, GEOM_HYP, GEOM_TORUS,  # noqa: F401
                                 POINTS_CUBE, POINTS_POLAR)
-from ..kernels.sampler.ops import chunk_decode
-from ..kernels.sampler.ref import KIND_DIRECTED, KIND_EMPTY, KIND_RECT, KIND_TRI
-
-# chunk kinds understood by the edge program (the reference's codes)
-KIND_RMAT, KIND_BA = 4, 5
+from ..kernels.sampler.ops import chunk_ba, chunk_decode, chunk_rmat
+from ..kernels.sampler.ref import (KIND_BA, KIND_DIRECTED, KIND_EMPTY, KIND_RECT,  # noqa: F401
+                                   KIND_RMAT, KIND_TRI)
 
 # kinds whose edges come from the without-replacement index sampler
 SAMPLED_KINDS = frozenset({KIND_DIRECTED, KIND_TRI, KIND_RECT})
@@ -101,13 +100,20 @@ class ChunkPlan:
         """Distinct non-empty chunk kinds of the plan."""
         return tuple(sorted(int(k) for k in np.unique(self.kind) if k != KIND_EMPTY))
 
+    @property
+    def rmat_log_n(self) -> int:
+        """Descent depth shared by every RMAT chunk of the plan."""
+        sel = self.kind == KIND_RMAT
+        return int(self.params[sel, 0].max()) if sel.any() else 0
+
     # ---- the runtime's plan protocol ----
 
     def input_arrays(self) -> Tuple[np.ndarray, ...]:
         return tuple(getattr(self, name) for name in _EDGE_INPUTS)
 
     def slot_fn(self):
-        return _edge_chunk_fn(self.capacity, self.rng_impl, self.kinds_present)
+        return _edge_chunk_fn(self.capacity, self.rng_impl, self.kinds_present,
+                              self.rmat_log_n)
 
     def stream_index(self) -> np.ndarray:
         return owned_chunk_index(self)
@@ -116,7 +122,7 @@ class ChunkPlan:
         """Static program identity: plans with equal signatures run the
         same batched program on tables of the same shape."""
         return ("chunk", self.kind.shape, self.key_data.shape[-1],
-                self.capacity, self.rng_impl, self.kinds_present)
+                self.capacity, self.rng_impl, self.kinds_present, self.rmat_log_n)
 
     def reseed(self, seed: int) -> "ChunkPlan":
         """The plan this emitter would have produced for ``seed`` (only
@@ -307,21 +313,43 @@ def slice_plan(plan: ChunkPlan, lo: int, hi: int) -> ChunkPlan:
 
 
 def _edge_chunk_fn(capacity: int, rng_impl: str,
-                   kinds: Sequence[int] = SAMPLED_KINDS):
+                   kinds: Sequence[int] = SAMPLED_KINDS, log_n: int = 0):
     """The batched chunk program: ``rows(kind, key_data, universe, count,
     params, fparams, owned)`` on ``[R]`` row tensors (key_data int32
     ``[R, 2]``) -> (edges int64 ``[R, capacity, 2]``, keep bool ``[R,
-    capacity]``); ``keep`` folds in validity and ownership."""
+    capacity]``); ``keep`` folds in validity and ownership.
+
+    Each kernel runs only for the kinds present: the sampled rows draw and
+    sort (the other rows' counts are 0 there, so they sample nothing) and
+    ``chunk_decode`` writes every row; ``chunk_rmat`` (``log_n`` levels)
+    and ``chunk_ba`` then write their own rows over it, or the first of
+    them writes every row when no row is sampled."""
     check_rng_impl(rng_impl)
-    other = frozenset(int(k) for k in kinds) - SAMPLED_KINDS - {KIND_EMPTY}
-    if other:
-        raise NotImplementedError(
-            f"chunk kinds {sorted(other)} (KIND_RMAT / KIND_BA) are not "
-            f"ported yet: ROADMAP queue 1, item 5 (remaining ChunkPlan kinds)")
+    kinds = frozenset(int(k) for k in kinds) - {KIND_EMPTY}
+    sampled = kinds & SAMPLED_KINDS
+    unknown = kinds - SAMPLED_KINDS - {KIND_RMAT, KIND_BA}
+    if unknown:
+        raise ValueError(f"unknown chunk kinds {sorted(unknown)}")
 
     def rows(kind, key_data, universe, count, params, fparams, owned):
-        vals = sample_rows(key_data, universe, count, capacity)
-        return chunk_decode(vals, kind, params, count, owned)
+        out = None
+        if sampled:
+            cnt = count
+            if kinds - SAMPLED_KINDS:
+                is_sampled = (kind == KIND_DIRECTED) | (kind == KIND_TRI) | (kind == KIND_RECT)
+                cnt = torch.where(is_sampled, count, 0)
+            out = chunk_decode(sample_rows(key_data, universe, cnt, capacity),
+                               kind, params, count, owned)
+        if KIND_RMAT in kinds:
+            out = chunk_rmat(key_data, kind, params, fparams, count, owned, log_n,
+                             capacity, out)
+        if KIND_BA in kinds:
+            out = chunk_ba(key_data, kind, params, count, owned, capacity, out)
+        if out is None:     # a plan of EMPTY rows only
+            R = kind.shape[0]
+            out = (torch.zeros((R, capacity, 2), dtype=torch.int64, device=kind.device),
+                   torch.zeros((R, capacity), dtype=torch.bool, device=kind.device))
+        return out
 
     return rows
 

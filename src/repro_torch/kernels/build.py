@@ -42,11 +42,13 @@ SOURCES: Dict[str, tuple] = {
     "pairmask": ("pairmask/csrc/pairmask.cu", ["-fmad=false"]),
     "geom": ("geom/csrc/geom.cu", ["-fmad=false"]),
     "delaunay": ("delaunay/csrc/delaunay.cu", ["-fmad=false"]),
+    "wedges": ("wedges/csrc/wedges.cu", []),
 }
 
 LAUNCHES: Dict[str, int] = {"chunk_draw": 0, "chunk_decode": 0, "hist": 0,
                             "pair_mask": 0, "pair_edges": 0, "cell_points": 0,
-                            "triangulate": 0, "circumspheres": 0}
+                            "triangulate": 0, "circumspheres": 0,
+                            "chunk_rmat": 0, "chunk_ba": 0, "close_wedges": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

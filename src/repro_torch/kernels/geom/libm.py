@@ -93,6 +93,16 @@ LOG_LN2LO = _b(0x3D2EF35793C76730)
 LOG_A = tuple(map(_b, (0xBFE0000000000001, 0x3FD555555551305B,
                        0xBFCFFFFFFFEB4590, 0x3FC999B324F10111,
                        0xBFC55575E506C89F)))
+# __log_data.poly1: log(1 + r) near 1, for x in [1 - 2^-4, 1 + 0x1.09p-4)
+LOG_B = tuple(map(_b, (0xBFE0000000000000, 0x3FD5555555555577,
+                       0xBFCFFFFFFFFFFDCB, 0x3FC999999995DD0C,
+                       0xBFC55555556745A7, 0x3FC24924A344DE30,
+                       0xBFBFFFFFA4423D65, 0x3FBC7184282AD6CA,
+                       0xBFB999EB43B068FF, 0x3FB78182F7AFD085,
+                       0xBFB5521375D145CD)))
+LOG_NEAR_LO = 0x3FEE000000000000       # bits of 1 - 2^-4
+LOG_NEAR_SPAN = 0x3090000000000        # bits of 1 + 0x1.09p-4, less LOG_NEAR_LO
+LOG_SPLIT = _b(0x41A0000000000000)     # 2^27: r's split into rhi + rlo
 # __log_data.tab: (invc, logc) for i = 0..127
 LOG_TAB = """
     0x1.734f0c3e0de9fp+0, -0x1.7cc7f79e69000p-2,
@@ -483,6 +493,37 @@ def glibc_log(x: torch.Tensor) -> torch.Tensor:
     A = LOG_A
     p = _fma(_fma(r, A[4], A[3]), r2, _fma(r, A[2], A[1]))
     return _fma(r * r2, p, _fma(r2, A[0], lo)) + hi
+
+
+def _glibc_log_near1(x: torch.Tensor) -> torch.Tensor:
+    """glibc's ``log`` of float64 ``x`` in [1 - 2^-4, 1 + 0x1.09p-4): a
+    degree-11 polynomial in ``r = x - 1`` with ``r`` split at 2^27 for an
+    exact ``-r^2 / 2``; every multiply-add is fused where ``__log_fma``
+    has ``vfmadd`` (``x == 1`` gives +0 here too)."""
+    B = LOG_B
+    r = x - 1.0
+    r2 = r * r
+    r3 = r * r2
+    p = _fma(r3, B[10], _fma(r2, B[9], _fma(r, B[8], B[7])))
+    p = _fma(p, r3, _fma(r2, B[6], _fma(r, B[5], B[4])))
+    p = _fma(p, r3, _fma(r2, B[3], _fma(r, B[2], B[1])))
+    rhi = _fma(-r, LOG_SPLIT, _fma(r, LOG_SPLIT, r))      # r + w - w, both fused
+    rlo = r - rhi
+    rhi2 = rhi * rhi
+    hi = _fma(rhi2, B[0], r)
+    lo = _fma(rhi2, B[0], r - hi)
+    lo = _fma(B[0] * rlo, rhi + r, lo)
+    return hi + _fma(p, r3, lo)
+
+
+def glibc_log_any(x: torch.Tensor) -> torch.Tensor:
+    """glibc's ``log`` of float64 ``x`` on every finite normal ``x > 0``:
+    its near-1 polynomial where glibc takes it, :func:`glibc_log`
+    elsewhere.  Plain PyTorch only (the Gumbel sampler's logs); the
+    device ``libm.cuh`` has the main path alone."""
+    d = _bits(x) - LOG_NEAR_LO
+    near = (d >= 0) & (d < LOG_NEAR_SPAN)
+    return torch.where(near, _glibc_log_near1(x), glibc_log(x))
 
 
 def _sincos_lookup(ax: torch.Tensor):

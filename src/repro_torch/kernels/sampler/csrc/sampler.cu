@@ -1,5 +1,6 @@
-// Chunk sampler kernels for the engine's sampled chunk kinds
-// (DIRECTED / TRI / RECT), one launch over every row of a [R, cap] batch.
+// Chunk kernels of the engine's edge program, one launch over every row of
+// a [R, cap] batch: the sampler for the sampled kinds (DIRECTED / TRI /
+// RECT), and the per-edge programs of R-MAT and BA rows.
 //
 // chunk_draw replaces the draw of repro/core/sampling.py::_sample_collision
 // (lines 110-113) over repro/core/prng.py::counter_bits64 (line 129), in its
@@ -21,6 +22,25 @@
 //   Edges are stored as one 16-byte longlong2 per slot, so a warp writes
 //   512 contiguous bytes.
 //
+// chunk_rmat replaces the RMAT branch of repro/distrib/engine.py::
+// _edge_chunk_fn (lines 426-444), the quadrant descent of
+// repro/core/rmat.py::_rmat_edges (lines 26-40).  chunk_ba replaces its BA
+// branch (lines 446-465), the chain resolution of
+// repro/core/ba.py::_resolve_targets (lines 33-48).  Both are jitted jnp in
+// the reference; neither reaches a Pallas kernel.
+// * chunk_rmat: one thread per edge slot; fold_in64 (2 Threefry blocks)
+//   and log_n blocks for the uniforms, against 17 bytes written: bound by
+//   integer issue (about 65 ms of Threefry for RMAT(26, 2^30) at the int32
+//   peak of 128 lanes a SM, against 5.4 ms of stores).  Rows of other kinds are skipped, or
+//   written as (0, 0) and not kept when the launch fills the output.
+// * chunk_ba: one thread per edge slot walks its position chain; a step is
+//   fold_in64, a split and two 64-bit words (6 blocks) and four unsigned
+//   64-bit remainders.  Chains are short (O(log) w.h.p.) but a warp waits
+//   for its longest one; the launch can count the steps it took and the
+//   steps its warps issued (32 times each warp's longest chain; a warp
+//   sum and max, two atomics a warp), so the bound and the cost of the
+//   waiting are read from the run.
+//
 // Exactness: the draws are JAX's bits (threefry.cuh), and the TRI decode
 // keeps the reference's f64 estimate and its three int64 fix-up steps.
 // The library is compiled with -fmad=false so that 1 + 8x is not
@@ -36,6 +56,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kKindEmpty = 0, kKindDirected = 1, kKindTri = 2, kKindRect = 3;
+constexpr int kKindRmat = 4, kKindBa = 5;
 
 __global__ void chunk_draw_kernel(const uint32_t* __restrict__ key,
                                   const int64_t* __restrict__ universe,
@@ -112,6 +133,83 @@ __global__ void chunk_decode_kernel(const int64_t* __restrict__ vals,
   keep[at] = i < count[r] && owned[r] && k != kKindEmpty;
 }
 
+__global__ void chunk_rmat_kernel(const uint32_t* __restrict__ key,
+                                  const int32_t* __restrict__ kind,
+                                  const int64_t* __restrict__ params,
+                                  const double* __restrict__ fparams,
+                                  const int64_t* __restrict__ count,
+                                  const bool* __restrict__ owned, int log_n,
+                                  int64_t capacity, int64_t blocks_per_row, bool fill,
+                                  longlong2* __restrict__ edges,
+                                  bool* __restrict__ keep) {
+  const int64_t r = blockIdx.x / blocks_per_row;
+  const int64_t i = (blockIdx.x % blocks_per_row) * kThreads + threadIdx.x;
+  if (i >= capacity) return;
+  const int64_t at = r * capacity + i;
+  if (kind[r] != kKindRmat) {
+    if (fill) {
+      edges[at] = make_longlong2(0, 0);
+      keep[at] = false;
+    }
+    return;
+  }
+  const double a = fparams[4 * r], b = fparams[4 * r + 1], c = fparams[4 * r + 2];
+  const double ab = a + b, abc = ab + c;   // (a + b) + c, as the reference sums
+  const Key2x32 k = tf_fold_in64(Key2x32{key[2 * r], key[2 * r + 1]}, params[3 * r + 1] + i);
+  int64_t src = 0, dst = 0;   // most significant bit first
+  for (int j = 0; j < log_n; ++j) {
+    const double u = tf_uniform64(k, (uint64_t)j);
+    const int quad = (u >= a) + (u >= ab) + (u >= abc);
+    src = (src << 1) | (quad >= 2);
+    dst = (dst << 1) | (quad & 1);
+  }
+  edges[at] = make_longlong2(src, dst);
+  keep[at] = i < count[r] && owned[r];
+}
+
+__global__ void chunk_ba_kernel(const uint32_t* __restrict__ key,
+                                const int32_t* __restrict__ kind,
+                                const int64_t* __restrict__ params,
+                                const int64_t* __restrict__ count,
+                                const bool* __restrict__ owned, int64_t capacity,
+                                int64_t blocks_per_row, bool fill,
+                                longlong2* __restrict__ edges, bool* __restrict__ keep,
+                                unsigned long long* __restrict__ steps) {
+  const int64_t r = blockIdx.x / blocks_per_row;
+  const int64_t i = (blockIdx.x % blocks_per_row) * kThreads + threadIdx.x;
+  const int64_t at = r * capacity + i;
+  const bool mine = i < capacity && kind[r] == kKindBa;
+  unsigned long long walked = 0;
+  if (mine) {
+    const Key2x32 k{key[2 * r], key[2 * r + 1]};
+    const int64_t p0 = params[3 * r];
+    const int64_t d = p0 > 1 ? p0 : 1;
+    const int64_t eid = params[3 * r + 1] + i;
+    int64_t pos = 2 * eid + 1;
+    while (pos & 1) {   // Batagelj-Brandes: an odd position copies an earlier one
+      pos = tf_randint64(tf_fold_in64(k, pos), 0, pos);
+      ++walked;
+    }
+    edges[at] = make_longlong2(eid / d, (pos / 2) / d);
+    keep[at] = i < count[r] && owned[r];
+  } else if (fill && i < capacity) {
+    edges[at] = make_longlong2(0, 0);
+    keep[at] = false;
+  }
+  if (steps != nullptr) {   // every thread of the block reaches the sums
+    unsigned long long longest = walked;
+    for (int o = 16; o > 0; o >>= 1) {
+      walked += __shfl_down_sync(0xffffffffu, walked, o);
+      const unsigned long long other = __shfl_down_sync(0xffffffffu, longest, o);
+      longest = other > longest ? other : longest;
+    }
+    if ((threadIdx.x & 31) == 0 && walked) {
+      atomicAdd(steps, walked);
+      atomicAdd(steps + 1, 32 * longest);   // the steps the warp issued
+    }
+  }
+}
+
 int grid_for(long long rows, long long capacity, long long* blocks_per_row,
              unsigned* grid) {
   *blocks_per_row = (capacity + kThreads - 1) / kThreads;
@@ -156,5 +254,42 @@ extern "C" int chunk_decode(const void* vals, const void* kind, const void* para
       (const int64_t*)vals, (const int32_t*)kind, (const int64_t*)params,
       (const int64_t*)count, (const bool*)owned, capacity, bpr,
       (longlong2*)edges, (bool*)keep);
+  return (int)cudaGetLastError();
+}
+
+// key uint32 [R, 2]; kind int32 [R]; params int64 [R, 3] (p1 = first edge
+// id); fparams float64 [R, 4] (a, b, c); count int64 [R]; owned bool [R];
+// edges int64 [R, capacity, 2]; keep bool [R, capacity].  fill != 0 also
+// writes the rows of other kinds as (0, 0), not kept.
+extern "C" int chunk_rmat(const void* key, const void* kind, const void* params,
+                          const void* fparams, const void* count, const void* owned,
+                          int log_n, long long rows, long long capacity, int fill,
+                          void* edges, void* keep, void* stream) {
+  if (rows == 0 || capacity == 0) return 0;
+  long long bpr;
+  unsigned grid;
+  if (int err = grid_for(rows, capacity, &bpr, &grid)) return err;
+  chunk_rmat_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)key, (const int32_t*)kind, (const int64_t*)params,
+      (const double*)fparams, (const int64_t*)count, (const bool*)owned, log_n,
+      capacity, bpr, fill != 0, (longlong2*)edges, (bool*)keep);
+  return (int)cudaGetLastError();
+}
+
+// As chunk_rmat, for BA rows (params p0 = d, p1 = first edge id); steps,
+// when not null, is a uint64 [2] the launch adds into: its chain steps,
+// and 32 times the longest chain of each warp.
+extern "C" int chunk_ba(const void* key, const void* kind, const void* params,
+                        const void* count, const void* owned, long long rows,
+                        long long capacity, int fill, void* edges, void* keep,
+                        void* steps, void* stream) {
+  if (rows == 0 || capacity == 0) return 0;
+  long long bpr;
+  unsigned grid;
+  if (int err = grid_for(rows, capacity, &bpr, &grid)) return err;
+  chunk_ba_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)key, (const int32_t*)kind, (const int64_t*)params,
+      (const int64_t*)count, (const bool*)owned, capacity, bpr, fill != 0,
+      (longlong2*)edges, (bool*)keep, (unsigned long long*)steps);
   return (int)cudaGetLastError();
 }

@@ -13,13 +13,15 @@ from typing import Optional
 import torch
 
 from .. import build
-from .ref import chunk_decode_ref, chunk_draw_ref
+from .ref import chunk_ba_ref, chunk_decode_ref, chunk_draw_ref, chunk_rmat_ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
 _SIGNATURES = {
     "chunk_draw": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "chunk_decode": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "chunk_rmat": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _I, _I, ctypes.c_int, _P, _P, _P],
+    "chunk_ba": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_int, _P, _P, _P, _P],
 }
 
 
@@ -80,4 +82,69 @@ def chunk_decode(vals: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
             count.data_ptr(), owned.data_ptr(), R, cap, edges.data_ptr(),
             keep.data_ptr(), build.stream_arg(dev)), "chunk_decode")
         build.LAUNCHES["chunk_decode"] += 1
+    return edges, keep
+
+
+def _check_rows(key, kind, params, count, owned, out, capacity):
+    """The checks of the per-kind chunk programs' common arguments; the
+    output they write (``out``, or a fresh one to fill)."""
+    R, dev = kind.shape[0], kind.device
+    build.check_arg(key, "key", torch.int32, (R, 2), dev)
+    build.check_arg(kind, "kind", torch.int32, (R,), dev)
+    build.check_arg(params, "params", torch.int64, (R, 3), dev)
+    build.check_arg(count, "count", torch.int64, (R,), dev)
+    build.check_arg(owned, "owned", torch.bool, (R,), dev)
+    if out is None:
+        return (torch.empty((R, capacity, 2), dtype=torch.int64, device=dev),
+                torch.empty((R, capacity), dtype=torch.bool, device=dev)), True
+    build.check_arg(out[0], "edges", torch.int64, (R, capacity, 2), dev)
+    build.check_arg(out[1], "keep", torch.bool, (R, capacity), dev)
+    return out, False
+
+
+def chunk_rmat(key: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
+               fparams: torch.Tensor, count: torch.Tensor, owned: torch.Tensor,
+               log_n: int, capacity: int, out=None):
+    """(edges int64 ``[R, capacity, 2]``, keep bool ``[R, capacity]``) of
+    the RMAT rows (see :func:`.ref.chunk_rmat_ref`), written into ``out``
+    when it is given (its other rows untouched), else into a fresh output
+    whose other rows are ``(0, 0)`` and not kept.  ``key`` int32 ``[R,
+    2]``, ``kind`` int32 ``[R]``, ``params`` int64 ``[R, 3]``, ``fparams``
+    float64 ``[R, 4]``, ``count`` int64 ``[R]``, ``owned`` bool ``[R]``;
+    ``0 <= log_n <= 62``."""
+    if not 0 <= log_n <= 62:
+        raise ValueError(f"log_n {log_n} outside [0, 62]")
+    if kind.device.type == "cpu":
+        return chunk_rmat_ref(key, kind, params, fparams, count, owned, log_n, capacity, out)
+    (edges, keep), fill = _check_rows(key, kind, params, count, owned, out, capacity)
+    build.check_arg(fparams, "fparams", torch.float64, (kind.shape[0], 4), kind.device)
+    if edges.numel():
+        build.check(_lib().chunk_rmat(
+            key.data_ptr(), kind.data_ptr(), params.data_ptr(), fparams.data_ptr(),
+            count.data_ptr(), owned.data_ptr(), int(log_n), kind.shape[0], capacity,
+            int(fill), edges.data_ptr(), keep.data_ptr(), build.stream_arg(kind.device)),
+            "chunk_rmat")
+        build.LAUNCHES["chunk_rmat"] += 1
+    return edges, keep
+
+
+def chunk_ba(key: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
+             count: torch.Tensor, owned: torch.Tensor, capacity: int, out=None,
+             steps: Optional[torch.Tensor] = None):
+    """(edges, keep) of the BA rows (see :func:`.ref.chunk_ba_ref`), with
+    ``out`` as in :func:`chunk_rmat`.  ``steps``, an int64 ``[2]`` tensor,
+    takes the launch's chain steps and the steps its warps issued when it
+    is given (two atomics a warp)."""
+    if kind.device.type == "cpu":
+        return chunk_ba_ref(key, kind, params, count, owned, capacity, out, steps)
+    (edges, keep), fill = _check_rows(key, kind, params, count, owned, out, capacity)
+    if steps is not None:
+        build.check_arg(steps, "steps", torch.int64, (2,), kind.device)
+    if edges.numel():
+        build.check(_lib().chunk_ba(
+            key.data_ptr(), kind.data_ptr(), params.data_ptr(), count.data_ptr(),
+            owned.data_ptr(), kind.shape[0], capacity, int(fill), edges.data_ptr(),
+            keep.data_ptr(), None if steps is None else steps.data_ptr(),
+            build.stream_arg(kind.device)), "chunk_ba")
+        build.LAUNCHES["chunk_ba"] += 1
     return edges, keep

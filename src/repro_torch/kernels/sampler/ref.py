@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the sampler kernels (same function, no kernel).
 
-``chunk_draw_ref`` and ``chunk_decode_ref`` compute exactly what
-``csrc/sampler.cu`` computes, element for element; the CPU tests hold
-them against ``repro.core.sampling`` and ``chip_smoke.py`` holds the
-kernels against them on the card.  The decodes are the reference's
-``decode_directed`` / ``decode_tri`` / ``decode_rect`` on int64 tensors.
+``chunk_draw_ref``, ``chunk_decode_ref``, ``chunk_rmat_ref`` and
+``chunk_ba_ref`` compute exactly what ``csrc/sampler.cu`` computes,
+element for element; the CPU tests hold them against ``repro.core``
+(``sampling``, ``rmat._rmat_edges``, ``ba._resolve_targets``) and
+``chip_smoke.py`` holds the kernels against them on the card.  The
+decodes are the reference's ``decode_directed`` / ``decode_tri`` /
+``decode_rect`` on int64 tensors.
 """
 from __future__ import annotations
 
@@ -12,9 +14,10 @@ from typing import Optional
 
 import torch
 
-from ...core.prng import bits64_limbs, fold_in, key_words, mod_u64
+from ...core.prng import (bits64_limbs, fold_in, fold_in64, key_words, mod_u64, randint64,
+                          uniform64)
 
-KIND_EMPTY, KIND_DIRECTED, KIND_TRI, KIND_RECT = 0, 1, 2, 3
+KIND_EMPTY, KIND_DIRECTED, KIND_TRI, KIND_RECT, KIND_RMAT, KIND_BA = 0, 1, 2, 3, 4, 5
 
 
 def decode_directed(idx, n, row_lo):
@@ -101,3 +104,75 @@ def chunk_decode_ref(vals: torch.Tensor, kind: torch.Tensor,
     keep = ((idx[None, :] < count[:, None]) & owned[:, None]
             & (kind != KIND_EMPTY))
     return torch.stack([u, v], dim=-1), keep
+
+
+def _rows_out(out, R: int, capacity: int, device):
+    """The output a per-kind chunk program writes: ``out`` (its own rows
+    only), or fresh zeros (other rows stay ``(0, 0)``, not kept)."""
+    if out is not None:
+        return out
+    return (torch.zeros((R, capacity, 2), dtype=torch.int64, device=device),
+            torch.zeros((R, capacity), dtype=torch.bool, device=device))
+
+
+def chunk_rmat_ref(key: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
+                   fparams: torch.Tensor, count: torch.Tensor, owned: torch.Tensor,
+                   log_n: int, capacity: int, out=None):
+    """(edges int64 ``[R, capacity, 2]``, keep bool ``[R, capacity]``) of
+    the RMAT rows: slot ``i`` is edge id ``params[1] + i``, whose key is
+    ``fold_in64(key, id)``; each of ``log_n`` float64 uniforms picks a
+    quadrant by ``a``, ``a + b``, ``a + b + c`` (``fparams``), giving one
+    bit of source (quadrant >= 2) and destination (quadrant odd), most
+    significant first.  Rows of other kinds are left as they are in
+    ``out`` (or zeros, not kept)."""
+    R = kind.shape[0]
+    edges, keep = _rows_out(out, R, capacity, kind.device)
+    idx = torch.arange(capacity, dtype=torch.int64, device=kind.device)
+    k = fold_in64(key_words(key)[:, None, :], params[:, 1:2] + idx)     # [R, cap, 2]
+    u = uniform64(k, (log_n,))                                          # [R, cap, log_n]
+    a, b, c = (fparams[:, j, None, None] for j in range(3))
+    ab = a + b
+    quad = ((u >= a).to(torch.int64) + (u >= ab).to(torch.int64)
+            + (u >= ab + c).to(torch.int64))
+    bits = torch.arange(log_n - 1, -1, -1, dtype=torch.int64, device=kind.device)
+    src = ((quad >= 2).to(torch.int64) << bits).sum(-1)
+    dst = ((quad % 2) << bits).sum(-1)
+    mine = (kind == KIND_RMAT)[:, None]
+    edges.copy_(torch.where(mine[..., None], torch.stack([src, dst], dim=-1), edges))
+    keep.copy_(torch.where(mine, (idx < count[:, None]) & owned[:, None], keep))
+    return edges, keep
+
+
+def chunk_ba_ref(key: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
+                 count: torch.Tensor, owned: torch.Tensor, capacity: int, out=None,
+                 steps: Optional[torch.Tensor] = None):
+    """(edges, keep) of the BA rows: slot ``i`` is edge id ``e = params[1]
+    + i`` of source ``e // d`` (``d = params[0]``); its target resolves
+    the chain ``pos = 2e + 1``, ``pos <- randint(fold_in64(key, pos), 0,
+    pos)`` while ``pos`` is odd, as ``(pos // 2) // d``.  When ``steps``
+    (int64 ``[2]``) is given, the chain steps of every slot are added
+    into ``steps[0]`` and 32 times the longest chain of each warp (32
+    consecutive slots of a row, as the kernel's threads take them) into
+    ``steps[1]``.  Rows of other kinds as in :func:`chunk_rmat_ref`."""
+    R = kind.shape[0]
+    edges, keep = _rows_out(out, R, capacity, kind.device)
+    idx = torch.arange(capacity, dtype=torch.int64, device=kind.device)
+    d = torch.clamp(params[:, :1], min=1)
+    eid = params[:, 1:2] + idx
+    mine = (kind == KIND_BA)[:, None]
+    pos = torch.where(mine, 2 * eid + 1, 0).reshape(-1)
+    kw = key_words(key)[:, None, :].expand(R, capacity, 2).reshape(-1, 2)
+    live = torch.nonzero(pos & 1).reshape(-1)
+    walked = torch.zeros_like(pos)
+    while live.numel():
+        p = pos[live]
+        pos[live] = randint64(fold_in64(kw[live], p), 0, p)
+        walked[live] += 1
+        live = live[(pos[live] & 1) == 1]
+    if steps is not None:
+        warps = torch.nn.functional.pad(walked.reshape(R, capacity), (0, -capacity % 32))
+        steps += torch.stack([walked.sum(), 32 * warps.reshape(R, -1, 32).amax(-1).sum()])
+    tgt = (pos.reshape(R, capacity) // 2) // d
+    edges.copy_(torch.where(mine[..., None], torch.stack([eid // d, tgt], dim=-1), edges))
+    keep.copy_(torch.where(mine, (idx < count[:, None]) & owned[:, None], keep))
+    return edges, keep

@@ -1,9 +1,9 @@
-"""repro_torch.stats: streaming degree statistics of generated graphs
-(the degree path of ``repro.stats``)."""
-from .accumulate import (DegreeSummary, SectionDegrees, VertexOwnership, merge_sections,
-                         section_views)
+"""repro_torch.stats: streaming degree and sampled clustering statistics
+of generated graphs (port of ``repro.stats``'s ``collect``)."""
+from .accumulate import (ClusteringReport, ClusteringSampler, DegreeSummary, SectionDegrees,
+                         VertexOwnership, merge_sections, section_views)
 from .collect import EXACT_N_LIMIT, StatsReport, collect
 
-__all__ = ["DegreeSummary", "SectionDegrees", "VertexOwnership", "merge_sections",
-           "section_views",
+__all__ = ["ClusteringReport", "ClusteringSampler", "DegreeSummary", "SectionDegrees",
+           "VertexOwnership", "merge_sections", "section_views",
            "EXACT_N_LIMIT", "StatsReport", "collect"]

@@ -1,5 +1,5 @@
-"""Per-PE degree accumulators (port of the degree half of
-``repro.stats.accumulate``).
+"""Per-PE streaming accumulators (port of ``repro.stats.accumulate``):
+degree sections and the sampled clustering counters.
 
 The engine streams each owned chunk exactly once, so the stream is the
 exact global edge multiset and accumulation is pure addition.  Vertex v
@@ -14,16 +14,27 @@ that is the reference's host split (``VertexOwnership.split``) without
 the host round trip, and without a launch per section.  A standalone
 :class:`SectionDegrees` owns its array and counts only its own ids,
 through the hist kernel's drop rule.
+
+:class:`ClusteringSampler` counts, for a hashed vertex sample, each
+sampled vertex's degree and the edges among its neighbours, in two
+streaming passes; its second pass runs ``close_wedges`` on the stream's
+device buffers.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.chunking import section_bounds
+from ..core.prng import host_rng
 from ..kernels.hist.ops import LOG2_BINS, bincount_ids, log2_histogram
+from ..kernels.wedges.ops import close_wedges
+
+_TAG_SAMPLE = 71  # hashed stream for the clustering vertex sample
+_NB_SENTINEL = 1 << 62  # neighbor-table padding: larger than any vertex id
 
 
 class VertexOwnership:
@@ -108,3 +119,140 @@ def merge_sections(accs: List[SectionDegrees], exact: bool) -> DegreeSummary:
     degrees = torch.cat([a.deg for a in accs]) if exact else None
     return DegreeSummary(log2_hist=hist, deg_sum=total, deg_sumsq=total_sq,
                          deg_max=deg_max, num_isolated=isolated, degrees=degrees)
+
+
+# --------------------------------------------------------------------------
+# sampled clustering (wedge / triangle counters)
+# --------------------------------------------------------------------------
+
+def _in_sorted(sorted_vals: torch.Tensor, q: torch.Tensor):
+    """(position, membership) of each ``q`` in the sorted unique
+    ``sorted_vals`` (non-empty); the position is clamped into it."""
+    pos = torch.searchsorted(sorted_vals, q.contiguous()).clamp(max=sorted_vals.numel() - 1)
+    return pos, sorted_vals[pos] == q
+
+
+class ClusteringSampler:
+    """Exact local clustering for a hashed deterministic vertex sample.
+
+    Two streaming passes: pass 1 (:meth:`observe`) collects each sampled
+    vertex's neighbours, pass 2 (:meth:`count_triangles_chunk`) counts the
+    edges closing its wedges.  The sample is ``host_rng(seed, 71).choice(n,
+    samples, replace=False)``, a pure function of (seed, n), so reports
+    are P-invariant and equal the reference's.
+
+    Memory: O(samples * neighbor_cap + chunk).  The moment a sampled
+    vertex's neighbour count passes ``neighbor_cap`` its stored
+    neighbours are dropped (only the count keeps growing); it is left out
+    of the estimate (``valid`` False) with its exact degree reported.
+    Whether it overflows depends only on its final count, so it is P- and
+    order-invariant too.  The triangle counts live on ``device`` and are
+    read once, by :meth:`report`."""
+
+    def __init__(self, n: int, seed: int, samples: int, neighbor_cap: int, device):
+        rng = host_rng(seed, _TAG_SAMPLE)
+        self.sample = np.sort(rng.choice(n, size=min(max(samples, 0), n), replace=False))
+        self.neighbor_cap = neighbor_cap
+        self.device = torch.device(device)
+        self._sample_t = torch.from_numpy(self.sample.astype(np.int64)).to(self.device)
+        S = len(self.sample)
+        self._parts: List[List[np.ndarray]] = [[] for _ in range(S)]
+        self._count = np.zeros(S, np.int64)
+        self._overflow = np.zeros(S, bool)
+        self.neighbors: Optional[List[np.ndarray]] = None
+        self._nb_table: Optional[torch.Tensor] = None
+        self._triangles = torch.zeros(max(1, S), dtype=torch.int64, device=self.device)
+
+    def observe(self, e: torch.Tensor) -> None:
+        """Pass 1: record the neighbours of sampled endpoints of one
+        chunk's edges ``e`` (``[k, 2]``).  The endpoints are matched
+        against the sample on ``e``'s device; only the hits come to the
+        host.  The exact-union stream has no duplicate undirected edges,
+        so occurrence counts are degrees."""
+        if not len(self.sample) or not e.numel():
+            return
+        pos, hit = zip(*(_in_sorted(self._sample_t, e[:, col]) for col in (0, 1)))
+        p = torch.cat([pos[0][hit[0]], pos[1][hit[1]]]).cpu().numpy()
+        o = torch.cat([e[hit[0], 1], e[hit[1], 0]]).cpu().numpy()
+        if not len(p):
+            return
+        self._count += np.bincount(p, minlength=len(self.sample))
+        over = (self._count > self.neighbor_cap) & ~self._overflow
+        for si in np.nonzero(over)[0]:    # a hub: drop its storage, keep counting
+            self._parts[si] = []
+        self._overflow |= over
+        for si in np.unique(p):  # repro: allow(no-numpy-unique) O(samples) host loop over sampled vertex ids
+            if not self._overflow[si]:
+                self._parts[si].append(o[p == si])
+
+    def finalize_neighbors(self) -> None:
+        """End pass 1: each sample's sorted, distinct neighbours."""
+        self.neighbors = [
+            np.unique(np.concatenate(parts)) if parts else np.zeros(0, np.int64)  # repro: allow(no-numpy-unique) O(neighbor_cap) per sampled vertex, host side
+            for parts in self._parts]
+        self._parts = []
+
+    @property
+    def has_work(self) -> bool:
+        """Whether pass 2 could count anything: an eligible sample with a
+        wedge to close.  False means the second pass can be skipped."""
+        return any(not self._overflow[si] and len(nb) >= 2
+                   for si, nb in enumerate(self.neighbors))
+
+    def _neighbor_table(self) -> torch.Tensor:
+        """Sorted, sentinel-padded ``[S, NB]`` neighbour matrix on the
+        device; overflowed samples have empty (all-sentinel) rows."""
+        if self._nb_table is None:
+            nb_max = max((len(nb) for nb in self.neighbors), default=0)
+            tbl = np.full((max(1, len(self.sample)), max(1, nb_max)), _NB_SENTINEL, np.int64)
+            for i, nb in enumerate(self.neighbors):
+                tbl[i, : len(nb)] = nb
+            self._nb_table = torch.from_numpy(tbl).to(self.device)
+        return self._nb_table
+
+    def count_triangles_chunk(self, buffer: torch.Tensor, count: Optional[int] = None,
+                              mask: Optional[torch.Tensor] = None) -> None:
+        """Pass 2: close sampled wedges against one stream buffer on the
+        device (``close_wedges``).  ``mask`` is a scattered validity mask
+        (pair buffers, batched ``[b, cap^2, 2]`` ones flatten), ``count``
+        a validity prefix (a chunk buffer); ``mask`` wins when both are
+        given, and with neither every slot is valid."""
+        if self.neighbors is None:
+            raise RuntimeError("finalize_neighbors() must run before pass 2")
+        if not len(self.sample) or not max((len(nb) for nb in self.neighbors), default=0):
+            return
+        buf = buffer.reshape(-1, 2)
+        close_wedges(buf, self._neighbor_table(),
+                     mask=None if mask is None else mask.reshape(-1),
+                     count=count, out=self._triangles)
+
+    def report(self) -> "ClusteringReport":
+        deg = self._count.copy()
+        valid = (deg >= 2) & ~self._overflow
+        return ClusteringReport(sample=self.sample, degree=deg,
+                                triangles=self._triangles.cpu().numpy()[: len(self.sample)],
+                                wedges=deg * (deg - 1) // 2, valid=valid)
+
+
+@dataclass
+class ClusteringReport:
+    """Exact wedge/triangle counts over the deterministic vertex sample
+    (host arrays, as the sample is drawn on the host)."""
+    sample: np.ndarray      # sampled vertex ids, sorted
+    degree: np.ndarray      # exact degree of each sampled vertex
+    triangles: np.ndarray   # edges among its neighbors (== closed wedges)
+    wedges: np.ndarray      # C(degree, 2)
+    valid: np.ndarray       # bool: in-estimate (2 <= degree <= cap)
+
+    @property
+    def global_cc(self) -> float:
+        """sum(closed) / sum(wedges) over the sample (transitivity-style)."""
+        w = int(self.wedges[self.valid].sum())
+        return float(self.triangles[self.valid].sum() / w) if w else 0.0
+
+    @property
+    def mean_local_cc(self) -> float:
+        v = self.valid
+        if not v.any():
+            return 0.0
+        return float((self.triangles[v] / self.wedges[v]).mean())

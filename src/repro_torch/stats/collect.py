@@ -1,12 +1,13 @@
-"""``collect(spec, P) -> StatsReport``: streaming degree statistics (port
-of the degree path of ``repro.stats.collect``).
+"""``collect(spec, P) -> StatsReport``: streaming graph analytics (port of
+``repro.stats.collect``).
 
-Drives :func:`repro_torch.api.iter_edge_chunks` once and adds every
-chunk's endpoints into the per-PE section accumulators on the device:
-the sections are views of one degree array, so a chunk is one hist
-launch whatever P is.
-Peak memory is the accumulators plus one chunk buffer, never the edge
-list; the report is identical for every P and equal to the reference's.
+Drives :func:`repro_torch.api.iter_edge_chunks` once (twice with
+clustering: the second pass regenerates, it does not store) and adds
+every chunk's endpoints into the per-PE section accumulators on the
+device: the sections are views of one degree array, so a chunk is one
+hist launch whatever P is.  Peak memory is the accumulators plus one
+chunk buffer, never the edge list; the report is identical for every P
+and equal to the reference's.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..kernels.hist.ops import bincount_ids
-from .accumulate import DegreeSummary, VertexOwnership, merge_sections, section_views
+from .accumulate import (ClusteringReport, ClusteringSampler, DegreeSummary, VertexOwnership,
+                         merge_sections, section_views)
 
 # above this the exact per-vertex degree array is no longer returned;
 # log2 histograms + moments remain exact at any scale
@@ -28,8 +30,9 @@ KNOWN_METRICS = ("degree", "clustering")
 
 @dataclass(frozen=True)
 class StatsReport:
-    """What one streaming pass measures; every field is exact and
-    P-invariant."""
+    """What one streaming pass measures.  Every non-sampled field is
+    exact and P-invariant; clustering is exact on its (deterministic)
+    vertex sample."""
     n: int
     P: int
     directed: bool
@@ -37,6 +40,7 @@ class StatsReport:
     num_edges: int
     degree: DegreeSummary               # undirected / out-degree view
     in_degree: Optional[DegreeSummary] = None   # directed only
+    clustering: Optional[ClusteringReport] = None
     metrics: Tuple[str, ...] = field(default=DEFAULT_METRICS)
 
     @property
@@ -61,38 +65,44 @@ def collect(
     device=None,
     rng_impl: str = "threefry2x32",
     batch: int = 256,
+    cluster_samples: int = 64,
+    neighbor_cap: int = 8192,
 ) -> StatsReport:
-    """Stream ``spec`` on P virtual PEs and measure its degrees.
+    """Stream ``spec`` on P virtual PEs and measure it.
 
+    metrics: subset of {'degree', 'clustering'}; clustering costs a
+    second streaming pass and requires an undirected family.
     mode: 'exact' keeps the full per-vertex degree array (default for
     n <= 2^22), 'binned' keeps only log2 histograms + exact moments.
     batch: candidate pairs per wave for the geometric (PairPlan)
     families, whose rows are small (``capacity^2`` slots); ChunkPlan
     chunks stream one at a time, so one chunk's ``[capacity, 2]``
-    buffer is the peak beyond the accumulators."""
+    buffer is the peak beyond the accumulators.
+    cluster_samples, neighbor_cap: the clustering sample's size and the
+    neighbour count past which a sampled vertex leaves the estimate."""
     from .. import api
     from ..distrib.runtime import resolve_device
 
     unknown = set(metrics) - set(KNOWN_METRICS)
     if unknown:
         raise ValueError(f"unknown metrics {sorted(unknown)}; know {KNOWN_METRICS}")
-    if "clustering" in metrics:
-        raise NotImplementedError(
-            "the clustering sampler is not ported yet (ROADMAP queue 1, "
-            "item 2, stats/)")
     dev = resolve_device(device)
     n, directed = spec.num_vertices, spec.directed
     mode = mode or ("exact" if n <= EXACT_N_LIMIT else "binned")
     if mode not in ("exact", "binned"):
         raise ValueError(f"unknown mode {mode!r}")
+    if "clustering" in metrics and directed:
+        raise ValueError("clustering is defined for undirected families only")
 
     bounds = VertexOwnership(n, P).bounds
     out_deg, out_acc = section_views(bounds, dev)
     in_deg, in_acc = section_views(bounds, dev) if directed else (None, None)
+    sampler = (ClusteringSampler(n, spec.seed, cluster_samples, neighbor_cap, dev)
+               if "clustering" in metrics else None)
 
     # PairPlan rows are O(capacity^2) with tiny capacities; ChunkPlan
     # buffers are O(capacity) with large ones
-    batch = batch if isinstance(spec, (api.RGG, api.RHG)) else 1
+    batch = batch if isinstance(spec, (api.RGG, api.RHG, api.RDG)) else 1
     num_edges = 0
     for chunk in api.iter_edge_chunks(spec, P, device=dev, rng_impl=rng_impl,
                                       batch=batch):
@@ -102,11 +112,26 @@ def collect(
             bincount_ids(e[:, 0] if directed else e, n, out=out_deg)
             if directed:
                 bincount_ids(e[:, 1], n, out=in_deg)
+            if sampler is not None:
+                sampler.observe(e)
+
+    clustering = None
+    if sampler is not None:
+        sampler.finalize_neighbors()
+        if sampler.has_work:  # else the regeneration pass would count nothing
+            for chunk in api.iter_edge_chunks(spec, P, device=dev, rng_impl=rng_impl,
+                                              batch=batch):
+                # a chunk buffer's valid slots are the prefix of its count
+                prefix = chunk.count is not None and chunk.buffer.dim() == 2
+                sampler.count_triangles_chunk(
+                    chunk.buffer, count=chunk.count if prefix else None,
+                    mask=None if prefix else chunk.mask)
+        clustering = sampler.report()
 
     exact = mode == "exact"
     return StatsReport(
         n=n, P=P, directed=directed, mode=mode, num_edges=num_edges,
         degree=merge_sections(out_acc, exact),
         in_degree=merge_sections(in_acc, exact) if directed else None,
-        metrics=tuple(metrics),
+        clustering=clustering, metrics=tuple(metrics),
     )

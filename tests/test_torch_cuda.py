@@ -22,8 +22,12 @@ from repro_torch.kernels.hist.ref import hist_counts_ref
 from repro_torch.kernels.pairmask import ops as M
 from repro_torch.kernels.pairmask.ref import pair_mask_ref
 from repro_torch.kernels.sampler import ops as S
-from repro_torch.kernels.sampler.ref import chunk_decode_ref, chunk_draw_ref
+from repro_torch.kernels.sampler.ref import (chunk_ba_ref, chunk_decode_ref, chunk_draw_ref,
+                                             chunk_rmat_ref)
+from repro_torch.kernels.wedges import ops as W
+from repro_torch.kernels.wedges.ref import close_wedges_ref
 from torch_dt_rows import overflow_row, tie_rows
+from torch_family_rows import chunk_rows, wedge_inputs
 from torch_geom_rows import ALL_KINDS, cell_rows, pair_rows
 from torch_libm_inputs import INPUTS
 
@@ -408,3 +412,71 @@ def test_rdg_on_the_card_equals_cpu(cuda, kw):
     a = api.generate(spec, 3, device=cuda, return_points=True)
     b = api.generate(spec, 3, device="cpu", return_points=True)
     assert torch.equal(a.edges.cpu(), b.edges) and torch.equal(a.points.cpu(), b.points)
+
+
+@pytest.mark.parametrize("log_n", [1, 26, 40])
+@pytest.mark.parametrize("R,cap", [(1, 1), (37, 300), (200, 4096)], ids=str)
+def test_chunk_rmat_mixed_rows_match_plain(cuda, log_n, R, cap):
+    key, kind, params, fparams, count, owned = chunk_rows(R, cap, 8, R + log_n, cuda)
+    before = build.LAUNCHES["chunk_rmat"]
+    got = S.chunk_rmat(key, kind, params, fparams, count, owned, log_n, cap)
+    assert build.LAUNCHES["chunk_rmat"] == before + 1
+    want = chunk_rmat_ref(key, kind, params, fparams, count, owned, log_n, cap)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    out = (torch.full_like(want[0], -3), torch.ones_like(want[1]))
+    ref_out = (out[0].clone(), out[1].clone())
+    S.chunk_rmat(key, kind, params, fparams, count, owned, log_n, cap, out=out)
+    chunk_rmat_ref(key, kind, params, fparams, count, owned, log_n, cap, out=ref_out)
+    assert torch.equal(out[0], ref_out[0]) and torch.equal(out[1], ref_out[1])
+
+
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("R,cap", [(1, 1), (37, 300), (200, 4096)], ids=str)
+def test_chunk_ba_mixed_rows_match_plain(cuda, d, R, cap):
+    key, kind, params, _, count, owned = chunk_rows(R, cap, d, 3 * R + d, cuda)
+    steps, ref_steps = (torch.zeros(2, dtype=torch.int64, device=cuda) for _ in range(2))
+    before = build.LAUNCHES["chunk_ba"]
+    got = S.chunk_ba(key, kind, params, count, owned, cap, steps=steps)
+    assert build.LAUNCHES["chunk_ba"] == before + 1
+    want = chunk_ba_ref(key, kind, params, count, owned, cap, steps=ref_steps)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(steps, ref_steps)
+    assert (int(steps[0]) > 0) == bool((kind == 5).any())        # KIND_BA rows walk chains
+    out = (torch.full_like(want[0], -3), torch.ones_like(want[1]))
+    ref_out = (out[0].clone(), out[1].clone())
+    S.chunk_ba(key, kind, params, count, owned, cap, out=out)
+    chunk_ba_ref(key, kind, params, count, owned, cap, out=ref_out)
+    assert torch.equal(out[0], ref_out[0]) and torch.equal(out[1], ref_out[1])
+
+
+@pytest.mark.parametrize("S_,NB,N,batch", [(1, 1, 1000, 0), (5, 1, 4096, 4), (64, 8192, 200000, 0),
+                                           (64, 8192, 200000, 32), (1024, 64, 50000, 0),
+                                           (3, 40000, 30000, 0)], ids=str)
+def test_close_wedges_matches_plain(cuda, S_, NB, N, batch):
+    """Both mask forms, all-sentinel rows, rows past shared memory
+    (40000 neighbours, searched in global memory)."""
+    edges, mask, nb = wedge_inputs(S_, NB, N, S_ + NB, cuda, batch=batch)
+    flat, fmask = edges.reshape(-1, 2), mask.reshape(-1)
+    before = build.LAUNCHES["close_wedges"]
+    got = W.close_wedges(flat, nb, mask=fmask)
+    assert build.LAUNCHES["close_wedges"] == before + 1
+    assert torch.equal(got, close_wedges_ref(flat, nb, mask=fmask))
+    for k in (0, N // 3, N):
+        assert torch.equal(W.close_wedges(flat, nb, count=k), close_wedges_ref(flat, nb, count=k))
+    empty = torch.full_like(nb, 1 << 62)
+    assert not W.close_wedges(flat, empty, mask=fmask).any()
+
+
+@pytest.mark.parametrize("spec", [api.BA(n=3000, d=4, seed=1),
+                                  api.RMAT(log_n=14, m=30000, seed=2),
+                                  api.SBM(n=4000, blocks=5, p_in=0.01, p_out=0.001, seed=3)],
+                         ids=["BA", "RMAT", "SBM"])
+def test_family_generate_and_collect_on_the_card_equal_cpu(cuda, spec):
+    for P in (1, 3):
+        assert torch.equal(api.generate(spec, P, device=cuda).edges.cpu(),
+                           api.generate(spec, P, device="cpu").edges)
+    if not spec.directed:
+        a = api.collect(spec, 3, metrics=("degree", "clustering"), device=cuda)
+        b = api.collect(spec, 3, metrics=("degree", "clustering"), device="cpu")
+        for f in ("sample", "degree", "triangles", "wedges", "valid"):
+            assert np.array_equal(getattr(a.clustering, f), getattr(b.clustering, f)), f

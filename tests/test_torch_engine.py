@@ -95,10 +95,15 @@ def test_stream_regrouped_by_pe_equals_run(batch, prefetch):
 
 
 def test_unported_kinds_raise():
+    """Every kind of the reference has a program now (R-MAT and BA rows:
+    tests/test_torch_families.py); a code that is no kind raises."""
     ref = SPECS["directed"].plan(1)
     tables = {f: getattr(ref, f).copy() for f in FIELDS}
     tables["kind"][0, 0] = jeng.KIND_RMAT
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert teng.chunk_plan_from_arrays(tables, ref.n, ref.capacity).kinds_present == (
+        teng.KIND_DIRECTED, teng.KIND_RMAT)
+    tables["kind"][0, 0] = 9
+    with pytest.raises(ValueError, match="unknown chunk kinds"):
         teng.chunk_plan_from_arrays(tables, ref.n, ref.capacity).slot_fn()
 
 

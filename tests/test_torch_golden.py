@@ -5,7 +5,8 @@ CPU, SHA-256 digests of ``generate(spec, P).edges`` and the exact degree
 statistics of one ``collect``; ``geom.json`` the RGG and RHG edge
 digests, ``iter_points`` digests and a sample of RHG features;
 ``rdg.json`` the RDG edge, plan-table and point digests and each spec's
-planning path.  The JAX
+planning path; ``families.json`` the BA, R-MAT and SBM edge digests and
+two sampled clustering reports.  The JAX
 package must still reproduce every entry except the mid-size ones (the
 command is in the files), and the port on the CPU must reproduce the
 small ones.  Digests, integers and the port's RHG features are compared
@@ -30,6 +31,8 @@ GEOM = json.loads(torch_golden.GEOM.read_text())
 GEOM_SMALL = [e for e in GEOM["generate"] if e["size"] == "small"]
 RDG = json.loads(torch_golden.RDG.read_text())
 RDG_SMALL = [e for e in RDG["generate"] if e["size"] == "small"]
+FAM = json.loads(torch_golden.FAMILIES.read_text())
+FAM_SMALL = [e for e in FAM["generate"] if e["size"] == "small"]
 
 
 def _id(e):
@@ -164,3 +167,37 @@ def test_reference_reproduces_rdg_entry(entry):
 @pytest.mark.parametrize("entry", RDG_SMALL, ids=lambda e: f"P{e['P']}")
 def test_port_reproduces_rdg_entry_on_cpu(entry):
     assert port_rdg_entry(entry["family"], entry["params"], entry["P"], "small") == entry
+
+
+def _fam_spec(api, e):
+    p = e["params"]
+    return getattr(api, e["family"])(**(dict(p, probs=tuple(p["probs"])) if "probs" in p else p))
+
+
+def test_the_families_file_names_its_command_and_entries():
+    assert FAM["command"] == torch_golden.COMMAND
+    assert [(e["family"], e["params"], e["P"]) for e in FAM_SMALL] == [
+        (f, p, P) for f, p in torch_golden.FAM_SMALL for P in torch_golden.FAM_PES]
+    mid = [e for e in FAM["generate"] if e["size"] == "mid"]
+    assert [(e["family"], e["params"]) for e in mid] == torch_golden.FAM_MID
+    assert [(e["family"], e["params"], e["P"]) for e in FAM["clustering"]] == [
+        (f, p, torch_golden.CLUSTER_P) for f, p in torch_golden.CLUSTER]
+
+
+@pytest.mark.parametrize("entry", FAM_SMALL, ids=lambda e: f"{e['family']}-P{e['P']}")
+def test_reference_and_port_reproduce_family_digest(entry):
+    assert torch_golden.family_entry(entry["family"], entry["params"], entry["P"],
+                                     "small") == entry
+    edges = tapi.generate(_fam_spec(tapi, entry), entry["P"], device="cpu").edges.numpy()
+    assert len(edges) == entry["m"]
+    assert torch_golden.edges_sha256(edges) == entry["sha256"]
+
+
+@pytest.mark.parametrize("entry", FAM["clustering"], ids=lambda e: e["family"])
+def test_reference_and_port_reproduce_clustering(entry):
+    assert torch_golden.cluster_entry(entry["family"], entry["params"], entry["P"]) == entry
+    rep = tapi.collect(getattr(tapi, entry["family"])(**entry["params"]), entry["P"],
+                       metrics=("degree", "clustering"), device="cpu")
+    assert rep.num_edges == entry["num_edges"]
+    for f in torch_golden.CLUSTER_FIELDS:
+        assert [int(x) for x in getattr(rep.clustering, f)] == entry[f], f

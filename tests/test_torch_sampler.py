@@ -67,8 +67,17 @@ def test_sample_rows_is_per_row():
 
 
 def test_gumbel_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tsamp.sample_wo_replacement(np.zeros(2, np.uint32), 100, 5, 64, method="gumbel")
+    """The Gumbel sampler is ported now (its parity tests are in
+    tests/test_torch_families.py): one row equals the reference's, and
+    a count past what it holds or an unknown method raises."""
+    kd = np.array([7, 11], np.uint32)
+    want = jsamp.sample_wo_replacement(jax.random.wrap_key_data(jnp.asarray(kd)), 100, 5, 64,
+                                       method="gumbel")
+    got = tsamp.sample_wo_replacement(kd, 100, 5, 64, method="gumbel")
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(ValueError, match="gumbel"):
+        tsamp.sample_wo_replacement(kd, 100, 65, 64, method="gumbel")
     with pytest.raises(ValueError):
         tsamp.sample_wo_replacement(np.zeros(2, np.uint32), 100, 5, 64, method="nope")
 

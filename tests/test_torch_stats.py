@@ -67,9 +67,13 @@ def test_binned_mode_matches_reference():
 
 
 def test_unsupported_metrics_raise():
+    """Clustering is ported (tests/test_torch_clustering.py) and refused,
+    as in the reference, for directed families; unknown metrics and
+    modes raise."""
     spec = tapi.GNP(n=100, p=0.1, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstats.collect(spec, 1, metrics=("degree", "clustering"), device="cpu")
+    with pytest.raises(ValueError, match="undirected"):
+        tstats.collect(tapi.GNP(n=100, p=0.1, directed=True, seed=1), 1,
+                       metrics=("degree", "clustering"), device="cpu")
     with pytest.raises(ValueError):
         tstats.collect(spec, 1, metrics=("nope",), device="cpu")
     with pytest.raises(ValueError):

@@ -23,7 +23,12 @@ and, into ``src/repro_torch/golden/rdg.json``:
   (``spec.plan(P)``) and of ``generate(..., return_points=True).points``,
   and the path the spec's planning takes: the batched triangulation's
   halo rounds, the rows of each round that came back ``ok``, and the
-  chunks that ran Qhull because their region wraps the torus.
+  chunks that ran Qhull because their region wraps the torus;
+and, into ``src/repro_torch/golden/families.json``:
+* edge digests of small BA, R-MAT and SBM specs at P in {1, 3} and of
+  one mid-size spec of each at P = 1;
+* the sampled clustering reports of ``collect(..., metrics=("degree",
+  "clustering"))`` for a G(n, p) and a small RHG.
 
 Run from the root of the repository (the mid-size specs take about a
 minute of CPU)::
@@ -44,6 +49,7 @@ import numpy as np
 GOLDEN = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "golden" / "er.json"
 GEOM = GOLDEN.with_name("geom.json")
 RDG = GOLDEN.with_name("rdg.json")
+FAMILIES = GOLDEN.with_name("families.json")
 COMMAND = "PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py"
 
 SMALL = [
@@ -66,6 +72,23 @@ GEOM_MID = ("RGG", dict(n=1 << 16, radius=0.55 * (np.log(1 << 16) / (1 << 16)) *
                         dim=2, seed=4))
 RDG_SMALL = ("RDG", dict(n=1 << 13, dim=2, seed=21))
 RDG_MID = ("RDG", dict(n=1 << 13, dim=3, seed=22))
+FAM_SMALL = [
+    ("BA", dict(n=1 << 10, d=4, seed=31)),
+    ("RMAT", dict(log_n=12, m=1 << 14, probs=[0.57, 0.19, 0.19, 0.05], seed=32)),
+    ("SBM", dict(n=1 << 11, blocks=8, p_in=0.02, p_out=0.001, seed=33)),
+]
+FAM_PES = (1, 3)
+FAM_MID = [
+    ("BA", dict(n=1 << 16, d=8, seed=9)),
+    ("RMAT", dict(log_n=18, m=1 << 22, probs=[0.57, 0.19, 0.19, 0.05], seed=8)),
+    ("SBM", dict(n=1 << 16, blocks=16, p_in=2.0 ** -9, p_out=2.0 ** -13, seed=10)),
+]
+CLUSTER = [
+    ("GNP", dict(n=300, p=0.05, directed=False, seed=9)),
+    ("RHG", dict(n=1 << 11, avg_deg=8.0, gamma=2.6, seed=23)),
+]
+CLUSTER_P = 2
+CLUSTER_FIELDS = ("sample", "degree", "triangles", "wedges", "valid")
 PAIR_FIELDS = ("kind", "key_a", "key_b", "count_a", "count_b", "gid_a", "gid_b",
                "geom_a", "geom_b", "fparams", "self_pair", "active")
 POINTS_P = 3
@@ -220,6 +243,35 @@ def rdg_doc() -> dict:
             "generate": entries}
 
 
+def family_entry(family: str, params: dict, P: int, size: str) -> dict:
+    """:func:`generate_entry` with ``probs`` as the tuple the spec takes."""
+    from repro import api
+
+    kw = dict(params, probs=tuple(params["probs"])) if "probs" in params else params
+    edges = api.generate(getattr(api, family)(**kw), P).edges
+    return {"family": family, "params": params, "P": P, "size": size,
+            "m": int(len(edges)), "sha256": edges_sha256(edges)}
+
+
+def cluster_entry(family: str, params: dict, P: int) -> dict:
+    """The clustering report of ``collect`` at the default sample."""
+    from repro import api, stats
+
+    rep = stats.collect(getattr(api, family)(**params), P, metrics=("degree", "clustering"))
+    c = rep.clustering
+    return {"family": family, "params": params, "P": P, "num_edges": int(rep.num_edges),
+            **{f: [int(x) for x in getattr(c, f)] for f in CLUSTER_FIELDS}}
+
+
+def families_doc() -> dict:
+    entries = [family_entry(f, p, P, "small") for f, p in FAM_SMALL for P in FAM_PES]
+    entries += [family_entry(f, p, 1, "mid") for f, p in FAM_MID]
+    return {"command": COMMAND,
+            "digest": "sha256 of edges as little-endian int64 [m, 2], C order",
+            "generate": entries,
+            "clustering": [cluster_entry(f, p, CLUSTER_P) for f, p in CLUSTER]}
+
+
 def main() -> None:
     entries = [generate_entry(f, p, P, "small") for f, p in SMALL for P in SMALL_PES]
     entries.append(generate_entry(*MID, 1, "mid"))
@@ -233,6 +285,8 @@ def main() -> None:
     print(f"wrote {GEOM}")
     RDG.write_text(json.dumps(rdg_doc(), indent=1) + "\n")
     print(f"wrote {RDG}")
+    FAMILIES.write_text(json.dumps(families_doc(), indent=1) + "\n")
+    print(f"wrote {FAMILIES}")
 
 
 if __name__ == "__main__":
