@@ -5,11 +5,12 @@ The collision sampler draws one 64-bit word per slot, takes it modulo
 the universe, sorts, and redraws the values that repeat their sorted
 predecessor until none repeats (at most 63 redraw rounds, then it
 returns as the reference does).  :func:`sample_rows` runs it over a
-batch of ``R`` chunk rows at once: each round is one ``chunk_draw``
-kernel launch over ``[R, capacity]`` plus one ``torch.sort`` along the
-rows, and finished rows are left alone, which is what the reference's
-vmapped ``while_loop`` does row by row.  The duplicate flag is read on
-the host once per round (one synchronisation per round).
+batch of ``R`` chunk rows at once through ``chunk_sample``: on the card
+one call of the hand-written sampler (draws, a sort by value ranges and
+the redraw rounds, no ``torch.sort`` and no read on the host); on the
+CPU its plain version, ``chunk_draw`` rounds and ``torch.sort``.
+Finished rows are left alone, which is what the reference's vmapped
+``while_loop`` does row by row.
 
 Slot ``i``'s draw depends only on ``(key, round, i)``, never on the
 capacity, so two PEs padding the same chunk differently recompute the
@@ -24,13 +25,11 @@ from __future__ import annotations
 import torch
 
 from ..kernels.geom.libm import glibc_log_any
-from ..kernels.sampler.ops import chunk_draw
+from ..kernels.sampler.ops import chunk_sample
 from ..kernels.sampler.ref import decode_directed, decode_rect, decode_tri  # noqa: F401
 from .prng import key_words, uniform64
 
 _TINY = 2.2250738585072014e-308     # float64's smallest normal, jnp.finfo(f64).tiny
-
-MAX_FIX_ROUNDS = 64
 
 
 def round_up_capacity(x: int, mult: int = 64) -> int:
@@ -46,20 +45,14 @@ def key_bits32(key) -> torch.Tensor:
 
 
 def sample_rows(key: torch.Tensor, universe: torch.Tensor, count: torch.Tensor,
-                capacity: int) -> torch.Tensor:
+                capacity: int, rounds=None) -> torch.Tensor:
     """Sorted int64 ``[R, capacity]``: per row, ``count`` distinct values
     in ``[0, universe)`` followed by the sentinels ``universe + i``.
 
     ``key`` int32 ``[R, 2]``, ``universe`` and ``count`` int64 ``[R]``,
-    all on the device the sampler runs on."""
-    s = torch.sort(chunk_draw(key, universe, count, 0, capacity), dim=-1).values
-    for t in range(1, MAX_FIX_ROUNDS):
-        active = (s[:, 1:] == s[:, :-1]).any(dim=1)
-        if not bool(active.any()):
-            break
-        s = torch.sort(chunk_draw(key, universe, count, t, capacity, s, active),
-                       dim=-1).values
-    return s
+    all on the device the sampler runs on; ``rounds`` (int32 ``[R]``),
+    when given, takes each row's redraw rounds."""
+    return chunk_sample(key, universe, count, capacity, rounds)
 
 
 def _sample_collision(key, universe: int, count: int, capacity: int):

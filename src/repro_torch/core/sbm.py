@@ -6,7 +6,7 @@ sections; pairs inside a block appear with ``p_in``, pairs across blocks
 with ``p_out``.  Every block region (i, j), i >= j, is an independent
 Bernoulli region whose edge count is a hash-seeded Binomial, and whose
 edges are a without-replacement sample of its universe: a TRI chunk on
-the diagonal, a RECT chunk off it, so ``chunk_draw`` and ``chunk_decode``
+the diagonal, a RECT chunk off it, so ``chunk_sample`` and ``chunk_decode``
 run them unchanged.
 
 As in the undirected ER cross, region (i, j) is generated on PE i % P

@@ -16,8 +16,8 @@ concatenated output is exactly the global edge set.
 
 Where the reference ``vmap``s a per-chunk function over the table, the
 port's :func:`_edge_chunk_fn` is one batched function over ``[R]`` chunk
-rows: the sampler runs every sampled row at once (``chunk_draw`` +
-``torch.sort`` rounds), then ``chunk_decode`` decodes every slot and
+rows: the sampler runs every sampled row at once (one ``chunk_sample``
+call: draws, sort and redraw rounds), then ``chunk_decode`` decodes every slot and
 writes the keep mask; ``chunk_rmat`` and ``chunk_ba`` write the R-MAT and
 BA rows.  Likewise :func:`_point_cell_fn` is one ``cell_points`` launch and
 :func:`_pair_fn` one ``pair_edges`` launch over ``[R]`` table rows.

@@ -38,6 +38,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: with explicit ``fma``, and nowhere else.
 SOURCES: Dict[str, tuple] = {
     "sampler": ("sampler/csrc/sampler.cu", ["-fmad=false"]),
+    "collision": ("sampler/csrc/collision.cu", []),
     "hist": ("hist/csrc/hist.cu", []),
     "pairmask": ("pairmask/csrc/pairmask.cu", ["-fmad=false"]),
     "geom": ("geom/csrc/geom.cu", ["-fmad=false"]),
@@ -45,7 +46,7 @@ SOURCES: Dict[str, tuple] = {
     "wedges": ("wedges/csrc/wedges.cu", []),
 }
 
-LAUNCHES: Dict[str, int] = {"chunk_draw": 0, "chunk_decode": 0, "hist": 0,
+LAUNCHES: Dict[str, int] = {"chunk_sample": 0, "chunk_decode": 0, "hist": 0,
                             "pair_mask": 0, "pair_edges": 0, "cell_points": 0,
                             "triangulate": 0, "circumspheres": 0,
                             "chunk_rmat": 0, "chunk_ba": 0, "close_wedges": 0}

@@ -1,22 +1,12 @@
 // Chunk kernels of the engine's edge program, one launch over every row of
-// a [R, cap] batch: the sampler for the sampled kinds (DIRECTED / TRI /
-// RECT), and the per-edge programs of R-MAT and BA rows.
+// a [R, cap] batch: the decode of the sampled kinds (DIRECTED / TRI /
+// RECT; collision.cu draws and sorts them), and the per-edge programs of
+// R-MAT and BA rows.
 //
-// chunk_draw replaces the draw of repro/core/sampling.py::_sample_collision
-// (lines 110-113) over repro/core/prng.py::counter_bits64 (line 129), in its
-// first round and in its duplicate-redraw rounds (lines 125-130).
 // chunk_decode replaces decode_directed / decode_tri / decode_rect
 // (repro/core/sampling.py:155-184) and the keep mask of
 // repro/distrib/engine.py::_edge_chunk_fn (lines 404-424, 468).  XLA lowers
 // that reference path from jnp; it reaches no Pallas kernel.
-//
-// What bounds them on an H100, and what the design does about it:
-// * chunk_draw does three Threefry-2x32 (20 rounds each) and one 64-bit
-//   modulo per slot, some 300 integer instructions, against 8 bytes
-//   written: it is bound by integer issue, not by memory.  One thread per
-//   slot, no shared state but the row's round key, which thread 0 of each
-//   block derives once; redraw rounds skip the Threefry work on every slot
-//   that is not a duplicate and only copy it.
 // * chunk_decode reads 8 bytes and writes 17 per slot with a handful of
 //   integer operations (one f64 sqrt on TRI rows): it is bound by memory.
 //   Edges are stored as one 16-byte longlong2 per slot, so a warp writes
@@ -33,13 +23,18 @@
 //   integer issue (about 65 ms of Threefry for RMAT(26, 2^30) at the int32
 //   peak of 128 lanes a SM, against 5.4 ms of stores).  Rows of other kinds are skipped, or
 //   written as (0, 0) and not kept when the launch fills the output.
-// * chunk_ba: one thread per edge slot walks its position chain; a step is
-//   fold_in64, a split and two 64-bit words (6 blocks) and four unsigned
-//   64-bit remainders.  Chains are short (O(log) w.h.p.) but a warp waits
-//   for its longest one; the launch can count the steps it took and the
-//   steps its warps issued (32 times each warp's longest chain; a warp
-//   sum and max, two atomics a warp), so the bound and the cost of the
-//   waiting are read from the run.
+// * chunk_ba: a step of a position chain is fold_in64, a split and two
+//   64-bit words (6 Threefry blocks) and five remainders by the same
+//   span, which share one reciprocal (threefry.cuh's Mod64).  Chains are
+//   short (about 2 steps) but their lengths vary, so lanes are kept on
+//   chains: a warp owns a batch of 1024 consecutive slots, each lane walks
+//   one chain, and a lane whose chain ends stores that slot's edge and
+//   takes the batch's next slot (ranked within the warp by a ballot, no
+//   atomics); the warp stops when the batch is drained.  Stores leave lane
+//   order but stay within the batch's 16 KB window.  The launch can count
+//   the steps its lanes walked and the steps its warps issued (32 times
+//   each warp's loop trips; one warp sum, two atomics a warp), so the
+//   bound and the cost of the waiting are read from the run.
 //
 // Exactness: the draws are JAX's bits (threefry.cuh), and the TRI decode
 // keeps the reference's f64 estimate and its three int64 fix-up steps.
@@ -57,39 +52,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kKindEmpty = 0, kKindDirected = 1, kKindTri = 2, kKindRect = 3;
 constexpr int kKindRmat = 4, kKindBa = 5;
-
-__global__ void chunk_draw_kernel(const uint32_t* __restrict__ key,
-                                  const int64_t* __restrict__ universe,
-                                  const int64_t* __restrict__ count,
-                                  uint32_t t, int64_t capacity,
-                                  int64_t blocks_per_row,
-                                  const int64_t* __restrict__ sorted_in,
-                                  const bool* __restrict__ active,
-                                  int64_t* __restrict__ out) {
-  const int64_t r = blockIdx.x / blocks_per_row;
-  const int64_t i = (blockIdx.x % blocks_per_row) * kThreads + threadIdx.x;
-  __shared__ Key2x32 round_key;
-  if (threadIdx.x == 0) round_key = tf_fold_in(Key2x32{key[2 * r], key[2 * r + 1]}, t);
-  __syncthreads();
-  if (i >= capacity) return;
-  const int64_t at = r * capacity + i;
-  if (sorted_in != nullptr) {
-    // redraw by sorted position: only a value equal to its predecessor
-    // takes a fresh draw, finished rows stay as they are
-    const int64_t s = sorted_in[at];
-    if (!active[r] || i == 0 || s != sorted_in[at - 1]) {
-      out[at] = s;
-      return;
-    }
-  }
-  const int64_t u = universe[r];
-  if (i < count[r]) {
-    const uint64_t m = u > 1 ? (uint64_t)u : 1ull;
-    out[at] = (int64_t)(tf_bits64(round_key, (uint32_t)i) % m);
-  } else {
-    out[at] = u + i;  // sentinel: unique and out of range
-  }
-}
 
 // k (k - 1) / 2 with int64 wraparound, floor division by 2
 __device__ __forceinline__ int64_t tri(int64_t k) {
@@ -167,45 +129,67 @@ __global__ void chunk_rmat_kernel(const uint32_t* __restrict__ key,
   keep[at] = i < count[r] && owned[r];
 }
 
+constexpr int kBaBatch = 1024;   // slots a warp of chunk_ba owns
+
 __global__ void chunk_ba_kernel(const uint32_t* __restrict__ key,
                                 const int32_t* __restrict__ kind,
                                 const int64_t* __restrict__ params,
                                 const int64_t* __restrict__ count,
-                                const bool* __restrict__ owned, int64_t capacity,
-                                int64_t blocks_per_row, bool fill,
+                                const bool* __restrict__ owned, int64_t rows, int64_t capacity,
+                                int64_t batches_per_row, bool fill,
                                 longlong2* __restrict__ edges, bool* __restrict__ keep,
                                 unsigned long long* __restrict__ steps) {
-  const int64_t r = blockIdx.x / blocks_per_row;
-  const int64_t i = (blockIdx.x % blocks_per_row) * kThreads + threadIdx.x;
-  const int64_t at = r * capacity + i;
-  const bool mine = i < capacity && kind[r] == kKindBa;
-  unsigned long long walked = 0;
-  if (mine) {
-    const Key2x32 k{key[2 * r], key[2 * r + 1]};
-    const int64_t p0 = params[3 * r];
-    const int64_t d = p0 > 1 ? p0 : 1;
-    const int64_t eid = params[3 * r + 1] + i;
-    int64_t pos = 2 * eid + 1;
-    while (pos & 1) {   // Batagelj-Brandes: an odd position copies an earlier one
+  const int64_t warp = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= rows * batches_per_row) return;     // whole warps
+  const int64_t r = warp / batches_per_row;
+  const int64_t b0 = (warp % batches_per_row) * kBaBatch;
+  const int len = (int)(capacity - b0 < kBaBatch ? capacity - b0 : kBaBatch);
+  const int64_t at = r * capacity + b0;
+  if (kind[r] != kKindBa) {
+    if (fill)
+      for (int i = lane; i < len; i += 32) {
+        edges[at + i] = make_longlong2(0, 0);
+        keep[at + i] = false;
+      }
+    return;
+  }
+  const Key2x32 k{key[2 * r], key[2 * r + 1]};
+  const int64_t p0 = params[3 * r];
+  const Mod64 d = mod64_init(p0 > 1 ? (uint64_t)p0 : 1ull);
+  const int64_t e0 = params[3 * r + 1] + b0;   // edge id of the batch's slot 0
+  const int64_t counted = count[r] - b0;
+  const bool own = owned[r];
+  unsigned walked = 0, trips = 0;
+  int i = lane, next = 32;                     // batch slot of this lane, next slot to take
+  bool live = i < len;
+  int64_t pos = live ? 2 * (e0 + i) + 1 : 0;
+  while (__any_sync(0xffffffffu, live)) {
+    ++trips;
+    bool done = false;
+    if (live) {   // Batagelj-Brandes: an odd position copies an earlier one
       pos = tf_randint64(tf_fold_in64(k, pos), 0, pos);
       ++walked;
+      if (!(pos & 1)) {
+        edges[at + i] = make_longlong2((int64_t)div64((uint64_t)(e0 + i), d),
+                                       (int64_t)div64((uint64_t)(pos >> 1), d));
+        keep[at + i] = i < counted && own;
+        done = true;
+      }
     }
-    edges[at] = make_longlong2(eid / d, (pos / 2) / d);
-    keep[at] = i < count[r] && owned[r];
-  } else if (fill && i < capacity) {
-    edges[at] = make_longlong2(0, 0);
-    keep[at] = false;
+    const unsigned ended = __ballot_sync(0xffffffffu, done);
+    if (done) {   // take the batch's next slots, in lane order
+      i = next + __popc(ended & ((1u << lane) - 1u));
+      live = i < len;
+      if (live) pos = 2 * (e0 + i) + 1;
+    }
+    next += __popc(ended);
   }
-  if (steps != nullptr) {   // every thread of the block reaches the sums
-    unsigned long long longest = walked;
-    for (int o = 16; o > 0; o >>= 1) {
-      walked += __shfl_down_sync(0xffffffffu, walked, o);
-      const unsigned long long other = __shfl_down_sync(0xffffffffu, longest, o);
-      longest = other > longest ? other : longest;
-    }
-    if ((threadIdx.x & 31) == 0 && walked) {
-      atomicAdd(steps, walked);
-      atomicAdd(steps + 1, 32 * longest);   // the steps the warp issued
+  if (steps != nullptr) {
+    const unsigned total = __reduce_add_sync(0xffffffffu, walked);
+    if (lane == 0 && total) {
+      atomicAdd(steps, (unsigned long long)total);
+      atomicAdd(steps + 1, 32ull * trips);   // the steps the warp issued
     }
   }
 }
@@ -220,24 +204,6 @@ int grid_for(long long rows, long long capacity, long long* blocks_per_row,
 }
 
 }  // namespace
-
-// key uint32 [R, 2]; universe, count int64 [R]; out int64 [R, capacity].
-// Redraw mode: sorted_in int64 [R, capacity] and active bool [R], both
-// non-null.  Returns the launch's cudaError_t.
-extern "C" int chunk_draw(const void* key, const void* universe, const void* count,
-                          long long t, long long rows, long long capacity,
-                          const void* sorted_in, const void* active, void* out,
-                          void* stream) {
-  if (rows == 0 || capacity == 0) return 0;
-  long long bpr;
-  unsigned grid;
-  if (int err = grid_for(rows, capacity, &bpr, &grid)) return err;
-  chunk_draw_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)key, (const int64_t*)universe, (const int64_t*)count,
-      (uint32_t)t, capacity, bpr, (const int64_t*)sorted_in, (const bool*)active,
-      (int64_t*)out);
-  return (int)cudaGetLastError();
-}
 
 // vals int64 [R, capacity]; kind int32 [R]; params int64 [R, 3];
 // count int64 [R]; owned bool [R]; edges int64 [R, capacity, 2];
@@ -277,19 +243,20 @@ extern "C" int chunk_rmat(const void* key, const void* kind, const void* params,
 }
 
 // As chunk_rmat, for BA rows (params p0 = d, p1 = first edge id); steps,
-// when not null, is a uint64 [2] the launch adds into: its chain steps,
-// and 32 times the longest chain of each warp.
+// when not null, is a uint64 [2] the launch adds into: the chain steps its
+// lanes walked, and 32 times the loop trips of each warp (the steps it
+// issued).
 extern "C" int chunk_ba(const void* key, const void* kind, const void* params,
                         const void* count, const void* owned, long long rows,
                         long long capacity, int fill, void* edges, void* keep,
                         void* steps, void* stream) {
   if (rows == 0 || capacity == 0) return 0;
-  long long bpr;
-  unsigned grid;
-  if (int err = grid_for(rows, capacity, &bpr, &grid)) return err;
-  chunk_ba_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const long long batches = (capacity + kBaBatch - 1) / kBaBatch;
+  const long long blocks = (rows * batches * 32 + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  chunk_ba_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)key, (const int32_t*)kind, (const int64_t*)params,
-      (const int64_t*)count, (const bool*)owned, capacity, bpr, fill != 0,
+      (const int64_t*)count, (const bool*)owned, rows, capacity, batches, fill != 0,
       (longlong2*)edges, (bool*)keep, (unsigned long long*)steps);
   return (int)cudaGetLastError();
 }

@@ -76,16 +76,47 @@ __device__ __forceinline__ double tf_uniform64(Key2x32 k, uint64_t i) {
   return __longlong_as_double((long long)w) - 1.0;
 }
 
+// x mod d and x / d for one divisor by an exact 64-bit reciprocal:
+// inv = floor((2^64 - 1) / d), so umulhi(x, inv) undershoots x / d by at
+// most 2 and two conditional subtractions finish the remainder (d >= 1;
+// the plain twin is repro_torch.kernels.sampler.ref.barrett_mod64).  One
+// 64-bit division makes the reciprocal; every reduction after it is a
+// high multiply, a multiply and two compares.
+struct Mod64 {
+  uint64_t d, inv;
+};
+
+__device__ __forceinline__ Mod64 mod64_init(uint64_t d) { return Mod64{d, ~0ull / d}; }
+
+__device__ __forceinline__ uint64_t mod64(uint64_t x, Mod64 m) {
+  uint64_t r = x - __umul64hi(x, m.inv) * m.d;
+  if (r >= m.d) r -= m.d;
+  if (r >= m.d) r -= m.d;
+  return r;
+}
+
+__device__ __forceinline__ uint64_t div64(uint64_t x, Mod64 m) {
+  uint64_t q = __umul64hi(x, m.inv);
+  uint64_t r = x - q * m.d;
+  if (r >= m.d) {
+    ++q;
+    r -= m.d;
+  }
+  if (r >= m.d) ++q;
+  return q;
+}
+
 // jax.random.randint(k, (), minval, maxval, int64): split into two
 // subkeys, a high and a low 64-bit word, reduced by span with the
 // multiplier (2^32 mod span)^2 mod span, all unsigned and wrapping
-// mod 2^64 (jax/_src/random.py::_randint)
+// mod 2^64 (jax/_src/random.py::_randint).  The five remainders share
+// one divisor, so they share one reciprocal.
 __device__ __forceinline__ int64_t tf_randint64(Key2x32 k, int64_t minval, int64_t maxval) {
   const uint64_t hi = tf_random_bits64(threefry2x32(k, 0u, 0u), 0);
   const uint64_t lo = tf_random_bits64(threefry2x32(k, 0u, 1u), 0);
-  const uint64_t span = maxval <= minval ? 1ull : (uint64_t)maxval - (uint64_t)minval;
-  uint64_t mult = (1ull << 32) % span;
-  mult = (mult * mult) % span;
-  const uint64_t off = ((hi % span) * mult + lo % span) % span;
+  const Mod64 span = mod64_init(maxval <= minval ? 1ull : (uint64_t)maxval - (uint64_t)minval);
+  uint64_t mult = mod64(1ull << 32, span);
+  mult = mod64(mult * mult, span);
+  const uint64_t off = mod64(mod64(hi, span) * mult + mod64(lo, span), span);
   return (int64_t)((uint64_t)minval + off);
 }

@@ -1,4 +1,5 @@
-"""Wrappers of the chunk sampler kernels (``csrc/sampler.cu``).
+"""Wrappers of the chunk sampler kernels (``csrc/collision.cu``,
+``csrc/sampler.cu``).
 
 For tensors on the CPU each wrapper computes its plain version
 (:mod:`.ref`); for CUDA tensors it launches its kernel on the current
@@ -13,12 +14,14 @@ from typing import Optional
 import torch
 
 from .. import build
-from .ref import chunk_ba_ref, chunk_decode_ref, chunk_draw_ref, chunk_rmat_ref
+from .ref import (BUCKET_CAP, LIST_CAP, buckets_per_row, chunk_ba_ref, chunk_decode_ref,
+                  chunk_rmat_ref, sample_rows_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
+_C = ctypes.c_int
+_COLLISION = {"chunk_sample": [_P, _P, _P, _I, _I, _C, _C, _C, _P, _P, _P, _P, _P]}
 _SIGNATURES = {
-    "chunk_draw": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "chunk_decode": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "chunk_rmat": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _I, _I, ctypes.c_int, _P, _P, _P],
     "chunk_ba": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_int, _P, _P, _P, _P],
@@ -29,34 +32,46 @@ def _lib():
     return build.library("sampler", _SIGNATURES)
 
 
-def chunk_draw(key: torch.Tensor, universe: torch.Tensor, count: torch.Tensor,
-               t: int, capacity: int,
-               sorted_vals: Optional[torch.Tensor] = None,
-               active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """int64 ``[R, capacity]`` draws of round ``t`` (see
-    :func:`.ref.chunk_draw_ref`).  ``key`` is int32 ``[R, 2]`` (the
-    uint32 key words' bit pattern), ``universe`` and ``count`` int64
-    ``[R]``; redraw mode takes the sorted values and a bool ``[R]``
-    active flag and leaves inactive rows as they are."""
+def chunk_sample(key: torch.Tensor, universe: torch.Tensor, count: torch.Tensor,
+                 capacity: int, rounds: Optional[torch.Tensor] = None, *,
+                 bucket_cap: int = BUCKET_CAP, list_cap: int = LIST_CAP) -> torch.Tensor:
+    """Sorted int64 ``[R, capacity]``: the collision sampler over ``R``
+    rows (see :func:`.ref.sample_rows_ref`), draws, sort and redraw
+    rounds in one call that reads nothing back on the host.  ``key`` is
+    int32 ``[R, 2]`` (the uint32 key words' bit pattern), ``universe``
+    (``>= 0``) and ``count`` int64 ``[R]``; ``rounds`` (int32 ``[R]``),
+    when given, takes each row's redraw rounds.  ``bucket_cap`` (1..8192)
+    and ``list_cap`` (0..1024) bound the buckets the kernel sorts in
+    shared memory and the duplicate positions it lists a row: smaller
+    values send rows through its paths for large buckets and many
+    duplicates (the tests do), with the same result."""
     if key.device.type == "cpu":
-        return chunk_draw_ref(key, universe, count, t, capacity, sorted_vals, active)
+        return sample_rows_ref(key, universe, count, capacity, rounds)
     R, dev = key.shape[0], key.device
     build.check_arg(key, "key", torch.int32, (R, 2), dev)
     build.check_arg(universe, "universe", torch.int64, (R,), dev)
     build.check_arg(count, "count", torch.int64, (R,), dev)
-    if (sorted_vals is None) != (active is None):
-        raise ValueError("redraw mode needs both sorted_vals and active")
-    if sorted_vals is not None:
-        build.check_arg(sorted_vals, "sorted_vals", torch.int64, (R, capacity), dev)
-        build.check_arg(active, "active", torch.bool, (R,), dev)
+    if rounds is not None:
+        build.check_arg(rounds, "rounds", torch.int32, (R,), dev)
+    if not 0 <= capacity < 2 ** 31:
+        raise ValueError(f"capacity {capacity} outside [0, 2^31)")
+    if not (1 <= bucket_cap <= BUCKET_CAP and 0 <= list_cap <= LIST_CAP):
+        raise ValueError(f"bucket_cap {bucket_cap} or list_cap {list_cap} out of range")
     out = torch.empty((R, capacity), dtype=torch.int64, device=dev)
-    if out.numel():
-        build.check(_lib().chunk_draw(
-            key.data_ptr(), universe.data_ptr(), count.data_ptr(), int(t), R,
-            capacity, None if sorted_vals is None else sorted_vals.data_ptr(),
-            None if active is None else active.data_ptr(), out.data_ptr(),
-            build.stream_arg(dev)), "chunk_draw")
-        build.LAUNCHES["chunk_draw"] += 1
+    if not out.numel():
+        if rounds is not None:
+            rounds.zero_()
+        return out
+    nb_max = buckets_per_row(capacity)
+    scratch = torch.empty_like(out)
+    # bucket counts, duplicate counts and lists, the first round's plan
+    work = torch.zeros(R * (nb_max + 4 * LIST_CAP + 6) + 1 + 2 * R * LIST_CAP,
+                       dtype=torch.int32, device=dev)
+    build.check(build.library("collision", _COLLISION).chunk_sample(
+        key.data_ptr(), universe.data_ptr(), count.data_ptr(), R, capacity, nb_max,
+        bucket_cap, list_cap, out.data_ptr(), scratch.data_ptr(), work.data_ptr(),
+        None if rounds is None else rounds.data_ptr(), build.stream_arg(dev)), "chunk_sample")
+    build.LAUNCHES["chunk_sample"] += 1
     return out
 
 
@@ -133,8 +148,9 @@ def chunk_ba(key: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
              steps: Optional[torch.Tensor] = None):
     """(edges, keep) of the BA rows (see :func:`.ref.chunk_ba_ref`), with
     ``out`` as in :func:`chunk_rmat`.  ``steps``, an int64 ``[2]`` tensor,
-    takes the launch's chain steps and the steps its warps issued when it
-    is given (two atomics a warp)."""
+    takes the launch's chain steps and the steps its warps issued (32 per
+    trip of a warp's loop) when it is given (two atomics a warp).  The
+    plain version adds only the chain steps."""
     if kind.device.type == "cpu":
         return chunk_ba_ref(key, kind, params, count, owned, capacity, out, steps)
     (edges, keep), fill = _check_rows(key, kind, params, count, owned, out, capacity)

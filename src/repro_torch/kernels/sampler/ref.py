@@ -1,12 +1,15 @@
 """Plain PyTorch versions of the sampler kernels (same function, no kernel).
 
-``chunk_draw_ref``, ``chunk_decode_ref``, ``chunk_rmat_ref`` and
-``chunk_ba_ref`` compute exactly what ``csrc/sampler.cu`` computes,
-element for element; the CPU tests hold them against ``repro.core``
-(``sampling``, ``rmat._rmat_edges``, ``ba._resolve_targets``) and
-``chip_smoke.py`` holds the kernels against them on the card.  The
-decodes are the reference's ``decode_directed`` / ``decode_tri`` /
-``decode_rect`` on int64 tensors.
+``sample_rows_ref`` (the collision sampler: ``chunk_draw_ref`` rounds and
+``torch.sort``) computes what ``csrc/collision.cu`` computes;
+``chunk_decode_ref``, ``chunk_rmat_ref`` and ``chunk_ba_ref`` what
+``csrc/sampler.cu`` computes, element for element.  The CPU tests hold
+them against ``repro.core`` (``sampling``, ``rmat._rmat_edges``,
+``ba._resolve_targets``) and ``chip_smoke.py`` holds the kernels against
+them on the card.  The decodes are the reference's ``decode_directed`` /
+``decode_tri`` / ``decode_rect`` on int64 tensors.  ``row_buckets`` and
+``barrett_mod64`` are the Python-integer twins of the kernels' bucket
+choice and exact reciprocal reduction.
 """
 from __future__ import annotations
 
@@ -18,6 +21,48 @@ from ...core.prng import (bits64_limbs, fold_in, fold_in64, key_words, mod_u64, 
                           uniform64)
 
 KIND_EMPTY, KIND_DIRECTED, KIND_TRI, KIND_RECT, KIND_RMAT, KIND_BA = 0, 1, 2, 3, 4, 5
+
+MAX_FIX_ROUNDS = 64     # the reference's _MAX_FIX_ROUNDS: redraw rounds 1..63
+BUCKET_TARGET = 2048    # collision.cu's kTarget: n draws make ceil(n / 2048) buckets at most
+BUCKET_CAP = 8192       # kTile: the largest bucket sorted in shared memory
+LIST_CAP = 1024         # kListMax: duplicate positions listed per row
+
+
+HIST_MAX = 8192         # kHistMax: buckets a row at most
+
+
+def buckets_per_row(capacity: int) -> int:
+    """Bucket counters a row of ``capacity`` slots needs (``nb_max``)."""
+    return max(1, min(-(-int(capacity) // BUCKET_TARGET), HIST_MAX))
+
+
+def row_buckets(universe: int, count: int, capacity: int):
+    """(n, m, s, nb) of one row as ``collision.cu::row_plan`` takes them:
+    ``n = min(max(count, 0), capacity)`` draws modulo ``m = max(universe,
+    1)``; value ``v`` falls in bucket ``v >> s``, for the smallest ``s``
+    that leaves ``nb <= min(ceil(n / BUCKET_TARGET), HIST_MAX)`` buckets
+    (``nb = 0`` when ``n = 0``)."""
+    n = min(max(int(count), 0), int(capacity))
+    m = max(int(universe), 1)
+    limit = min(-(-n // BUCKET_TARGET), HIST_MAX) if n else 1
+    s = 0
+    while (m - 1) >> s >= limit:
+        s += 1
+    return n, m, s, ((m - 1) >> s) + 1 if n else 0
+
+
+def barrett_mod64(x: int, d: int):
+    """(x mod d, x // d) for unsigned 64-bit ``x`` and ``1 <= d < 2^64``
+    as ``threefry.cuh``'s ``mod64``/``div64`` compute them: the
+    reciprocal ``floor((2^64 - 1) / d)``, its high product with ``x`` as
+    the quotient's estimate, and two conditional corrections."""
+    inv = (2 ** 64 - 1) // d
+    q = (x * inv) >> 64
+    r = (x - q * d) % 2 ** 64
+    for _ in range(2):
+        if r >= d:
+            q, r = q + 1, r - d
+    return r, q
 
 
 def decode_directed(idx, n, row_lo):
@@ -73,6 +118,29 @@ def chunk_draw_ref(key: torch.Tensor, universe: torch.Tensor,
     dup = torch.zeros_like(sorted_vals, dtype=torch.bool)
     dup[:, 1:] = sorted_vals[:, 1:] == sorted_vals[:, :-1]
     return torch.where(dup & active[:, None], v, sorted_vals)
+
+
+def sample_rows_ref(key: torch.Tensor, universe: torch.Tensor, count: torch.Tensor,
+                    capacity: int, rounds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sorted int64 ``[R, capacity]``: the reference's collision sampler
+    over ``R`` rows.  Round 0 draws (:func:`chunk_draw_ref`) and sorts;
+    round ``t = 1..63`` redraws each value equal to its sorted predecessor
+    in the rows that have one and sorts again, until no row has one (the
+    reference's vmapped ``while_loop``: a clean row is left as it is).
+    ``rounds`` (int32 ``[R]``), when given, takes each row's redraw
+    rounds.  Reads a flag on the host once a round."""
+    s = torch.sort(chunk_draw_ref(key, universe, count, 0, capacity), dim=-1).values
+    taken = torch.zeros(key.shape[0], dtype=torch.int32, device=s.device)
+    for t in range(1, MAX_FIX_ROUNDS):
+        active = (s[:, 1:] == s[:, :-1]).any(dim=1)
+        if not bool(active.any()):
+            break
+        taken += active
+        s = torch.sort(chunk_draw_ref(key, universe, count, t, capacity, s, active),
+                       dim=-1).values
+    if rounds is not None:
+        rounds.copy_(taken)
+    return s
 
 
 def chunk_decode_ref(vals: torch.Tensor, kind: torch.Tensor,
@@ -170,8 +238,7 @@ def chunk_ba_ref(key: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
         walked[live] += 1
         live = live[(pos[live] & 1) == 1]
     if steps is not None:
-        warps = torch.nn.functional.pad(walked.reshape(R, capacity), (0, -capacity % 32))
-        steps += torch.stack([walked.sum(), 32 * warps.reshape(R, -1, 32).amax(-1).sum()])
+        steps[0] += walked.sum()
     tgt = (pos.reshape(R, capacity) // 2) // d
     edges.copy_(torch.where(mine[..., None], torch.stack([eid // d, tgt], dim=-1), edges))
     keep.copy_(torch.where(mine, (idx < count[:, None]) & owned[:, None], keep))

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch import api
+from repro_torch.core.sampling import sample_rows
 from repro_torch.distrib.runtime import plan_tensors
 from repro_torch.kernels import build
 from repro_torch.kernels.delaunay import ops as D
@@ -22,14 +23,15 @@ from repro_torch.kernels.hist.ref import hist_counts_ref
 from repro_torch.kernels.pairmask import ops as M
 from repro_torch.kernels.pairmask.ref import pair_mask_ref
 from repro_torch.kernels.sampler import ops as S
-from repro_torch.kernels.sampler.ref import (chunk_ba_ref, chunk_decode_ref, chunk_draw_ref,
-                                             chunk_rmat_ref)
+from repro_torch.kernels.sampler.ref import (chunk_ba_ref, chunk_decode_ref, chunk_rmat_ref,
+                                             sample_rows_ref)
 from repro_torch.kernels.wedges import ops as W
 from repro_torch.kernels.wedges.ref import close_wedges_ref
 from torch_dt_rows import overflow_row, tie_rows
 from torch_family_rows import chunk_rows, wedge_inputs
 from torch_geom_rows import ALL_KINDS, cell_rows, pair_rows
 from torch_libm_inputs import INPUTS
+from torch_sampler_rows import sampler_rows
 
 pytestmark = pytest.mark.gpu
 
@@ -51,20 +53,58 @@ def _rows(dev, R=16, cap=4096):
     return key, uni, cnt, cap
 
 
-@pytest.mark.parametrize("t", [0, 1, 63])
-def test_chunk_draw_matches_plain(cuda, t):
-    key, uni, cnt, cap = _rows(cuda)
-    before = build.LAUNCHES["chunk_draw"]
-    assert torch.equal(S.chunk_draw(key, uni, cnt, t, cap), chunk_draw_ref(key, uni, cnt, t, cap))
-    assert build.LAUNCHES["chunk_draw"] == before + 1
+# (rows, capacity): rows of every path at 2^16 slots (the universe-3 row's
+# buckets outgrow shared memory), capacities off the bucket, tile and
+# block sizes, one slot, and 200 rows of 4096
+SAMPLE_SHAPES = [(64, 65536), (37, 8193), (5, 777), (3, 1), (200, 4096)]
 
 
-def test_chunk_draw_redraw_matches_plain(cuda):
-    key, uni, cnt, cap = _rows(cuda)
-    s = torch.sort(chunk_draw_ref(key, uni, cnt, 0, cap), dim=-1).values
-    active = torch.arange(len(cnt), device=cuda) % 3 != 1
-    assert torch.equal(S.chunk_draw(key, uni, cnt, 1, cap, s, active),
-                       chunk_draw_ref(key, uni, cnt, 1, cap, s, active))
+@pytest.mark.parametrize("bucket_cap,list_cap", [(8192, 1024), (64, 4), (8192, 0)],
+                         ids=["default", "merge-sorted-buckets", "unlisted-rounds"])
+@pytest.mark.parametrize("R,cap", SAMPLE_SHAPES, ids=str)
+def test_chunk_sample_matches_plain(cuda, R, cap, bucket_cap, list_cap):
+    """The sampler equals its plain version (draws, torch.sort rounds),
+    rounds per row included; small bucket and list caps send the rows
+    through the kernel's paths for buckets past shared memory (merged in
+    global memory) and for rows with more duplicates than it lists."""
+    key, uni, cnt = sampler_rows(R, cap, R + cap, cuda)
+    rounds, want_rounds = (torch.full((R,), -1, dtype=torch.int32, device=cuda) for _ in range(2))
+    before = build.LAUNCHES["chunk_sample"]
+    got = S.chunk_sample(key, uni, cnt, cap, rounds, bucket_cap=bucket_cap, list_cap=list_cap)
+    assert build.LAUNCHES["chunk_sample"] == before + 1
+    want = sample_rows_ref(key, uni, cnt, cap, want_rounds)
+    assert torch.equal(got, want)
+    assert torch.equal(rounds, want_rounds)
+    if R >= 8 and cap >= 4096:
+        assert int(rounds.max()) == 63 and int(rounds.min()) == 0
+
+
+def test_chunk_sample_long_rows_match_plain(cuda):
+    """Rows of 2^24 + 3 slots, a streamed wave's: 8192 buckets, the
+    largest count a row may have, and a first redraw round that moves a
+    stretch of millions of values (the row of 2^40 draws has about 128
+    duplicates)."""
+    key, _, _ = sampler_rows(2, 1, 7, cuda)
+    cap = (1 << 24) + 3
+    uni = torch.tensor([2 ** 44, 2 ** 40], device=cuda)
+    cnt = torch.tensor([cap, cap - 1000], device=cuda)
+    rounds, want_rounds = (torch.zeros(2, dtype=torch.int32, device=cuda) for _ in range(2))
+    got = S.chunk_sample(key, uni, cnt, cap, rounds)
+    assert torch.equal(got, sample_rows_ref(key, uni, cnt, cap, want_rounds))
+    assert torch.equal(rounds, want_rounds) and int(rounds[1]) >= 1
+
+
+def test_sample_rows_makes_no_host_sync(cuda):
+    """On the card sample_rows reads nothing back on the host."""
+    key, uni, cnt = sampler_rows(16, 4096, 3, cuda)
+    S.chunk_sample(key, uni, cnt, 4096)         # built and loaded before the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sample_rows(key, uni, cnt, 4096)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, sample_rows_ref(key, uni, cnt, 4096))
 
 
 def test_chunk_decode_matches_plain(cuda):
@@ -112,10 +152,11 @@ def test_bincount_ids_runs_drops_and_alignment(cuda, bins):
 def test_kernels_refuse_wrong_arguments(cuda):
     key, uni, cnt, cap = _rows(cuda)
     with pytest.raises(ValueError):
-        S.chunk_draw(key.to(torch.int64), uni, cnt, 0, cap)
+        S.chunk_sample(key.to(torch.int64), uni, cnt, cap)
     with pytest.raises(ValueError):
-        S.chunk_draw(key, uni, cnt, 1, cap, torch.zeros(len(cnt), cap, dtype=torch.int64,
-                                                         device=cuda), None)
+        S.chunk_sample(key, uni, cnt, cap, torch.zeros(len(cnt), dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        S.chunk_sample(key, uni, cnt, cap, bucket_cap=8193)
 
 
 @pytest.mark.parametrize("spec", [api.GNM(n=3000, m=20000, seed=1),
@@ -440,13 +481,35 @@ def test_chunk_ba_mixed_rows_match_plain(cuda, d, R, cap):
     assert build.LAUNCHES["chunk_ba"] == before + 1
     want = chunk_ba_ref(key, kind, params, count, owned, cap, steps=ref_steps)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert torch.equal(steps, ref_steps)
+    # the steps walked; the steps issued follow the warps' schedule, which
+    # the plain version does not model: at least the walked, 32 a trip
+    assert int(steps[0]) == int(ref_steps[0]) and int(ref_steps[1]) == 0
+    assert int(steps[0]) <= int(steps[1]) and int(steps[1]) % 32 == 0
     assert (int(steps[0]) > 0) == bool((kind == 5).any())        # KIND_BA rows walk chains
     out = (torch.full_like(want[0], -3), torch.ones_like(want[1]))
     ref_out = (out[0].clone(), out[1].clone())
     S.chunk_ba(key, kind, params, count, owned, cap, out=out)
     chunk_ba_ref(key, kind, params, count, owned, cap, out=ref_out)
     assert torch.equal(out[0], ref_out[0]) and torch.equal(out[1], ref_out[1])
+
+
+def test_chunk_ba_long_chains_match_plain(cuda):
+    """d = 1 and edge ids past 2^40 (positions, and so spans, past 2^41):
+    the chains and targets equal the plain version's."""
+    R, cap = 8, 5000
+    rng = np.random.default_rng(41)
+    key = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (R, 2)).astype(np.int32)).to(cuda)
+    kind = torch.full((R,), 5, dtype=torch.int32, device=cuda)
+    params = torch.zeros((R, 3), dtype=torch.int64, device=cuda)
+    params[:, 0] = 1
+    params[:, 1] = torch.from_numpy(rng.integers(2 ** 40, 2 ** 46, R)).to(cuda)
+    count = torch.full((R,), cap, dtype=torch.int64, device=cuda)
+    owned = torch.ones(R, dtype=torch.bool, device=cuda)
+    steps, ref_steps = (torch.zeros(2, dtype=torch.int64, device=cuda) for _ in range(2))
+    got = S.chunk_ba(key, kind, params, count, owned, cap, steps=steps)
+    want = chunk_ba_ref(key, kind, params, count, owned, cap, steps=ref_steps)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(steps[0]) == int(ref_steps[0]) <= int(steps[1])
 
 
 @pytest.mark.parametrize("S_,NB,N,batch", [(1, 1, 1000, 0), (5, 1, 4096, 4), (64, 8192, 200000, 0),

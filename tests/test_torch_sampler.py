@@ -13,6 +13,8 @@ import torch
 
 from repro.core import sampling as jsamp
 from repro_torch.core import sampling as tsamp
+from repro_torch.kernels.sampler.ref import (BUCKET_TARGET, HIST_MAX, barrett_mod64,
+                                             buckets_per_row, chunk_draw_ref, row_buckets)
 
 # one intra-op thread: the suite runs in several worker processes at once,
 # and a pool of one thread per core in each of them oversubscribes the CPU
@@ -47,10 +49,79 @@ def test_dense_row_needs_redraw_rounds():
     words = np.array([7, 9], np.uint32)
     k = tsamp.key_bits32(words).reshape(1, 2)
     uni, cnt = torch.tensor([4000]), torch.tensor([2000])
-    first = torch.sort(tsamp.chunk_draw(k, uni, cnt, 0, 2048), dim=-1).values
+    first = torch.sort(chunk_draw_ref(k, uni, cnt, 0, 2048), dim=-1).values
     assert bool((first[0, 1:] == first[0, :-1]).any())
-    s = tsamp.sample_rows(k, uni, cnt, 2048)[0]
+    rounds = torch.zeros(1, dtype=torch.int32)
+    s = tsamp.sample_rows(k, uni, cnt, 2048, rounds)[0]
     assert not bool((s[1:] == s[:-1]).any())
+    assert int(rounds[0]) >= 3
+
+
+def test_sample_rows_matches_reference_over_0_1_and_many_rounds():
+    """Rows whose first sort leaves no duplicate, one redraw round, and
+    at least three, in one batch: each row equals the reference's
+    ``_sample_collision`` and the rounds counted are 0, 1 and >= 3."""
+    rng = np.random.default_rng(17)
+    words = rng.integers(0, 2 ** 32, (8, 2), dtype=np.uint64).astype(np.uint32)
+    cap = 2048
+    uni = np.array([10 ** 6] * 6 + [4000, 2 ** 40], np.int64)
+    cnt = np.array([1500] * 6 + [2000, 5], np.int64)
+    rounds = torch.zeros(8, dtype=torch.int32)
+    got = tsamp.sample_rows(tsamp.key_bits32(words), torch.from_numpy(uni),
+                            torch.from_numpy(cnt), cap, rounds)
+    for r in range(8):
+        want, _ = jsamp._sample_collision(jax.random.wrap_key_data(jnp.asarray(words[r])),
+                                          int(uni[r]), int(cnt[r]), cap)
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(want))
+    assert rounds[:6].tolist() == [1, 1, 1, 1, 1, 0] and rounds[7] == 0 and rounds[6] >= 3
+
+
+@pytest.mark.parametrize("capacity", [1, 64, 2048, 2049, 2_100_416, 4_198_656, 16_782_144,
+                                      40_000_000])
+def test_row_buckets_are_monotone_and_bounded(capacity):
+    """The kernel's bucket of a value, ``v >> s``, is monotone over every
+    value a row can hold (draws and sentinels, up to ``universe +
+    capacity``); a row of n draws has at most ``min(ceil(n / 2048),
+    8192)`` buckets (what ``buckets_per_row`` allots: the shared-memory
+    counters), and ``s`` is the smallest shift that gives that."""
+    rng = np.random.default_rng(capacity)
+    universes = [0, 1, 2, 3, 4000, capacity, 3 * capacity // 2 + 1, 2 ** 24, 2 ** 40,
+                 2 ** 40 + 12345, 2 ** 62 - 1, *rng.integers(1, 2 ** 62, 6).tolist()]
+    for universe in universes:
+        for count in {0, 1, min(capacity, 2047), 2049, capacity, capacity + 5, universe}:
+            n, m, s, nb = row_buckets(universe, count, capacity)
+            assert n == min(max(count, 0), capacity) and m == max(universe, 1)
+            assert nb <= buckets_per_row(capacity)
+            if n == 0:
+                assert nb == 0
+                continue
+            limit = min(-(-n // BUCKET_TARGET), HIST_MAX)
+            assert ((m - 1) >> s) + 1 == nb <= limit
+            assert s == 0 or ((m - 1) >> (s - 1)) + 1 > limit
+            vals = np.unique(np.concatenate([
+                rng.integers(0, universe + capacity + 1, 2000, dtype=np.int64),
+                [0, m - 1, m, universe, universe + capacity - 1, universe + capacity]]))
+            vals = vals[vals >= 0]
+            b = [int(v) >> s for v in vals]
+            assert b == sorted(b)
+            assert max(int(v) >> s for v in vals[vals < m]) < nb
+
+
+def test_barrett_mod64_equals_python_remainder():
+    """The exact reciprocal reduction (``threefry.cuh``'s mod64/div64, two
+    corrections at most) equals ``%`` and ``//`` on spans of 1, 2, past
+    2^32 and past 2^63, on seeded and boundary dividends."""
+    rng = np.random.default_rng(23)
+    spans = [1, 2, 3, 7, 2 ** 32 - 1, 2 ** 32, 2 ** 32 + 1, 2 ** 32 + 12345, 2 ** 63 - 1,
+             2 ** 63, 2 ** 63 + 1, 2 ** 63 + 987654321, 2 ** 64 - 2, 2 ** 64 - 1]
+    spans += [int(x) for x in rng.integers(1, 2 ** 63, 40, dtype=np.int64)]
+    spans += [int(x) + 2 ** 63 for x in rng.integers(0, 2 ** 63, 20, dtype=np.int64)]
+    for d in spans:
+        xs = [0, 1, d - 1, d, d + 1, 2 * d - 1, 2 ** 64 - 1, 2 ** 64 - 1 - d]
+        xs += [int(a) * 2 ** 32 + int(b) for a, b in rng.integers(0, 2 ** 32, (200, 2))]
+        for x in xs:
+            if 0 <= x < 2 ** 64:
+                assert barrett_mod64(x, d) == (x % d, x // d), (x, d)
 
 
 def test_sample_rows_is_per_row():
