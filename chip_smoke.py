@@ -24,8 +24,10 @@ or of the JAX package.  Phases, each printed with its seconds:
    The Delaunay kernels (``triangulate``, ``circumspheres``) and the
    GEOM_CERT rows of ``pair_edges`` likewise, on random, degenerate and
    real RDG rows.  ``chunk_rmat`` and ``chunk_ba`` on chunk rows of every
-   kind mixed, ``close_wedges`` on neighbour tables with all-sentinel
-   rows, up to 1024 samples and 40000 neighbours, chunk and pair buffers.
+   kind mixed, ``close_wedges`` on the union tables of neighbour tables
+   with all-sentinel rows, up to 1024 samples and 40000 neighbours (unions
+   past the filter's size), chunk and pair buffers, against both plain
+   versions (over the neighbour table and over its union table).
 2. golden parity: the digests and statistics that the JAX package
    computed on the CPU (``src/repro_torch/golden/er.json``, ``geom.json``,
    ``rdg.json`` and ``families.json``) recomputed on the card, RHG radii
@@ -59,7 +61,7 @@ or of the JAX package.  Phases, each printed with its seconds:
       region's density within 2 % of its p) against its stream at P=16;
       ``collect`` with clustering of RHG(n=2^20) at P=16 (the same report
       at P=1) and of that SBM at P=1 (its triangles recounted from the
-      generated edges);
+      generated edges), each with its wedge table's build time;
    each checked on the device; each ``collect`` must launch ``hist`` once
    per non-empty chunk of its first pass plus once per section histogram.  ``pair_mask`` is
    not on any path: as in
@@ -83,7 +85,9 @@ or of the JAX package.  Phases, each printed with its seconds:
    ``chunk_rmat`` and ``chunk_ba`` at their generate shapes, the plain
    versions on the first 2^22 slots, ``chunk_ba`` with the chain steps its
    lanes walked and its warps issued; ``close_wedges`` at the largest SBM chunk and
-   RHG wave of the clustering collects); then the ``kernels`` line and the
+   RHG wave of the clustering collects, with its table's size, the probes
+   and merge steps of that data, its device time by a replayed CUDA graph
+   and PR 16's bound beside the new one); then the ``kernels`` line and the
    result line.  The kernel timings also print the median and min–max of
    their reps one at a time, and each ``kernels`` entry carries that
    median as ``median_ms`` beside the back-to-back mean ``ms``.
@@ -1608,14 +1612,15 @@ def phase_family_kernels(dev, errs: Errors) -> None:
     """Phase 1, families: chunk_rmat and chunk_ba on mixed chunk rows of
     every kind (log_n 1, 26, 40; d 1 and 8; counts 0 up to capacity; a
     fresh output and one whose other rows stay), close_wedges on tables
-    with all-sentinel rows, S up to 1024, NB up to 8192 (shared memory)
-    and 40000 (searched in place), chunk (prefix) and batched pair
-    (mask) buffers."""
+    with all-sentinel rows, S up to 1024, NB up to 40000, unions within
+    the filter's 32 bits a key and past it, chunk (prefix) and batched
+    pair (mask) buffers, against both plain versions."""
     import torch
     from repro_torch.kernels.sampler import ops as S
     from repro_torch.kernels.sampler.ref import chunk_ba_ref, chunk_rmat_ref
     from repro_torch.kernels.wedges import ops as W
-    from repro_torch.kernels.wedges.ref import close_wedges_ref
+    from repro_torch.kernels.wedges.ref import close_wedges_ref, close_wedges_table_ref
+    from repro_torch.kernels.wedges.table import FILTER_LOG_BITS
     from torch_family_rows import chunk_rows, wedge_inputs
 
     def both(name, got, want, what):
@@ -1649,21 +1654,34 @@ def phase_family_kernels(dev, errs: Errors) -> None:
         ref = (out[0].clone(), out[1].clone())
         both("chunk_ba", S.chunk_ba(key, kind, params, count, owned, cap, out),
              chunk_ba_ref(key, kind, params, count, owned, cap, ref), f"chunk_ba d={d} into out")
-    cases = ((1, 1, 4096, 0), (1024, 64, 100_000, 0), (64, 8192, 400_000, 0),
-             (64, 8192, 400_000, 64), (3, 40_000, 100_000, 0))
+    cases = ((1, 1, 4096, 0), (65, 40, 200_000, 8), (200, 16, 100_000, 0),
+             (1024, 64, 100_000, 0), (64, 8192, 400_000, 0), (64, 8192, 400_000, 64),
+             (3, 40_000, 100_000, 0))
+    unions = []
     for Sn, NB, N, batch in cases:
         edges, mask, nb = wedge_inputs(Sn, NB, N, Sn + NB, dev, batch=batch)
         flat, fmask = edges.reshape(-1, 2), mask.reshape(-1)
-        errs.same("close_wedges", W.close_wedges(flat, nb, mask=fmask),
-                  close_wedges_ref(flat, nb, mask=fmask), f"close_wedges S={Sn} NB={NB} mask")
+        table = W.wedge_table(nb)
+        unions.append(table.union)
+        what = f"close_wedges S={Sn} NB={NB} (union {table.union})"
+        got = W.close_wedges(flat, table, mask=fmask)
+        errs.same("close_wedges", got, close_wedges_ref(flat, nb, mask=fmask), what + " mask")
+        errs.same("close_wedges", got, close_wedges_table_ref(flat, table, mask=fmask),
+                  what + " mask, against the table's plain version")
         for k in (0, N // 3, N):
-            errs.same("close_wedges", W.close_wedges(flat, nb, count=k),
-                      close_wedges_ref(flat, nb, count=k), f"close_wedges S={Sn} NB={NB} count={k}")
-        empty = torch.full_like(nb, 1 << 62)
+            got = W.close_wedges(flat, table, count=k)
+            errs.same("close_wedges", got, close_wedges_ref(flat, nb, count=k),
+                      f"{what} count={k}")
+            errs.same("close_wedges", got, close_wedges_table_ref(flat, table, count=k),
+                      f"{what} count={k}, against the table's plain version")
+        empty = W.wedge_table(torch.full_like(nb, 1 << 62))
         require(not bool(W.close_wedges(flat, empty, mask=fmask).any()),
                 "close_wedges: an all-sentinel table counted a wedge")
+    require(max(unions) > (1 << FILTER_LOG_BITS[1]) // 32,
+            "close_wedges: no phase 1 union past the filter's size")
     print(f"  families kernels == plain: chunk_rmat, chunk_ba on {R} mixed rows of capacity {cap}; "
-          f"close_wedges on {len(cases)} tables")
+          f"close_wedges on {len(cases)} tables (unions of {unions} vertices), against both "
+          f"plain versions")
 
 
 def family_spec(api, e):
@@ -1715,10 +1733,12 @@ def stream_checksum(spec, P: int, dev, **kw):
 def capture_wedges(store: dict):
     """Wrap ``ClusteringSampler.count_triangles_chunk`` to keep, per kind
     of buffer, the inputs of its call with the most valid slots (phase 4
-    times close_wedges there).  Returns the undo."""
+    times close_wedges there), and time each sampler's build of its
+    wedge table (``store["builds"]``: seconds, table).  Returns the undo."""
+    import torch
     from repro_torch.stats.accumulate import ClusteringSampler
 
-    real = ClusteringSampler.count_triangles_chunk
+    real, real_table = ClusteringSampler.count_triangles_chunk, ClusteringSampler._wedge_table
 
     def wrapped(self, buffer, count=None, mask=None):
         form = "mask" if mask is not None else "prefix"
@@ -1726,11 +1746,31 @@ def capture_wedges(store: dict):
         if valid > store.get(form, (0,))[0] and self.neighbors is not None:
             store[form] = (valid, buffer.reshape(-1, 2),
                            None if mask is None else mask.reshape(-1), count,
-                           self._neighbor_table())
+                           self._neighbor_table().to(buffer.device), self._wedge_table())
         return real(self, buffer, count=count, mask=mask)
 
+    def timed_table(self):
+        if self._table is None:
+            t0 = time.perf_counter()
+            table = real_table(self)
+            torch.cuda.synchronize()
+            store.setdefault("builds", []).append((time.perf_counter() - t0, table))
+        return real_table(self)
+
     ClusteringSampler.count_triangles_chunk = wrapped
-    return lambda: setattr(ClusteringSampler, "count_triangles_chunk", real)
+    ClusteringSampler._wedge_table = timed_table
+
+    def undo():
+        ClusteringSampler.count_triangles_chunk = real
+        ClusteringSampler._wedge_table = real_table
+    return undo
+
+
+def table_line(build) -> str:
+    secs, t = build
+    return (f"wedge table built in {secs:.6f}s: union {t.union} vertices, {t.ids.numel()} "
+            f"sample entries, {t.hkey.numel()} slots, filter 2^{t.log_f} bits, "
+            f"{t.nbytes()} bytes")
 
 
 def recount_triangles(e, sample, cap: int):
@@ -1869,6 +1909,7 @@ def phase_families(dev, sizes: dict) -> dict:
               f"{cc.mean_local_cc:.6f}, {cwall:.3f}s; {hl} hist launches for {nc} non-empty "
               f"waves; the same report at P=1")
         print_breakdown("RHG clustering collect", groups, cwall)
+        print(f"  RHG clustering collect P=16, {table_line(wedges['builds'][0])}")
         (rep, hl, nc), groups, cwall = profiled(lambda: counted_collect(
             sspec, 1, dev, metrics=("degree", "clustering")))
     finally:
@@ -1884,6 +1925,7 @@ def phase_families(dev, sizes: dict) -> dict:
           f"valid, {int(cc.triangles.sum())} triangles (= a recount over the generated edges), "
           f"global cc {cc.global_cc:.6f}, {cwall:.3f}s; {hl} hist launches for {nc} chunks")
     print_breakdown("SBM clustering collect", groups, cwall)
+    print(f"  SBM clustering collect, {table_line(wedges['builds'][-1])}")
     del s_edges, sdeg
     torch.cuda.empty_cache()
     return {"rmat_plan": rplan, "ba_plan": bspec.plan(1), "sbm_plan": splan, "wedges": wedges}
@@ -1900,7 +1942,8 @@ def families_timing(dev, fam: dict, errs: Errors) -> list:
     from repro_torch.kernels.sampler import ops as S
     from repro_torch.kernels.sampler.ref import chunk_ba_ref, chunk_rmat_ref
     from repro_torch.kernels.wedges import ops as W
-    from repro_torch.kernels.wedges.ref import close_wedges_ref
+    from repro_torch.kernels.wedges.ref import close_wedges_ref, close_wedges_table_ref
+    from repro_torch.kernels.wedges.table import probe
 
     rows, sub = [], 1 << 22
 
@@ -1972,28 +2015,58 @@ def families_timing(dev, fam: dict, errs: Errors) -> list:
     torch.cuda.empty_cache()
 
     for form, label in (("prefix", "SBM chunk"), ("mask", "RHG wave")):
-        valid, flat, mask, count, nb = fam["wedges"][form]
+        valid, flat, mask, count, nb, table = fam["wedges"][form]
         Sn, NB = nb.shape
         live = int((nb[:, 0] != 1 << 62).sum())
         kw = {"mask": mask} if mask is not None else {"count": count}
-        got, ms, med = timed(lambda: W.close_wedges(flat, nb, **kw), reps=10,
-                             label=f"close_wedges {label}")
+        # timed as the sampler calls it, adding into its counts
+        acc = torch.zeros(Sn, dtype=torch.int64, device=dev)
+        _, ms, med = timed(lambda: W.close_wedges(flat, table, out=acc, **kw), reps=10,
+                           label=f"close_wedges {label}")
+        dev_ms = graph_ms_per_call(lambda: W.close_wedges(flat, table, out=acc, **kw), 20)
+        got = W.close_wedges(flat, table, **kw)
         want, plain_ms = sync_time(lambda: close_wedges_ref(flat, nb, **kw), reps=1)
         errs.same("close_wedges", got, want, f"close_wedges at the {label}")
-        steps = math.ceil(math.log2(NB + 1)) + 1
-        # bytes: the mask (or nothing) once, each valid edge once, the table
-        # once; operations: per live row and valid slot two binary searches
-        # of `steps` steps, 4 integer operations a step (int64 compares
-        # count as one, so this is a lower bound)
-        nbytes = (flat.shape[0] if mask is not None else 0) + valid * 16 + Sn * NB * 8 + Sn * 8
-        ops = live * valid * 2 * steps * 4 / INT32_OPS_PER_S
+        errs.same("close_wedges", got, close_wedges_table_ref(flat, table, **kw),
+                  f"close_wedges at the {label}, against the table's plain version")
+        # bytes: the mask (or nothing) once, each valid edge once, the
+        # table once, the counts written once.  Operations, this run's
+        # data: a probe of u a valid slot, a probe of v where u is in the
+        # union, a merge step per entry of both lists where v is too; 8
+        # integer operations a probe (the 64-bit multiply as 3, the shift,
+        # the key's two-word compare and the empty test), 4 a merge step
+        e = flat[mask] if mask is not None else flat[:count]
+        su = probe(table, e[:, 0].contiguous())
+        in_u = su >= 0
+        sv = probe(table, e[in_u, 1].contiguous())
+        both = sv >= 0
+        a, b = su[in_u][both], sv[both]
+        steps = int((table.off[a + 1] - table.off[a] + table.off[b + 1] - table.off[b]).sum())
+        hits_u, hits_uv = int(in_u.sum()), int(both.sum())
+        nbytes = (flat.shape[0] if mask is not None else 0) + valid * 16 + table.nbytes() + Sn * 8
+        ops = ((valid + hits_u) * 8 + steps * 4) / INT32_OPS_PER_S
+        bound = max(nbytes / HBM_BYTES_PER_S, ops)
         if form == "prefix":     # the kernels line's entry; the wave is printed only
             rows.append(("close_wedges", "src/repro_torch/kernels/wedges/csrc/wedges.cu",
                          "src/repro/stats/accumulate.py:42", ms, med, plain_ms,
                          nbytes / HBM_BYTES_PER_S, ops, None))
+        # PR 16's bound, for continuity: per live row and valid slot two
+        # binary searches of ceil(log2(NB + 1)) + 1 steps of 4 operations,
+        # and the [S, NB] table read once
+        old_steps = math.ceil(math.log2(NB + 1)) + 1
+        old_bound = max(((flat.shape[0] if mask is not None else 0) + valid * 16 + Sn * NB * 8
+                         + Sn * 8) / HBM_BYTES_PER_S,
+                        live * valid * 2 * old_steps * 4 / INT32_OPS_PER_S)
         print(f"  close_wedges at the {label}: {flat.shape[0]} slots, {valid} valid, {Sn} samples "
-              f"({live} with neighbours), table width {NB}; bound "
-              f"{max(nbytes / HBM_BYTES_PER_S, ops) * 1e3:.6f} ms; plain {plain_ms:.3f} ms")
+              f"({live} live rows), neighbour table width {NB}, sum of row lengths "
+              f"{table.ids.numel()}, union {table.union} vertices in {table.hkey.numel()} slots "
+              f"(filter 2^{table.log_f} bits); u in the union {hits_u}, both "
+              f"{hits_uv}, {steps} merge entries; median {med:.6f} ms (device {dev_ms:.6f} ms "
+              f"by graph replay), bound "
+              f"{bound * 1e3:.6f} ms ({'bytes' if nbytes / HBM_BYTES_PER_S >= ops else 'operations'}"
+              f": {nbytes} bytes, operations {ops * 1e3:.6f} ms), {100 * bound * 1e3 / med:.1f} % "
+              f"of the median, {100 * bound * 1e3 / dev_ms:.1f} % of the device time; PR 16's "
+              f"formula {old_bound * 1e3:.6f} ms; plain {plain_ms:.3f} ms")
     return rows
 
 

@@ -1,29 +1,32 @@
 // close_wedges: the wedge-closing membership test of sampled clustering,
-// pass 2.  For every sample s and every valid slot (u, v) of one stream
-// buffer, count the slots whose two endpoints are both in s's sorted,
-// sentinel-padded neighbour row, and add the count into out[s].
+// pass 2.  For every valid slot (u, v) of one stream buffer, add one to
+// out[s] for each sample s whose neighbour row holds both u and v.
 //
-// Replaces repro/stats/accumulate.py::_close_wedges (lines 42-57), jitted
+// Replaces repro/stats/accumulate.py::_close_wedges (lines 41-57), jitted
 // jnp (a vmapped searchsorted over samples x edges); it reaches no Pallas
 // kernel.
 //
 // What bounds it on an H100, and what the design does about it: the
-// work is two binary searches per valid slot and sample (integer issue),
-// the bytes are the buffer's validity and its valid edges, read once.  A
-// block takes a group of samples whose rows fit in shared memory together
-// (8 bytes a neighbour: all 64 default samples at up to about 440
-// neighbours each, 3 at the default cap of 8192, past the 48 KiB default
-// by the opt-in limit; rows too wide for one are searched in place in
-// global memory, 16 samples a group) and a slice of the buffer.  A lane
-// takes 16 slots at a time, their validity in one 16-byte load (or the
-// prefix length of a chunk buffer); then the warp walks its valid slots
-// one at a time, each lane searching its own rows of the group for the
-// slot's edge (one broadcast 16-byte load).  So the cost follows the
-// edges, not the slots (pair buffers hold an edge in about 1 % of
-// theirs), no lane waits on another's searches, and a group reads the
-// mask once.  Rows that are all sentinel (no neighbours, or past the
-// cap) are skipped.  Hits go to a shared counter per sample; one atomic
-// per block and sample at the end.
+// function must read the buffer's validity and its valid edges once (16
+// bytes an edge); the sample rows hold a few thousand of the graph's
+// millions of vertices, so nearly every edge has an endpoint in none of
+// them.  So the loop is edge-major, over the union of the rows, built
+// once per sampler (table.py): its keys by linear probing in 2^log_t
+// slots, each slot's samples as an ascending list, and a filter of two
+// bits in one 32-bit word a key.  A lane takes one valid slot at a time:
+// it looks u up in the filter, staged in shared memory (one load), and
+// on a miss (nearly always) it is done; else it probes u's keys in global
+// memory (L2), then v, and on a second hit merges the two sample lists,
+// counting each common sample.  A warp takes 512 slots of a masked buffer
+// at a time: a lane reads the mask of 16 in one 16-byte load, a tile ahead
+// of their use, the warp lists its valid slots in shared memory and its
+// lanes take them 32 at a time, four edge loads in flight each, so a dense
+// stripe costs a probe a slot and a sparse one no more lane steps than it
+// has edges; a chunk buffer's prefix goes 128 slots a warp at a time.  Persistent blocks, as many as
+// fit on the SMs, walk the buffer, so the filter is staged once a block
+// (cp.async).  Hits go to shared per-sample counters (to out itself past
+// kCountBytes), one atomic per block and sample at the end.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -31,117 +34,187 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSlots = 16;                  // slots a thread takes at a time
-constexpr int kGlobalGroup = 16;            // samples a block, rows in global memory
-constexpr int64_t kSentinel = 1LL << 62;   // stats/accumulate.py _NB_SENTINEL
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlots = 16;                   // slots whose mask a lane reads at once
+constexpr int kTile = 32 * kSlots;           // slots a warp takes at a time, masked
+constexpr int kInFlight = 4;                 // edge loads a lane has in flight
+constexpr int kPrefixTile = 32 * kInFlight;  // slots a warp takes at a time, a prefix
+constexpr long long kCountBytes = 16 * 1024; // shared per-sample counters up to this
+constexpr long long kEmpty = -1;                                  // table.py EMPTY
+constexpr unsigned long long kMulSlot = 0x9E3779B97F4A7C15ull;    // table.py MUL_SLOT
+constexpr unsigned long long kMulFilter = 0xC2B2AE3D27D4EB4Full;  // table.py MUL_FILTER
 
-__device__ __forceinline__ bool member(const int64_t* row, int64_t width, int64_t q) {
-  int64_t lo = 0, hi = width;   // first position whose value is >= q
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (row[mid] < q) lo = mid + 1; else hi = mid;
-  }
-  return lo < width && row[lo] == q;
+// q's filter entry (table.py filter_entry): the top log_f + 5 bits of q *
+// kMulFilter are its word, then two bit positions in it
+__device__ __forceinline__ bool listed(long long q, const unsigned* filt, int log_f) {
+  const unsigned x = (unsigned)(((unsigned long long)q * kMulFilter) >> (59 - log_f));
+  const unsigned w = filt[x >> 10];
+  return (w >> ((x >> 5) & 31)) & (w >> (x & 31)) & 1u;
 }
 
-template <bool kShared>
-__global__ void close_wedges_kernel(const longlong2* __restrict__ edges,
-                                    const uint8_t* __restrict__ mask, bool mask_vec,
-                                    int64_t n, const int64_t* __restrict__ nb,
-                                    int64_t samples, int64_t width, int64_t group,
-                                    int64_t slices, unsigned long long* __restrict__ out) {
-  extern __shared__ int64_t smem[];
-  const int64_t g0 = (blockIdx.x / slices) * group;
-  const int64_t slice = blockIdx.x % slices;
-  const int G = (int)(samples - g0 < group ? samples - g0 : group);
-  const int64_t* rows = kShared ? smem : nb + g0 * width;
-  unsigned long long* hits = (unsigned long long*)(smem + (kShared ? group * width : 0));
-  if (kShared)
-    for (int64_t j = threadIdx.x; j < G * width; j += kThreads) smem[j] = nb[g0 * width + j];
-  for (int g = threadIdx.x; g < G; g += kThreads) hits[g] = 0;
+// the slot of q among the table's keys, or -1 (table.py probe; at most
+// every slot once, should a table have no empty one)
+__device__ __forceinline__ int find(long long q, const long long* __restrict__ keys, int log_t,
+                                    const unsigned* filt, int log_f) {
+  if (!listed(q, filt, log_f)) return -1;
+  const unsigned m = (1u << log_t) - 1u;
+  unsigned h = (unsigned)(((unsigned long long)q * kMulSlot) >> (64 - log_t));
+  for (unsigned i = 0; i <= m; ++i, h = (h + 1) & m) {
+    const long long k = __ldg(keys + h);
+    if (k == kEmpty) return -1;
+    if (k == q) return (int)h;
+  }
+  return -1;
+}
+
+// the mask bytes of slots [base, base + kSlots) that lie below n (0 past it)
+__device__ __forceinline__ uint4 mask_bytes(const uint8_t* mask, int64_t base, int64_t n,
+                                            bool vec) {
+  if (vec && base + kSlots <= n) return *reinterpret_cast<const uint4*>(mask + base);
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k)
+    if (base + k < n) w[k >> 2] |= (uint32_t)mask[base + k] << (8 * (k & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// bit k: byte k of w is non-zero
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  const uint32_t high = (((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u;
+  return ((high >> 7) * 0x01020408u) >> 24;   // byte 3 gathers the four bits
+}
+
+// bit k: mask byte k is non-zero
+__device__ __forceinline__ uint32_t valid_bits(uint4 m) {
+  return nonzero_bytes(m.x) | nonzero_bytes(m.y) << 4 | nonzero_bytes(m.z) << 8 |
+         nonzero_bytes(m.w) << 12;
+}
+
+__global__ void __launch_bounds__(kThreads)
+close_wedges_kernel(const longlong2* __restrict__ edges, const uint8_t* __restrict__ mask,
+                    bool mask_vec, int64_t n, const long long* __restrict__ hkey, int log_t,
+                    const int64_t* __restrict__ off, const int* __restrict__ ids,
+                    const unsigned* __restrict__ filt, int log_f, int samples,
+                    bool shared_counts, unsigned long long* __restrict__ out) {
+  // shared memory: [the filter][per-sample counters][a slot list a warp]
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* filt_sh = smem;
+  const int filt_bytes = 1 << (log_f - 3);
+  unsigned long long* counts = shared_counts ? (unsigned long long*)(smem + filt_bytes) : out;
+  unsigned short* list = (unsigned short*)(smem + filt_bytes +
+                                           (shared_counts ? (size_t)samples * 8 : 0)) +
+                         (threadIdx.x >> 5) * kTile;
+  for (int j = 16 * threadIdx.x; j < filt_bytes; j += 16 * kThreads)
+    __pipeline_memcpy_async(filt_sh + j, (const unsigned char*)filt + j, 16);
+  __pipeline_commit();
+  if (shared_counts)
+    for (int s = threadIdx.x; s < samples; s += kThreads) counts[s] = 0;
+  __pipeline_wait_prior(0);
   __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int64_t warps = slices * (kThreads / 32);
-  const int64_t warp = slice * (kThreads / 32) + (threadIdx.x >> 5);
-  // a warp takes 32 x 16 consecutive slots at a time, a lane 16 of them
-  for (int64_t wbase = warp * 32 * kSlots; wbase < n; wbase += warps * 32 * kSlots) {
-    const int64_t base = wbase + lane * kSlots;
-    uint32_t valid = 0;   // bit k: slot base + k holds an edge
-    if (base < n) {
-      if (mask == nullptr) {
-        const int64_t left = n - base;
-        valid = left >= kSlots ? 0xFFFFu : (1u << left) - 1u;
-      } else if (mask_vec && base + kSlots <= n) {
-        const uint4 m = *reinterpret_cast<const uint4*>(mask + base);
-        const uint32_t w[4] = {m.x, m.y, m.z, m.w};
-        for (int k = 0; k < kSlots; ++k)
-          valid |= (((w[k >> 2] >> (8 * (k & 3))) & 0xFFu) ? 1u : 0u) << k;
-      } else {
-        for (int k = 0; k < kSlots && base + k < n; ++k) valid |= (mask[base + k] ? 1u : 0u) << k;
+  const bool prefix = mask == nullptr;
+  const int tile = prefix ? kPrefixTile : kTile;
+  const int64_t step = (int64_t)gridDim.x * kWarps * tile;
+  int64_t wbase = ((int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5)) * tile;
+  // a masked tile's bytes are loaded a tile ahead, in flight while the warp
+  // works on the one before
+  uint4 ahead = prefix ? make_uint4(0, 0, 0, 0)
+                       : mask_bytes(mask, wbase + lane * kSlots, n, mask_vec);
+  for (; wbase < n; wbase += step) {
+    // this tile's valid slots: list[0, total) (a mask), or its first total (a prefix)
+    int total;
+    if (prefix) {
+      total = n - wbase < tile ? (int)(n - wbase) : tile;
+    } else {
+      uint32_t valid = valid_bits(ahead);
+      ahead = mask_bytes(mask, wbase + step + lane * kSlots, n, mask_vec);
+      const int mine = __popc(valid);
+      int scan = mine;   // inclusive prefix sum over the lanes
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, scan, d);
+        if (lane >= d) scan += t;
       }
+      total = __shfl_sync(0xffffffffu, scan, 31);
+      for (int at = scan - mine; valid; valid &= valid - 1)
+        list[at++] = (unsigned short)(lane * kSlots + __ffs(valid) - 1);
+      __syncwarp();
     }
-    // the warp's valid slots one at a time, every lane searching its rows
-    for (uint32_t pending = __ballot_sync(0xffffffffu, valid != 0); pending;
-         pending &= pending - 1) {
-      const int src = __ffs(pending) - 1;
-      uint32_t v = __shfl_sync(0xffffffffu, valid, src);
-      const int64_t sbase = wbase + src * kSlots;
-      while (v) {
-        const longlong2 uv = edges[sbase + __ffs(v) - 1];
-        v &= v - 1;
-        for (int g = lane; g < G; g += 32) {
-          const int64_t* row = rows + g * width;
-          if (row[0] == kSentinel) continue;
-          if (member(row, width, uv.x) && member(row, width, uv.y)) atomicAdd(hits + g, 1ull);
+    for (int j0 = 0; j0 < total; j0 += kPrefixTile) {
+      longlong2 e[kInFlight];
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        const int j = j0 + k * 32 + lane;
+        if (j < total) e[k] = edges[wbase + (prefix ? j : list[j])];
+      }
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        if (j0 + k * 32 + lane >= total) break;
+        const int hu = find(e[k].x, hkey, log_t, (const unsigned*)filt_sh, log_f);
+        if (hu < 0) continue;
+        const int hv = find(e[k].y, hkey, log_t, (const unsigned*)filt_sh, log_f);
+        if (hv < 0) continue;
+        // the samples listed under both: merge the two ascending lists
+        for (int64_t a = off[hu], a_end = off[hu + 1], b = off[hv], b_end = off[hv + 1];
+             a < a_end && b < b_end;) {
+          const int x = ids[a], y = ids[b];
+          if (x == y) atomicAdd(counts + x, 1ull);
+          a += x <= y;
+          b += y <= x;
         }
       }
     }
+    __syncwarp();   // the next tile rewrites the list
   }
+  if (!shared_counts) return;
   __syncthreads();
-  for (int g = threadIdx.x; g < G; g += kThreads)
-    if (hits[g]) atomicAdd(out + g0 + g, hits[g]);
+  for (int s = threadIdx.x; s < samples; s += kThreads)
+    if (counts[s]) atomicAdd(out + s, counts[s]);
 }
 
 }  // namespace
 
 // edges int64 [N, 2] (16-byte aligned); mask bool [N] or null, when null
-// the first n slots are valid; nb int64 [S, width] sorted rows padded with
-// 2^62; out int64 [S], added into.  Returns the launch's cudaError_t.
-extern "C" int close_wedges(const void* edges, const void* mask, long long n,
-                            const void* nb, long long samples, long long width,
-                            void* out, void* stream) {
-  if (n <= 0 || samples <= 0 || width <= 0) return 0;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long per_sample = width * (long long)sizeof(int64_t) + 8;   // its row, its counter
-  const bool shared = per_sample <= optin;
-  long long group = shared ? optin / per_sample : kGlobalGroup;
-  if (group > samples) group = samples;
-  const long long groups = (samples + group - 1) / group;
-  // enough blocks to fill the card several times over, none with fewer
-  // than 4096 slots
-  long long slices = (n + kThreads * kSlots - 1) / (kThreads * kSlots);
-  const long long most = (1056 + groups - 1) / groups;
-  if (slices > most) slices = most;
-  if (groups * slices > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  const size_t bytes = (size_t)group * (shared ? per_sample : 8);
-  const unsigned grid = (unsigned)(groups * slices);
-  const bool vec = mask != nullptr && (uintptr_t)mask % 16 == 0;
-  if (shared) {
-    if (bytes > 48 * 1024)
-      err = cudaFuncSetAttribute(close_wedges_kernel<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    close_wedges_kernel<true><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-        (const longlong2*)edges, (const uint8_t*)mask, vec, n, (const int64_t*)nb, samples,
-        width, group, slices, (unsigned long long*)out);
-  } else {
-    close_wedges_kernel<false><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-        (const longlong2*)edges, (const uint8_t*)mask, vec, n, (const int64_t*)nb, samples,
-        width, group, slices, (unsigned long long*)out);
+// the first n slots are valid; the table (table.py WedgeTable): hkey int64
+// [2^log_t], off int64 [2^log_t + 1], ids int32, filt int32 [2^log_f /
+// 32] (16-byte aligned); out int64 [samples], added into.  Returns the
+// launch's cudaError_t.
+extern "C" int close_wedges(const void* edges, const void* mask, long long n, const void* hkey,
+                            long long log_t, const void* off, const void* ids, const void* filt,
+                            long long log_f, long long samples, void* out, void* stream) {
+  // the SM count and the blocks an SM holds at the last shared size (the
+  // port runs on one card)
+  static int sms = 0, per_sm = 0;
+  static size_t per_sm_bytes = 0;
+  if (n <= 0 || samples <= 0) return 0;
+  if (log_t < 4 || log_t > 31 || log_f < 10 || log_f > 27 || samples > INT_MAX ||
+      (uintptr_t)filt % 16)
+    return (int)cudaErrorInvalidValue;
+  const bool shared_counts = samples * 8 <= kCountBytes;
+  const size_t bytes = (shared_counts ? (size_t)samples * 8 : 0) + ((size_t)1 << (log_f - 3)) +
+                       (size_t)kWarps * kTile * sizeof(unsigned short);
+  cudaError_t err = cudaSuccess;
+  if (bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(close_wedges_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+  if (err == cudaSuccess && sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  if (err == cudaSuccess && per_sm_bytes != bytes) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, close_wedges_kernel, kThreads,
+                                                        bytes);
+    per_sm_bytes = bytes;
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long per_block = (long long)kWarps * (mask ? kTile : kPrefixTile);
+  long long blocks = (n + per_block - 1) / per_block;
+  if (blocks > (long long)per_sm * sms) blocks = (long long)per_sm * sms;
+  const bool vec = mask != nullptr && (uintptr_t)mask % 16 == 0;
+  close_wedges_kernel<<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+      (const longlong2*)edges, (const uint8_t*)mask, vec, n, (const long long*)hkey, log_t,
+      (const int64_t*)off, (const int*)ids, (const unsigned*)filt, log_f, (int)samples,
+      shared_counts, (unsigned long long*)out);
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,8 @@ through the hist kernel's drop rule.
 :class:`ClusteringSampler` counts, for a hashed vertex sample, each
 sampled vertex's degree and the edges among its neighbours, in two
 streaming passes; its second pass runs ``close_wedges`` on the stream's
-device buffers.
+device buffers, against the union of the sample rows (its
+``WedgeTable``, built once).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import torch
 from ..core.chunking import section_bounds
 from ..core.prng import host_rng
 from ..kernels.hist.ops import LOG2_BINS, bincount_ids, log2_histogram
-from ..kernels.wedges.ops import close_wedges
+from ..kernels.wedges.ops import WedgeTable, close_wedges, wedge_table
 
 _TAG_SAMPLE = 71  # hashed stream for the clustering vertex sample
 _NB_SENTINEL = 1 << 62  # neighbor-table padding: larger than any vertex id
@@ -160,7 +161,7 @@ class ClusteringSampler:
         self._count = np.zeros(S, np.int64)
         self._overflow = np.zeros(S, bool)
         self.neighbors: Optional[List[np.ndarray]] = None
-        self._nb_table: Optional[torch.Tensor] = None
+        self._table: Optional[WedgeTable] = None
         self._triangles = torch.zeros(max(1, S), dtype=torch.int64, device=self.device)
 
     def observe(self, e: torch.Tensor) -> None:
@@ -201,14 +202,19 @@ class ClusteringSampler:
 
     def _neighbor_table(self) -> torch.Tensor:
         """Sorted, sentinel-padded ``[S, NB]`` neighbour matrix on the
-        device; overflowed samples have empty (all-sentinel) rows."""
-        if self._nb_table is None:
-            nb_max = max((len(nb) for nb in self.neighbors), default=0)
-            tbl = np.full((max(1, len(self.sample)), max(1, nb_max)), _NB_SENTINEL, np.int64)
-            for i, nb in enumerate(self.neighbors):
-                tbl[i, : len(nb)] = nb
-            self._nb_table = torch.from_numpy(tbl).to(self.device)
-        return self._nb_table
+        host; overflowed samples have empty (all-sentinel) rows."""
+        nb_max = max((len(nb) for nb in self.neighbors), default=0)
+        tbl = np.full((max(1, len(self.sample)), max(1, nb_max)), _NB_SENTINEL, np.int64)
+        for i, nb in enumerate(self.neighbors):
+            tbl[i, : len(nb)] = nb
+        return torch.from_numpy(tbl)
+
+    def _wedge_table(self) -> WedgeTable:
+        """The union of the neighbour rows as ``close_wedges`` probes it,
+        on the device; built at the first call of pass 2."""
+        if self._table is None:
+            self._table = wedge_table(self._neighbor_table(), device=self.device)
+        return self._table
 
     def count_triangles_chunk(self, buffer: torch.Tensor, count: Optional[int] = None,
                               mask: Optional[torch.Tensor] = None) -> None:
@@ -222,7 +228,7 @@ class ClusteringSampler:
         if not len(self.sample) or not max((len(nb) for nb in self.neighbors), default=0):
             return
         buf = buffer.reshape(-1, 2)
-        close_wedges(buf, self._neighbor_table(),
+        close_wedges(buf, self._wedge_table(),
                      mask=None if mask is None else mask.reshape(-1),
                      count=count, out=self._triangles)
 

@@ -71,11 +71,12 @@ def test_close_wedges_ref_matches_reference(S, NB):
 def test_close_wedges_wrapper_adds_into_out():
     rng = np.random.default_rng(11)
     tbl = torch.from_numpy(_table(rng, 4, 30, 100))
+    table = wops.wedge_table(tbl)
     edges = torch.from_numpy(rng.integers(0, 100, (256, 2)))
     out = torch.full((4,), 5, dtype=torch.int64)
-    assert wops.close_wedges(edges, tbl, count=100, out=out) is out
+    assert wops.close_wedges(edges, table, count=100, out=out) is out
     np.testing.assert_array_equal(out.numpy(), 5 + close_wedges_ref(edges, tbl, count=100).numpy())
-    np.testing.assert_array_equal(wops.close_wedges(edges, tbl).numpy(),
+    np.testing.assert_array_equal(wops.close_wedges(edges, table).numpy(),
                                   close_wedges_ref(edges, tbl, count=256).numpy())
 
 

@@ -26,7 +26,7 @@ from repro_torch.kernels.sampler import ops as S
 from repro_torch.kernels.sampler.ref import (chunk_ba_ref, chunk_decode_ref, chunk_rmat_ref,
                                              sample_rows_ref)
 from repro_torch.kernels.wedges import ops as W
-from repro_torch.kernels.wedges.ref import close_wedges_ref
+from repro_torch.kernels.wedges.ref import close_wedges_ref, close_wedges_table_ref
 from torch_dt_rows import overflow_row, tie_rows
 from torch_family_rows import chunk_rows, wedge_inputs
 from torch_geom_rows import ALL_KINDS, cell_rows, pair_rows
@@ -514,20 +514,50 @@ def test_chunk_ba_long_chains_match_plain(cuda):
 
 @pytest.mark.parametrize("S_,NB,N,batch", [(1, 1, 1000, 0), (5, 1, 4096, 4), (64, 8192, 200000, 0),
                                            (64, 8192, 200000, 32), (1024, 64, 50000, 0),
-                                           (3, 40000, 30000, 0)], ids=str)
+                                           (3, 40000, 30000, 0), (65, 40, 50000, 8),
+                                           (200, 16, 50000, 0), (3000, 8, 50000, 0)], ids=str)
 def test_close_wedges_matches_plain(cuda, S_, NB, N, batch):
-    """Both mask forms, all-sentinel rows, rows past shared memory
-    (40000 neighbours, searched in global memory)."""
+    """Both mask forms, all-sentinel rows, unions within the filter's 32
+    bits a key and unions past its 2^18 bits (64 x 8192, 1024 x 64, 40000
+    neighbours), one and many sample lists a key, counters past shared
+    memory (3000 samples): the kernel over the union table equals both
+    plain versions."""
     edges, mask, nb = wedge_inputs(S_, NB, N, S_ + NB, cuda, batch=batch)
     flat, fmask = edges.reshape(-1, 2), mask.reshape(-1)
+    table = W.wedge_table(nb)
     before = build.LAUNCHES["close_wedges"]
-    got = W.close_wedges(flat, nb, mask=fmask)
+    got = W.close_wedges(flat, table, mask=fmask)
     assert build.LAUNCHES["close_wedges"] == before + 1
-    assert torch.equal(got, close_wedges_ref(flat, nb, mask=fmask))
+    want = close_wedges_ref(flat, nb, mask=fmask)
+    assert torch.equal(got, want) and torch.equal(got, close_wedges_table_ref(flat, table,
+                                                                              mask=fmask))
     for k in (0, N // 3, N):
-        assert torch.equal(W.close_wedges(flat, nb, count=k), close_wedges_ref(flat, nb, count=k))
-    empty = torch.full_like(nb, 1 << 62)
+        assert torch.equal(W.close_wedges(flat, table, count=k),
+                           close_wedges_ref(flat, nb, count=k))
+    empty = W.wedge_table(torch.full_like(nb, 1 << 62))
     assert not W.close_wedges(flat, empty, mask=fmask).any()
+
+
+@pytest.mark.parametrize("NB", [40, 2000], ids=["union-1e3", "union-past-filter"])
+def test_close_wedges_dense_stripes_match_plain(cuda, NB):
+    """Buffers whose valid slots fill whole 512-slot stripes (a warp's
+    tile) beside empty ones, every endpoint in the union; with a union of
+    about 900 vertices and one of about 15,000, past the filter's 32 bits
+    a key."""
+    rng = np.random.default_rng(7 + NB)
+    _, _, nb = wedge_inputs(64, NB, 1, 3, "cpu")
+    table = W.wedge_table(nb.to(cuda))
+    assert (32 * table.union > 1 << table.log_f) == (NB == 2000)
+    live = nb[nb < 1 << 62].numpy()
+    N = 512 * 300
+    edges = torch.from_numpy(rng.choice(live, (N, 2))).to(cuda)
+    stripe = rng.random(N // 512) < 0.5
+    mask = torch.from_numpy(np.repeat(stripe, 512) | (rng.random(N) < 0.01)).to(cuda)
+    nb = nb.to(cuda)
+    got = W.close_wedges(edges, table, mask=mask)
+    assert torch.equal(got, close_wedges_ref(edges, nb, mask=mask)) and int(got.sum()) > 0
+    assert torch.equal(W.close_wedges(edges, table, count=N - 77),
+                       close_wedges_ref(edges, nb, count=N - 77))
 
 
 @pytest.mark.parametrize("spec", [api.BA(n=3000, d=4, seed=1),
