@@ -18,7 +18,10 @@ of ``repro.api``, all eight families).
    fixed-capacity buffer at a time (or ``batch`` rows), and
    :func:`iter_points` streams vertex positions the same way.
    :func:`collect` measures degrees (and sampled clustering) while
-   streaming (:mod:`repro_torch.stats`).
+   streaming, and :func:`validate` gates them against the family's
+   closed-form law (:mod:`repro_torch.stats`).  ``iter_edge_chunks(...,
+   overlap=k)`` plans in k PE-range segments on a background thread
+   while earlier segments execute (:func:`plan_emitter`).
 
 Every entry point takes ``device``: the work runs on CUDA unless the
 caller passes ``device="cpu"`` (the plain PyTorch versions of the
@@ -233,6 +236,15 @@ class RDG:
                                   chunk_P=self.chunks or 0,
                                   device=runtime.resolve_device(device))
 
+    def plan_segment(self, P: int, lo: int, hi: int, *, rng_impl: str = DEFAULT_RNG,
+                     device=None):
+        """The plan rows of PEs [lo, hi) only: the device passes run once
+        per seed (cached on the RDG planning structure), on ``device``,
+        and each segment deals its slice of the rows."""
+        return _rdg.rdg_plan_segment(self.seed, self.n, P, lo, hi, self.dim, rng_impl,
+                                     chunk_P=self.chunks or 0,
+                                     device=runtime.resolve_device(device))
+
     def point_plan(self, P: int, *, rng_impl: str = DEFAULT_RNG, device=None):
         """PointPlan over the RDG cell grid (the grid the edge plan's
         triangulations draw their points from)."""
@@ -294,6 +306,14 @@ class SBM:
         return _sbm.sbm_plan(self.seed, self.n, self.blocks, self.p_in, self.p_out,
                              P, rng_impl)
 
+    def plan_segment(self, P: int, lo: int, hi: int, *, rng_impl: str = DEFAULT_RNG,
+                     device=None):
+        """The plan rows of PEs [lo, hi) only, at about ``(hi - lo) / P`` of
+        the plan's cost: what :func:`plan_emitter` hands to the runtime's
+        plan/execute overlap."""
+        return _sbm.sbm_plan_segment(self.seed, self.n, self.blocks, self.p_in,
+                                     self.p_out, P, lo, hi, rng_impl)
+
 
 def _all_points(spec, P: int, dev, rng_impl: str) -> torch.Tensor:
     """Every vertex position of a geometric spec in vertex-id order: the
@@ -325,17 +345,54 @@ def generate(spec, P: int = 1, *, device=None, rng_impl: str = DEFAULT_RNG,
                  points=points)
 
 
+def plan_emitter(spec, P: int = 1, *, segments: int = 0, rng_impl: str = DEFAULT_RNG,
+                 device=None) -> runtime.PlanEmitter:
+    """A lazily segmented plan of ``spec``: the input of the runtime's
+    plan/execute overlap (:class:`repro_torch.distrib.runtime.PlanEmitter`).
+
+    Families with ``plan_segment(P, lo, hi)`` (:class:`SBM`, :class:`RDG`)
+    emit each PE range natively.  The others build the whole plan once,
+    on the planner thread at its first segment, and cut it with
+    ``slice_plan``: the same edges and order, planning merely moved off
+    the consumer's thread.  ``segments=0`` takes the runtime's default.
+    Planning runs on ``device`` (CUDA unless ``"cpu"``)."""
+    dev = runtime.resolve_device(device)
+    seg_fn = getattr(spec, "plan_segment", None)
+    if seg_fn is not None:
+        def build(lo: int, hi: int):
+            return seg_fn(P, lo, hi, rng_impl=rng_impl, device=dev)
+    else:
+        state = {}
+
+        def build(lo: int, hi: int):
+            if "plan" not in state:
+                state["plan"] = spec.plan(P, rng_impl=rng_impl, device=dev)
+            return engine.slice_plan(state["plan"], lo, hi)
+
+    return runtime.PlanEmitter(P, build, segments)
+
+
 def iter_edge_chunks(spec, P: int = 1, *, device=None,
                      rng_impl: str = DEFAULT_RNG, batch: int = 1,
-                     prefetch: int = 2) -> Iterator[EdgeChunk]:
+                     prefetch: int = 2, overlap: int = 0) -> Iterator[EdgeChunk]:
     """Stream ``spec``'s edges as :class:`EdgeChunk` rows, pe-major.
 
     Grouping the chunks by ``pe`` and concatenating ``chunk.edges()``
     reproduces ``generate(spec, P).edges``; on one device the stream
-    order is generate order.  ``batch > 1`` yields batched buffers."""
+    order is generate order.  ``batch > 1`` yields batched buffers.
+
+    ``overlap > 0`` streams a plan emitted in that many PE-range segments
+    (:func:`plan_emitter`) by a background planner thread while earlier
+    segments' waves execute.  The chunks, their PEs and their order are
+    the same; ``count`` is ``None`` (``mask`` stays authoritative), and an
+    exception of the planner is raised here."""
     dev = runtime.resolve_device(device)
-    plan = spec.plan(P, rng_impl=rng_impl, device=dev)
-    chunk_counts = plan.count if isinstance(plan, engine.ChunkPlan) else None
+    if overlap:
+        plan = plan_emitter(spec, P, segments=int(overlap), rng_impl=rng_impl, device=dev)
+        chunk_counts = None
+    else:
+        plan = spec.plan(P, rng_impl=rng_impl, device=dev)
+        chunk_counts = plan.count if isinstance(plan, engine.ChunkPlan) else None
     for pe, slots, payload, valid in runtime.stream_slots(
             plan, batch=batch, prefetch=prefetch, device=dev):
         count = (int(chunk_counts[pe, slots].sum())
@@ -372,3 +429,11 @@ def collect(spec, P: int = 1, **kwargs):
     from .stats import collect as _collect
 
     return _collect(spec, P, **kwargs)
+
+
+def validate(spec, P: int = 1, **kwargs):
+    """Goodness of fit of ``spec``'s output against its closed-form model
+    law: :func:`repro_torch.stats.validate` (re-export)."""
+    from .stats import validate as _validate
+
+    return _validate(spec, P, **kwargs)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +25,7 @@ from ..distrib.engine import (
     chunk_plan_from_columns,
     reseedable_chunk_plan,
 )
-from .chunking import directed_split_tree, undirected_split_tree
+from .chunking import directed_split_tree, tri_size, undirected_split_tree
 from .prng import THREEFRY, PhiloxReplayer, device_key, fold_in, fold_in_many, hash_paths
 from .variates import binomial
 
@@ -181,3 +181,20 @@ def gnp_undirected_plan(seed: int, n: int, p: float, P: int, rng_impl: str = THR
     return _cross_plan(
         seed, n, lay, lambda s: _gnp_counts(s, lay.I, lay.J, lay.universe, p),
         P, rng_impl)
+
+
+def expected_gnm_universe(n: int, directed: bool) -> int:
+    """Number of vertex pairs G(n, m) draws its m edges from."""
+    return n * (n - 1) if directed else tri_size(n)
+
+
+def expected_degree_law(n: int, *, m: Optional[int] = None, p: Optional[float] = None,
+                        directed: bool = False) -> Tuple[int, float]:
+    """(trials, p) of the Binomial (out-)degree law.
+
+    G(n, p): deg(v) ~ Binomial(n-1, p) exactly (marginally).  G(n, m):
+    the same with p = m / universe; the fixed degree sum only
+    under-disperses, so chi-square against this law is conservative."""
+    if p is None:
+        p = m / expected_gnm_universe(n, directed)
+    return n - 1, float(p)

@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import itertools
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -267,6 +268,9 @@ class RdgStructure:
             r = set(c) | _ring(c, self.dim)
             self._init_regions.append(r | _ring(r, self.dim))
         self._col_cache: Dict[int, tuple] = {}
+        # a stream's planner thread and its consumer may both ask for the
+        # columns of a seed; one computes them, the other waits for them
+        self._col_lock = threading.Lock()
         #: the last triangulation's path: halo rounds of the batched kernel,
         #: each round's rows that came back ok, and chunks that ran Qhull
         #: because their region wraps the torus
@@ -369,8 +373,21 @@ class RdgStructure:
     def _columns(self, seed: int, device=None) -> tuple:
         """(k, gid_a, gid_b, geom_a, geom_b) of the plan's rows, cached per
         seed (host numpy)."""
-        if seed in self._col_cache:
+        with self._col_lock:
+            if seed not in self._col_cache:
+                cols = self._compute_columns(seed, device)
+                if len(self._col_cache) >= 4:
+                    self._col_cache.pop(next(iter(self._col_cache)))
+                self._col_cache[seed] = cols
             return self._col_cache[seed]
+
+    def clear_columns(self) -> None:
+        """Forget every seed's cached columns (the next plan runs the
+        device passes again)."""
+        with self._col_lock:
+            self._col_cache.clear()
+
+    def _compute_columns(self, seed: int, device) -> tuple:
         n, dim, cap = self.n, self.dim, 4
         G = (dim + 1) * dim
         vg_l: List[np.ndarray] = []
@@ -397,11 +414,7 @@ class RdgStructure:
         geom_a = np.concatenate(geom_l) if k else np.zeros((0, G))
         geom_b = np.ones((k, G))
         geom_b[:, : 2 * dim] = np.concatenate(box_l) if k else 0
-        cols = (k, gid_a, gid_b, geom_a, geom_b)
-        if len(self._col_cache) >= 4:
-            self._col_cache.pop(next(iter(self._col_cache)))
-        self._col_cache[seed] = cols
-        return cols
+        return (k, gid_a, gid_b, geom_a, geom_b)
 
     def _emit(self, P_out: int, pe: np.ndarray, cols: tuple):
         k = len(pe)
@@ -422,6 +435,16 @@ class RdgStructure:
         out = self._emit(self.P, np.arange(cols[0], dtype=np.int64) % self.P, cols)
         return dataclasses.replace(out, reseed_fn=functools.partial(self.emit, device=device))
 
+    def segment(self, seed: int, lo: int, hi: int, device=None):
+        """The ``PlanEmitter`` segment of global PEs [lo, hi), re-indexed to
+        [0, hi - lo); the segments in order reproduce :meth:`emit`'s per-PE
+        row order (rows are dealt round-robin in global row order)."""
+        k, gid_a, gid_b, geom_a, geom_b = self._columns(seed, device)
+        pe = np.arange(k, dtype=np.int64) % self.P
+        sel = (pe >= lo) & (pe < hi)
+        sub = (int(sel.sum()), gid_a[sel], gid_b[sel], geom_a[sel], geom_b[sel])
+        return self._emit(hi - lo, pe[sel] - lo, sub)
+
 
 @functools.lru_cache(maxsize=None)
 def rdg_structure(n: int, P: int, dim: int = 2, rng_impl: str = THREEFRY,
@@ -435,3 +458,13 @@ def rdg_pair_plan(seed: int, n: int, P: int, dim: int = 2, rng_impl: str = THREE
     edge, with its certificate inputs and edge bitmask, dealt to PEs
     round-robin by row (the same rows for every P)."""
     return rdg_structure(n, P, dim, rng_impl, chunk_P, max_expand).emit(seed, device)
+
+
+def rdg_plan_segment(seed: int, n: int, P: int, lo: int, hi: int, dim: int = 2,
+                     rng_impl: str = THREEFRY, chunk_P: int = 0, max_expand: int = 8,
+                     device=None):
+    """Segment [lo, hi) of :func:`rdg_pair_plan`: the device passes run
+    once per seed (cached on the structure), and each segment deals its
+    slice of the rows."""
+    return rdg_structure(n, P, dim, rng_impl, chunk_P, max_expand).segment(
+        seed, lo, hi, device)

@@ -72,6 +72,20 @@ class RHGParams:
         return 2.0 * math.log(self.n) + self.C
 
 
+def expected_tail_exponent(params: RHGParams) -> float:
+    """Power-law exponent of the degree distribution: 2 alpha + 1, which
+    the alpha = (gamma - 1) / 2 parametrization pins to gamma
+    (Gugelmann et al.; the law ``stats.validate`` fits against)."""
+    return 2.0 * params.alpha + 1.0
+
+
+def expected_avg_degree(params: RHGParams) -> float:
+    """Expected average degree: C (Eq. 4) is calibrated as the inverse of
+    the asymptotic mean-degree formula, so the model's expectation is the
+    requested ``avg_deg`` (up to o(1) finite-size terms)."""
+    return float(params.avg_deg)
+
+
 def _cdf(params: RHGParams, r: float) -> float:
     """mu(B_r(0)) = (cosh(alpha r) - 1)/(cosh(alpha R) - 1)  (Eq. A.2)."""
     a = params.alpha

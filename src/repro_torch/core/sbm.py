@@ -105,6 +105,37 @@ def sbm_plan(seed: int, n: int, B: int, p_in: float, p_out: float,
         count_fn=lambda s: _region_counts(s, ri, rj, U, pvec)[flat_r])
 
 
+def sbm_plan_segment(seed: int, n: int, B: int, p_in: float, p_out: float,
+                     P: int, lo: int, hi: int, rng_impl: str = THREEFRY):
+    """Plan rows of PEs [lo, hi) only: the native segment of the runtime's
+    ``PlanEmitter`` overlap.
+
+    Only the regions whose owner or mirror PE falls in the range are
+    keyed and counted, so a segment costs about ``(hi - lo) / P`` of the
+    plan; the restriction is exact because every region draws from its
+    own hashed generator.  The tables equal ``slice_plan(sbm_plan(...),
+    lo, hi)`` field by field except ``capacity``, which is the
+    segment's own (each slot's draws do not depend on it)."""
+    ri, rj, sec, diag, U = _region_layout(n, B)
+    flat_r, pe, owned = _cross_pack(ri, rj, P)
+    sel = (pe >= lo) & (pe < hi)
+    flat_r, pe, owned = flat_r[sel], pe[sel], owned[sel]
+    # distinct regions this range touches, in canonical order
+    needed = np.zeros(len(ri), bool)
+    needed[flat_r] = True
+    ridx = np.nonzero(needed)[0]
+    inv = np.zeros(len(ri), np.int64)
+    inv[ridx] = np.arange(len(ridx), dtype=np.int64)
+    keys = _region_keys(seed, ri[ridx], rj[ridx], rng_impl)
+    cnt = _region_counts(seed, ri[ridx], rj[ridx], U[ridx],
+                         np.where(diag[ridx], p_in, p_out))
+    kind = np.where(diag, KIND_TRI, KIND_RECT).astype(np.int32)
+    params = _region_params(sec, ri, rj, diag)
+    return chunk_plan_from_columns(
+        hi - lo, pe - lo, kind[flat_r], keys[inv[flat_r]], U[flat_r],
+        cnt[inv[flat_r]], params[flat_r], owned, n, rng_impl=rng_impl)
+
+
 def block_of(n: int, B: int, v: np.ndarray) -> np.ndarray:
     """Block id of each vertex (inverse of ``section_bounds``)."""
     bounds = np.array([section_bounds(n, B, b)[0] for b in range(B)] + [n])

@@ -296,10 +296,13 @@ def owned_chunk_index(plan: ChunkPlan) -> np.ndarray:
     return np.argwhere(sel).astype(np.int64)
 
 
-def slice_plan(plan: ChunkPlan, lo: int, hi: int) -> ChunkPlan:
-    """Restrict a plan to the PE range [lo, hi) -- every [P, ...] table
-    sliced on its leading axis, other fields untouched; the slice drops
-    ``reseed_fn``."""
+def slice_plan(plan, lo: int, hi: int):
+    """Restrict a table plan (:class:`ChunkPlan` or :class:`PairPlan`) to
+    the PE range [lo, hi): every [P, ...] table sliced on its leading
+    axis, other fields untouched.  The segmenter behind
+    :meth:`repro_torch.distrib.runtime.PlanEmitter.from_plan`: segment
+    PEs are re-indexed to [0, hi - lo), and the slice drops ``reseed_fn``
+    (a segment is not a reseedable whole plan)."""
     P = plan.num_pes
     if not 0 <= lo < hi <= P:
         raise ValueError(f"bad PE range [{lo}, {hi}) for P={P}")

@@ -14,16 +14,24 @@ contributes output, pe-major).  On that:
   batch]`` slabs, in stream order; a batch never straddles a PE, so
   grouping the streamed rows by PE reproduces :func:`run`'s output.
   ``prefetch`` bounds how many executed waves are held before the
-  consumer takes them.  The sampler reads its duplicate flag on the
-  host once per round, so a wave does not overlap the next one.
+  consumer takes them.  No kernel of a wave reads anything back to the
+  host (the sampler runs its redraw rounds on the card), so the host
+  queues wave k+1 while the card still runs wave k.
+* :class:`PlanEmitter` streams a plan emitted one PE-range segment at a
+  time: a background planner thread builds segment k+1 while segment
+  k's waves execute (plan/execute overlap), and the regrouped stream is
+  the unsegmented plan's.
 
 There are no collectives: one card executes every virtual PE's rows.
 """
 from __future__ import annotations
 
+import queue as _queue
+import threading
 from collections import deque
+from contextlib import nullcontext
 from dataclasses import dataclass
-from typing import Iterator, Tuple
+from typing import Callable, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -128,11 +136,134 @@ class Wave:
             yield pe, slots, self.payload[d], self.valid[d]
 
 
+# --------------------------------------------------------------------------
+# lazily segmented plans: plan/execute overlap
+# --------------------------------------------------------------------------
+
+#: default number of plan segments when the emitter does not pin one
+DEFAULT_SEGMENTS = 4
+
+
+class PlanEmitter:
+    """A plan emitted lazily, one PE-range segment at a time.
+
+    ``build(lo, hi)`` returns a plan holding exactly the rows of global
+    PEs ``[lo, hi)`` re-indexed to ``[0, hi - lo)``: for table plans,
+    field by field equal to :func:`repro_torch.distrib.engine.slice_plan`
+    of the full emission, except that the segment's ``capacity`` may be
+    segment-local (each slot's draws do not depend on the capacity, so
+    the outputs are the same).  Families whose per-PE rows are cheap to
+    restrict build natively; :meth:`from_plan` wraps a built plan.
+
+    Segment widths are multiples of the mesh row count D; segments come
+    in ascending PE order and each keeps its per-PE stream order, so the
+    overlapped stream regroups to the unsegmented plan's per-PE order.
+    """
+
+    def __init__(self, num_pes: int, build: Callable[[int, int], object],
+                 segments: int = 0):
+        self.num_pes = int(num_pes)
+        self.build = build
+        self.segments = int(segments)
+
+    @classmethod
+    def from_plan(cls, plan, segments: int = 0) -> "PlanEmitter":
+        """Segment an already-built table plan through ``slice_plan``."""
+        from .engine import slice_plan
+
+        return cls(plan.num_pes, lambda lo, hi: slice_plan(plan, lo, hi), segments)
+
+    def segment_bounds(self, D: int = 1) -> Tuple[Tuple[int, int], ...]:
+        """The (lo, hi) PE ranges streamed over a D-row mesh: about equal
+        widths, every width a multiple of D, ascending."""
+        if self.num_pes % D:
+            raise ValueError(
+                f"mesh of {D} devices cannot shard a {self.num_pes}-PE "
+                f"emitter: P % devices must be 0")
+        nb = self.num_pes // D
+        k = max(1, min(self.segments or DEFAULT_SEGMENTS, nb))
+        cuts = [nb * s // k * D for s in range(k + 1)]
+        return tuple((cuts[s], cuts[s + 1]) for s in range(k)
+                     if cuts[s + 1] > cuts[s])
+
+
+def _plan_feed(emitter: PlanEmitter, device: torch.device):
+    """Start the background planner: it builds the segments in PE order
+    into a bounded queue (at most two segments ahead of execution).
+    Items are ``(lo, plan)``, then ``None`` at exhaustion; an exception of
+    the planner is put on the queue for the consumer to raise.  Returns
+    ``(queue, stop)``: setting ``stop`` ends the planner at its next
+    segment or queue wait, so an abandoned stream does not leave it
+    running.
+
+    The thread runs on ``device`` (PyTorch's current device is per
+    thread); its launches (RDG's triangulation on a cold seed) go on that
+    device's current stream, which is the default stream in a new
+    thread, and every segment it hands over is host numpy, copied from
+    the device before the hand-off."""
+    q: _queue.Queue = _queue.Queue(maxsize=2)
+    stop = threading.Event()
+    bounds = emitter.segment_bounds()
+    # made here, so a device without an index is the consumer's current one
+    guard = torch.cuda.device(device) if device.type == "cuda" else nullcontext()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except _queue.Full:
+                pass
+        return False
+
+    def planner() -> None:
+        try:
+            with guard:
+                for lo, hi in bounds:
+                    if stop.is_set() or not put((lo, emitter.build(lo, hi))):
+                        return
+            put(None)
+        except BaseException as e:  # forwarded to the consumer thread
+            put(e)
+
+    threading.Thread(target=planner, name="repro-torch-plan-emitter", daemon=True).start()
+    return q, stop
+
+
+def _stream_emitter_waves(emitter: PlanEmitter, batch: int, prefetch: int,
+                          device: torch.device) -> Iterator[Wave]:
+    """:func:`stream_waves` over a lazily segmented plan: execute segment
+    k's waves while the planner thread emits segment k+1.  ``Wave.rows``
+    carry global PE ids."""
+    feed, stop = _plan_feed(emitter, device)
+    try:
+        while True:
+            item = feed.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            lo, seg = item
+            for wave in stream_waves(seg, batch=batch, prefetch=prefetch, device=device):
+                if lo:
+                    wave = Wave(wave.payload, wave.valid,
+                                tuple(None if r is None else (r[0] + lo, r[1])
+                                      for r in wave.rows))
+                yield wave
+    finally:
+        stop.set()
+
+
 def stream_waves(plan, batch: int = 1, prefetch: int = 2,
                  device=None) -> Iterator[Wave]:
     """Stream a plan as :class:`Wave` slabs of ``batch`` rows; at most
-    ``prefetch`` executed waves are held before they are yielded."""
+    ``prefetch`` executed waves are held before they are yielded.  A
+    :class:`PlanEmitter` streams through the plan/execute overlap path,
+    with global PE ids in ``Wave.rows``."""
     dev = resolve_device(device)
+    if isinstance(plan, PlanEmitter):
+        yield from _stream_emitter_waves(plan, batch, prefetch, dev)
+        return
     ws = wave_schedule(plan, 1, batch)
     if not ws.num_waves:
         return
@@ -155,6 +286,7 @@ def stream_waves(plan, batch: int = 1, prefetch: int = 2,
 def stream_slots(plan, batch: int = 1, prefetch: int = 2, device=None
                  ) -> Iterator[Tuple[int, np.ndarray, torch.Tensor, torch.Tensor]]:
     """Flattened :func:`stream_waves`: ``(pe, slots, payload, valid)``
-    per batch, pe-major."""
+    per batch, pe-major; takes a :class:`PlanEmitter` too (``pe`` is then
+    the global PE id)."""
     for wave in stream_waves(plan, batch=batch, prefetch=prefetch, device=device):
         yield from wave.chunks()

@@ -573,3 +573,54 @@ def test_family_generate_and_collect_on_the_card_equal_cpu(cuda, spec):
         b = api.collect(spec, 3, metrics=("degree", "clustering"), device="cpu")
         for f in ("sample", "degree", "triangles", "wedges", "valid"):
             assert np.array_equal(getattr(a.clustering, f), getattr(b.clustering, f)), f
+
+
+def _regroup(chunks, P):
+    per = [[] for _ in range(P)]
+    for c in chunks:
+        per[c.pe].append(c.edges().cpu())
+    return torch.cat([e for pe in per for e in pe])
+
+
+@pytest.mark.parametrize("spec", [api.SBM(n=4000, blocks=5, p_in=0.01, p_out=0.001, seed=3),
+                                  api.RDG(n=2000, dim=2, seed=17)], ids=["SBM", "RDG"])
+def test_overlapped_stream_on_the_card_equals_unsegmented(cuda, spec):
+    """Segment-local capacities (SBM) and a planner thread that launches
+    the Delaunay kernels (RDG, cold seed) give the unsegmented stream."""
+    from repro_torch.core import rdg
+
+    rdg.rdg_structure.cache_clear()
+    got = _regroup(api.iter_edge_chunks(spec, 8, device=cuda, overlap=4), 8)
+    want = _regroup(api.iter_edge_chunks(spec, 8, device=cuda), 8)
+    assert torch.equal(got, want) and len(got)
+    assert torch.equal(got, api.generate(spec, 8, device="cpu").edges)
+
+
+def test_stream_waves_make_no_host_sync(cuda):
+    """After the tables are on the card, a wave reads nothing back to the
+    host, so the host queues the next wave while the card runs this one."""
+    from repro_torch.distrib import runtime
+
+    plan = api.SBM(n=1 << 16, blocks=8, p_in=2.0 ** -9, p_out=2.0 ** -13, seed=3).plan(16)
+    it = runtime.stream_waves(plan, device=cuda)
+    waves = [next(it)]                  # tables and schedule copied, kernels loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        waves += list(it)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(waves) > 8
+
+
+def test_validate_on_the_card_equals_cpu(cuda):
+    from repro_torch import stats
+
+    for spec, P in ((api.GNP(n=4096, p=16 / 4096, seed=1), 4),
+                    (api.RHG(n=4096, avg_deg=8, gamma=2.7, seed=1), 4),
+                    (api.BA(n=2048, d=4, seed=7), 2)):
+        a, b = stats.validate(spec, P, device=cuda), stats.validate(spec, P, device="cpu")
+        assert str(a) == str(b) and a.passed
+        for x, y in zip(a.checks, b.checks):
+            assert (x.name, x.passed, x.observed, x.expected, x.pvalue) == \
+                (y.name, y.passed, y.observed, y.expected, y.pvalue)

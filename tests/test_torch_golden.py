@@ -6,7 +6,8 @@ statistics of one ``collect``; ``geom.json`` the RGG and RHG edge
 digests, ``iter_points`` digests and a sample of RHG features;
 ``rdg.json`` the RDG edge, plan-table and point digests and each spec's
 planning path; ``families.json`` the BA, R-MAT and SBM edge digests and
-two sampled clustering reports.  The JAX
+two sampled clustering reports; ``stats.json`` six ``validate`` reports
+(floats as hex, compared exactly).  The JAX
 package must still reproduce every entry except the mid-size ones (the
 command is in the files), and the port on the CPU must reproduce the
 small ones.  Digests, integers and the port's RHG features are compared
@@ -33,6 +34,8 @@ RDG = json.loads(torch_golden.RDG.read_text())
 RDG_SMALL = [e for e in RDG["generate"] if e["size"] == "small"]
 FAM = json.loads(torch_golden.FAMILIES.read_text())
 FAM_SMALL = [e for e in FAM["generate"] if e["size"] == "small"]
+STATS = json.loads(torch_golden.STATS.read_text())
+STATS_SMALL = [e for e in STATS["validate"] if e["size"] == "small"]
 
 
 def _id(e):
@@ -201,3 +204,23 @@ def test_reference_and_port_reproduce_clustering(entry):
     assert rep.num_edges == entry["num_edges"]
     for f in torch_golden.CLUSTER_FIELDS:
         assert [int(x) for x in getattr(rep.clustering, f)] == entry[f], f
+
+
+def test_the_stats_file_names_its_command_and_entries():
+    assert STATS["command"] == torch_golden.COMMAND
+    assert [(e["family"], e["params"], e["P"], e["kwargs"], e["size"])
+            for e in STATS["validate"]] == [tuple(v) for v in torch_golden.VALIDATE]
+    for e in STATS["validate"]:
+        assert e["passed"] and all(c["passed"] for c in e["checks"])
+        assert len(e["str"]) == 1 + len(e["checks"])
+
+
+@pytest.mark.parametrize("entry", STATS_SMALL, ids=lambda e: f"{e['family']}-P{e['P']}")
+def test_reference_and_port_reproduce_validate_report(entry):
+    assert torch_golden.validate_entry(entry["family"], entry["params"], entry["P"],
+                                       entry["kwargs"], "small") == entry
+    rep = tapi.validate(getattr(tapi, entry["family"])(**entry["params"]), entry["P"],
+                        device="cpu", **entry["kwargs"])
+    got = {"params": entry["params"], "kwargs": entry["kwargs"], "size": "small",
+           **torch_golden.report_entry(rep)}
+    assert got == entry

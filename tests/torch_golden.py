@@ -28,7 +28,12 @@ and, into ``src/repro_torch/golden/families.json``:
 * edge digests of small BA, R-MAT and SBM specs at P in {1, 3} and of
   one mid-size spec of each at P = 1;
 * the sampled clustering reports of ``collect(..., metrics=("degree",
-  "clustering"))`` for a G(n, p) and a small RHG.
+  "clustering"))`` for a G(n, p) and a small RHG;
+and, into ``src/repro_torch/golden/stats.json``:
+* the ``repro.stats.validate`` reports of the reference's two acceptance
+  gates (G(n, p) and RHG at n = 2^18, P = 8; mid-size) and of its four
+  smoke families (P = 4; small): every check's name, flag, detail and
+  ``observed``/``expected``/``pvalue`` as hex floats, and ``str(report)``.
 
 Run from the root of the repository (the mid-size specs take about a
 minute of CPU)::
@@ -50,6 +55,7 @@ GOLDEN = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "golden" 
 GEOM = GOLDEN.with_name("geom.json")
 RDG = GOLDEN.with_name("rdg.json")
 FAMILIES = GOLDEN.with_name("families.json")
+STATS = GOLDEN.with_name("stats.json")
 COMMAND = "PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py"
 
 SMALL = [
@@ -91,6 +97,16 @@ CLUSTER_P = 2
 CLUSTER_FIELDS = ("sample", "degree", "triangles", "wedges", "valid")
 PAIR_FIELDS = ("kind", "key_a", "key_b", "count_a", "count_b", "gid_a", "gid_b",
                "geom_a", "geom_b", "fparams", "self_pair", "active")
+# (family, spec params, P, validate kwargs, size): tests/test_stats.py's
+# acceptance gates (mid) and smoke families (small)
+VALIDATE = [
+    ("GNP", dict(n=1 << 18, p=20.0 / (1 << 18), seed=11), 8, {}, "mid"),
+    ("RHG", dict(n=1 << 18, avg_deg=6.0, gamma=2.7, seed=2), 8, dict(batch=512), "mid"),
+    ("GNM", dict(n=2048, m=8192, seed=5), 4, {}, "small"),
+    ("BA", dict(n=2048, d=4, seed=7), 4, {}, "small"),
+    ("SBM", dict(n=1500, blocks=5, p_in=0.03, p_out=0.003, seed=3), 4, {}, "small"),
+    ("RMAT", dict(log_n=11, m=16000, seed=1), 4, {}, "small"),
+]
 POINTS_P = 3
 FEATURE_ROWS = 16     # RHG candidate-pair rows whose side-a features are kept
 
@@ -272,6 +288,36 @@ def families_doc() -> dict:
             "clustering": [cluster_entry(f, p, CLUSTER_P) for f, p in CLUSTER]}
 
 
+def hex_or_none(x):
+    return None if x is None else float(x).hex()
+
+
+def report_entry(report) -> dict:
+    """A validation report as stored: each check's floats as hex, and the
+    report's text line by line."""
+    return {"family": report.family, "P": int(report.P), "passed": bool(report.passed),
+            "num_edges": int(report.stats.num_edges), "mode": report.stats.mode,
+            "checks": [{"name": c.name, "passed": bool(c.passed),
+                        "observed": float(c.observed).hex(),
+                        "expected": float(c.expected).hex(),
+                        "pvalue": hex_or_none(c.pvalue), "detail": c.detail}
+                       for c in report.checks],
+            "str": str(report).splitlines()}
+
+
+def validate_entry(family: str, params: dict, P: int, kwargs: dict, size: str) -> dict:
+    from repro import api, stats
+
+    rep = stats.validate(getattr(api, family)(**params), P, **kwargs)
+    return {"params": params, "kwargs": kwargs, "size": size, **report_entry(rep)}
+
+
+def stats_doc() -> dict:
+    return {"command": COMMAND,
+            "floats": "float.hex() of float64",
+            "validate": [validate_entry(*v) for v in VALIDATE]}
+
+
 def main() -> None:
     entries = [generate_entry(f, p, P, "small") for f, p in SMALL for P in SMALL_PES]
     entries.append(generate_entry(*MID, 1, "mid"))
@@ -287,6 +333,8 @@ def main() -> None:
     print(f"wrote {RDG}")
     FAMILIES.write_text(json.dumps(families_doc(), indent=1) + "\n")
     print(f"wrote {FAMILIES}")
+    STATS.write_text(json.dumps(stats_doc(), indent=1) + "\n")
+    print(f"wrote {STATS}")
 
 
 if __name__ == "__main__":
