@@ -71,7 +71,24 @@ or of the JAX package.  Phases, each printed with its seconds:
       cold RDG(2^20, 2-D, seed 16) streamed at P=16 with overlap 0, 4, 4,
       0 in turns (time to the first chunk, wall, the consumer's wait on
       the planner), every run with the same checksum and per-PE digests,
-      the overlapped RDG runs triangulating on the planner thread;
+      the overlapped RDG runs triangulating on the planner thread; the
+      planner wait is the sum of the ``plan/overlap/wait`` spans of a run
+      traced by ``repro_torch.obs``;
+   f. serving: ``Service(P=16, slab_batch=16)`` takes 40 requests at once
+      (8 GNM(n=2^22, m=2^26), 8 GNP(2^22, 16/2^22), 8 BA(2^22, 16), 8
+      SBM(2^22, 16 blocks, p_in=2^-15, p_out=2^-19), 4 RMAT(22, 2^26), 4
+      RHG(n=2^15, avg_deg=16, gamma=2.8)), the first of each family into
+      a graph sink, the rest into stats sinks, and 6 more after 8 ticks
+      (one a family, plan-cache hits); every request against
+      ``generate(spec, 16)`` (edges, or edge count and degrees), whose
+      calls are the naive loop; the fleet again, traced and under the
+      profiler (the device's idle share, seconds by phase and span); an
+      SBM request with ``overlap=4`` into a chunks sink against
+      ``iter_edge_chunks`` chunk by chunk; RDG(n=2^18) cold
+      (``triangulate`` on admission) and reseeded; fault reissue on a
+      GNM with D=4 slab rows; an RGG of capacity 4097..7261 served at
+      class 8192 and HYP rows at class 4096 (``pair_edges`` staged by
+      counts); each family's cold plan against its reseed;
    each checked on the device; each ``collect`` must launch ``hist`` once
    per non-empty chunk of its first pass plus once per section histogram.  ``pair_mask`` is
    not on any path: as in
@@ -82,7 +99,9 @@ or of the JAX package.  Phases, each printed with its seconds:
    and its bound (``pair_mask`` at its own contract's shape, the
    128-row cell blocks of the oracles, built from the main path's pair
    rows and held against ``pair_edges``' keep; ``triangulate`` at every
-   halo round of the 2-D RDG plan, with its cluster size and its trip
+   halo round of the 2-D RDG plan (its plain version on the first row of
+   a round of several rows, and on the whole of a one-row round, which
+   the ``kernels`` line reports), with its cluster size and its trip
    split into parts by the kernel's clock64 counters, ``circumspheres``
    and the CERT rows of ``pair_edges`` at the inputs of its first round;
    ``hist`` also by the profiler's device time per call, beside
@@ -105,7 +124,8 @@ or of the JAX package.  Phases, each printed with its seconds:
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
 
-``--only PATH`` (``er``, ``geom``, ``rdg``, ``families``, ``stats``; repeatable) builds and runs
+``--only PATH`` (``er``, ``geom``, ``rdg``, ``families``, ``stats``, ``serve``; repeatable)
+builds and runs
 only that main path and its phase 4 timing, and ``--no-timing`` stops
 after the path: run the same script in two checkouts in turns to
 compare them on one card.
@@ -580,17 +600,19 @@ def kernel_group(key: str) -> str:
     return "sort" if "sort" in key.lower() else "other"
 
 
-def profiled(fn, by=None):
+def profiled(fn, by=None, cpu: bool = True):
     """(result, device ms by kernel group, wall s) of ``fn`` under
     torch.profiler; an empty dict when the profiler saw no device time.
-    ``by`` maps a kernel name to its group (default :func:`kernel_group`)."""
+    ``by`` maps a kernel name to its group (default :func:`kernel_group`);
+    ``cpu=False`` records the card's activity alone (for runs of many
+    small host steps, whose host events would swamp the profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=acts, acc_events=True) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -2169,41 +2191,26 @@ def timed_stream(spec, P: int, dev, overlap: int, batch: int):
 
 def overlap_turns(spec, P: int, dev, batch: int, cold) -> list:
     """The stream of ``spec`` with overlap 0, 4, 4, 0 in turns, each under
-    the profiler; ``cold()`` runs before each.  Requires every run to give
-    the same checksum and per-PE digests; returns ``(overlap, edges,
+    the profiler and traced by ``obs`` (the consumer's wait on the planner
+    is the sum of its ``plan/overlap/wait`` spans; tracing ends each wave
+    in a synchronize); ``cold()`` runs before each.  Requires every run to
+    give the same checksum and per-PE digests; returns ``(overlap, edges,
     checksum, digests)`` of each run."""
-    from repro_torch.distrib import runtime
-
-    real_feed, waits = runtime._plan_feed, []
-
-    def timed_feed(*a, **k):
-        q, stop = real_feed(*a, **k)
-        get = q.get
-
-        def timed_get(*ga, **gk):
-            t = time.perf_counter()
-            item = get(*ga, **gk)
-            waits[-1] += time.perf_counter() - t
-            return item
-
-        q.get = timed_get
-        return q, stop
+    from repro_torch import obs
 
     runs = []
-    runtime._plan_feed = timed_feed
-    try:
-        for overlap in (0, 4, 4, 0):
-            cold()
-            waits.append(0.0)
+    for overlap in (0, 4, 4, 0):
+        cold()
+        with obs.capture() as tr:
             out, groups, wall = profiled(lambda: timed_stream(spec, P, dev, overlap, batch))
-            total, chunks, c, digests, first, _ = out
-            runs.append((overlap, total, c, digests))
-            print(f"  stream {spec} P={P} overlap={overlap}: {chunks} chunks, {total} edges, "
-                  f"checksum {c:#018x}, first chunk {first:.6f}s, wall {wall:.6f}s, "
-                  f"planner wait {waits[-1]:.6f}s")
-            print_breakdown(f"overlap={overlap}", groups, wall)
-    finally:
-        runtime._plan_feed = real_feed
+        total, chunks, c, digests, first, _ = out
+        wait = sum(r.seconds for r in tr.spans() if r.name == "plan/overlap/wait")
+        runs.append((overlap, total, c, digests))
+        print(f"  stream {spec} P={P} overlap={overlap}: {chunks} chunks, {total} edges, "
+              f"checksum {c:#018x}, first chunk {first:.6f}s, wall {wall:.6f}s, "
+              f"planner wait {wait:.6f}s (plan/overlap/wait spans); phases "
+              + ", ".join(f"{k} {v:.6f}" for k, v in tr.phase_totals().items()))
+        print_breakdown(f"overlap={overlap}", groups, wall)
     for overlap, *got in runs[1:]:
         require(tuple(got) == runs[0][1:],
                 f"{spec} P={P}: the overlap={overlap} stream differs from the unsegmented "
@@ -2301,6 +2308,420 @@ def stats_timing(dev, out: dict, errs: Errors) -> list:
     return []
 
 
+# ------------------------------------------------------------------ serve --
+
+def serve_fleet(api, sizes: dict) -> tuple:
+    """The fleet of path 3f: ``(spec, sink)`` of 40 requests, each with its
+    own seed, the first request of each family with the graph sink; and
+    the 6 admitted mid-drain, one a family, with new seeds."""
+    n, m = sizes["serve_n"], sizes["serve_m"]
+    make = [("GNM", 8, lambda s: api.GNM(n=n, m=m, seed=s)),
+            ("GNP", 8, lambda s: api.GNP(n=n, p=16 / n, seed=s)),
+            ("BA", 8, lambda s: api.BA(n=n, d=16, seed=s)),
+            ("SBM", 8, lambda s: api.SBM(n=n, blocks=16, p_in=2.0 ** -15, p_out=2.0 ** -19,
+                                         seed=s)),
+            ("RMAT", 4, lambda s: api.RMAT(log_n=n.bit_length() - 1, m=m, seed=s)),
+            ("RHG", 4, lambda s: api.RHG(n=sizes["serve_rhg_n"], avg_deg=16, gamma=2.8,
+                                         seed=s))]
+    fleet, seed = [], 100
+    for _, count, f in make:
+        for i in range(count):
+            fleet.append((f(seed), "graph" if i == 0 else "stats"))
+            seed += 1
+    late = [(f(seed + k), "stats") for k, (_, _, f) in enumerate(make)]
+    return fleet, late
+
+
+def peek_groups(scheduler) -> list:
+    """``(program, valid, rows)`` of the next slab of every packing group,
+    as ``tick`` would run it (``peek_slab`` takes the group the round
+    robin is at, so the round robin is stepped over each and put back)."""
+    rr, out = scheduler._rr, []
+    try:
+        for i in range(sum(bool(g.queue) for g in scheduler._groups.values())):
+            scheduler._rr = i
+            out.append(scheduler.peek_slab())
+    finally:
+        scheduler._rr = rr
+    return out
+
+
+def serve_run(dev, sizes: dict, label: str, check_syncs: bool = False, peek=None):
+    """One run of the fleet on a fresh ``Service(P=16, slab_batch=16,
+    slab_bytes=sizes["serve_slab_bytes"])``: every request submitted at
+    once, 6 more (one a family, plan-cache hits) after 8 ticks, then
+    drained.  Returns the service, the tickets with their specs, the wall
+    s and the implicit host syncs (counted through the sync debug mode
+    when ``check_syncs``).  ``peek``, a list, receives the first slab of
+    every packing group (outside the wall)."""
+    import warnings
+    import torch
+    from repro_torch import api
+    from repro_torch.serve import Service
+
+    fleet, late = serve_fleet(api, sizes)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    syncs = None
+    with warnings.catch_warnings(record=True) as caught:
+        if check_syncs:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            svc = Service(16, device=dev, slab_batch=16, slab_bytes=sizes["serve_slab_bytes"])
+            tickets = [(spec, svc.submit(spec, sink=sink)) for spec, sink in fleet]
+            if peek is not None:
+                t1 = time.perf_counter()
+                peek += peek_groups(svc.scheduler)
+                t0 += time.perf_counter() - t1
+            for _ in range(8):
+                svc.tick()
+            before = svc.cache.stats["hits"]
+            tickets += [(spec, svc.submit(spec, sink=sink)) for spec, sink in late]
+            require(svc.cache.stats["hits"] == before + len(late),
+                    "serve: a mid-drain admission missed the plan cache")
+            svc.drain()
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    if check_syncs:
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = svc.stats
+    fill = svc.scheduler._m_fill
+    groups = svc.scheduler._groups.values()
+    slab_bytes = max(svc.scheduler.D * g.B * g.program.slot_bytes for g in groups)
+    widths = ", ".join(f"{g.program.plan_kind} class {g.program.capacity}: {g.B}"
+                       for g in groups)
+    print(f"  serve {label}: {len(tickets)} requests, wall {wall:.6f}s, "
+          f"{len(tickets) / wall:.4f} requests/s, ticket latency p50 "
+          f"{svc.latency_percentile(0.5):.6f}s p99 {svc.latency_percentile(0.99):.6f}s, "
+          f"{st['slabs']} slabs, {st['slots']} slots, mean slab fill "
+          f"{fill.sum / fill.count:.4f}, cache hits {st['cache']['hits']} misses "
+          f"{st['cache']['misses']}, packing groups {len(svc.scheduler._groups)} (slots a "
+          f"slab: {widths}), largest slab {slab_bytes / 2**30:.3f} GiB of output, peak device "
+          f"memory {peak / 2**30:.3f} GiB")
+    if syncs is not None:
+        print(f"  serve {label} host syncs: {syncs} implicit (sync debug mode: extractions of "
+              f"the graph sinks) + {svc.syncs} ticket stamps = "
+              f"{(syncs + svc.syncs) / st['slabs']:.4f} a slab")
+    return svc, tickets, wall
+
+
+def serve_compare(dev, tickets) -> float:
+    """Every served request against ``generate(spec, 16)`` on the card, one
+    at a time: the graph sinks edge for edge, the stats sinks by edge count
+    and degree array.  Returns the naive loop's wall: the generate calls
+    alone, each ending in a synchronize."""
+    import torch
+    from repro_torch import api
+
+    naive = 0.0
+    for spec, t in tickets:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        g = api.generate(spec, 16, device=dev)
+        torch.cuda.synchronize(dev)
+        naive += time.perf_counter() - t0
+        got = t.result()
+        if isinstance(got, dict):
+            require(got["num_edges"] == g.m and torch.equal(got["degrees"], g.degrees()),
+                    f"serve: {spec} stats differ from generate's")
+        else:
+            require(torch.equal(got.edges, g.edges), f"serve: {spec} edges differ from generate's")
+        del g, got
+    return naive
+
+
+def phase_serve(dev, sizes: dict) -> dict:
+    """Phase 3f: the serving tier on the card.  The fleet (40 requests of
+    six families, 6 more admitted mid-drain), every request against
+    ``generate``; the naive loop; the fleet again under the profiler and
+    traced; an overlapped SBM chunk stream; RDG cold and reseeded; fault
+    reissue on 4 slab rows; a pair plan past the staging limit that
+    ``pair_edges`` had by capacity; each family's cold plan against its
+    reseed.  Returns the first slab of each of the fleet's packing groups
+    and of the class-8192 RGG, which phase 4 holds against the plain
+    versions."""
+    import math
+    import torch
+    from repro_torch import api, obs
+    from repro_torch.core import rdg, rgg
+    from repro_torch.kernels import build
+    from repro_torch.serve import Service, program_of
+
+    t_path = time.perf_counter()
+
+    def step(what: str) -> None:
+        print(f"  [3f {what}: {time.perf_counter() - t_path:.3f}s into the path]", flush=True)
+
+    before = dict(build.LAUNCHES)
+    slabs = []
+    svc, tickets, wall = serve_run(dev, sizes, "fleet (cold cache)", check_syncs=True,
+                                   peek=slabs)
+    served = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
+    print(f"  serve fleet launches: {served}")
+    for name in ("hist", "chunk_sample", "chunk_decode", "chunk_ba", "chunk_rmat", "pair_edges"):
+        require(served[name] > 0, f"serve: the fleet launched no {name}")
+    naive = serve_compare(dev, tickets)
+    print(f"  naive loop [generate(s, 16) for s in fleet]: {len(tickets)} requests, "
+          f"{naive:.6f}s ({len(tickets) / naive:.4f} requests/s), against the service's "
+          f"{wall:.6f}s; every served request equals generate's")
+    exposition = obs.parse_exposition(svc.metrics())
+    print("  serve metrics: " + json.dumps(exposition, sort_keys=True))
+    del svc, tickets
+    torch.cuda.empty_cache()
+    step("fleet, naive loop and checks")
+
+    # the fleet again, in turn with the naive loop: traced, under the profiler
+    # (the card's activity alone: the fleet is tens of thousands of host steps)
+    with obs.capture() as tr:
+        (svc, tickets, wall2), groups, pwall = profiled(
+            lambda: serve_run(dev, sizes, "fleet again (traced, profiled)"), cpu=False)
+    print_breakdown("serve fleet", groups, pwall)
+    summary = tr.summary()
+    print("  serve traced drain, s by phase: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in summary["phases"].items()) + "; spans: " + ", ".join(
+        f"{k} {v['count']} / {v['total_s']:.6f}s" for k, v in sorted(summary["spans"].items())))
+    del svc, tickets, tr
+    torch.cuda.empty_cache()
+    step("fleet again")
+
+    # streaming with overlap: the chunks sink against iter_edge_chunks
+    p_in, p_out = 2.0 ** -15, 2.0 ** -19
+    sbm = api.SBM(n=sizes["serve_n"], blocks=16, p_in=p_in, p_out=p_out, seed=300)
+    svc = Service(16, device=dev, slab_batch=16)
+    t0 = time.perf_counter()
+    k = 0
+    for k, (a, b) in enumerate(zip(svc.submit(sbm, sink="chunks", overlap=4).chunks(),
+                                   api.iter_edge_chunks(sbm, 16, device=dev)), 1):
+        require(a.pe == b.pe and torch.equal(a.edges(), b.edges()),
+                f"serve: overlapped SBM chunk {k - 1} differs from iter_edge_chunks'")
+    require(k == len(sbm.plan(16).stream_index()), "serve: overlapped SBM chunk count")
+    print(f"  serve {sbm} overlap=4, chunks sink: {k} chunks equal iter_edge_chunks', "
+          f"{time.perf_counter() - t0:.3f}s with the comparison")
+
+    step("overlapped SBM")
+    # RDG: cold (triangulate on admission), then a new seed (plan-cache
+    # hit); its CERT rows are 16 slots each, so a slab takes 4096 of them
+    # (at the fleet's 16, a request is 27,000 slabs of host work)
+    rdg.rdg_structure.cache_clear()
+    svc = Service(16, device=dev, slab_batch=4096)
+    for seed, what in ((400, "cold"), (401, "reseeded")):
+        spec = api.RDG(n=sizes["serve_rdg_n"], dim=2, seed=seed)
+        tri = build.LAUNCHES["triangulate"]
+        t0 = time.perf_counter()
+        t = svc.submit(spec)
+        plan_s = time.perf_counter() - t0
+        g = t.result()
+        torch.cuda.synchronize(dev)
+        s = time.perf_counter() - t0
+        tri = build.LAUNCHES["triangulate"] - tri
+        require(tri > 0, f"serve: RDG {what} admission launched no triangulate")
+        require(torch.equal(g.edges, api.generate(spec, 16, device=dev).edges),
+                f"serve: RDG {what} differs from generate")
+        print(f"  serve {spec} {what}: admitted in {plan_s:.3f}s ({tri} triangulate launches), "
+              f"served in {s:.3f}s, {g.m} edges equal generate's; latency {t.latency:.3f}s, "
+              f"{svc.stats['slabs']} slabs so far")
+    require(svc.cache.stats == {"hits": 1, "misses": 1, "evictions": 0, "entries": 1},
+            f"serve: RDG plan cache {svc.cache.stats}")
+    del svc, g
+    torch.cuda.empty_cache()
+
+    step("RDG")
+    # fault reissue over 4 slab rows
+    spec = api.GNM(n=sizes["serve_n"], m=sizes["serve_m"], seed=500)
+    svc = Service(16, D=4, device=dev, slab_batch=4)
+    t = svc.submit(spec)
+    svc.inject_fault([1, 2], at_slab=1)
+    svc.drain()
+    require(svc.scheduler.reissued > 0, "serve: the fault reissued nothing")
+    require(torch.equal(t.result().edges, api.generate(spec, 16, device=dev).edges),
+            "serve: the reissued request differs from generate")
+    print(f"  serve {spec} D=4, rows 1 and 2 dead at slab 1: {svc.scheduler.reissued} slots "
+          f"reissued over {svc.stats['slabs']} slabs, edges equal generate's")
+    del svc, t
+    torch.cuda.empty_cache()
+
+    step("fault reissue")
+    # past the staging pair_edges had by capacity: TORUS rows at class 8192
+    # (an RGG whose capacity lies in 4097..7261), HYP rows at class 4096
+    spec = api.RGG(n=20000, radius=0.45, seed=600, chunks=1)
+    plan = spec.plan(1)
+    require(4096 < plan.capacity <= 7261 and program_of(plan).capacity == 8192,
+            f"serve: RGG capacity {plan.capacity}")
+    svc = Service(1, device=dev, slab_batch=2)
+    t = svc.submit(spec)
+    rgg_slab = svc.scheduler.peek_slab()
+    g = t.result()
+    require(torch.equal(g.edges, api.generate(spec, 1, device=dev).edges),
+            "serve: the class-8192 RGG differs from generate")
+    print(f"  serve {spec}: capacity {plan.capacity}, class 8192 (TORUS rows staged by "
+          f"their counts), {g.m} edges equal generate's")
+    del g, svc, t
+    torch.cuda.empty_cache()
+
+    step("past the staging limit")
+    # cold plan against reseed, a family each (BENCH_serve.json's plan_reseed)
+    fleet, _ = serve_fleet(api, sizes)
+    specs = [next(s for s, _ in fleet if type(s).__name__ == f) for f in
+             ("GNM", "GNP", "BA", "SBM", "RMAT", "RHG")]
+    specs += [api.RGG(n=1 << 16, radius=0.55 * (math.log(1 << 16) / (1 << 16)) ** 0.5, seed=7),
+              api.RDG(n=sizes["serve_rdg_n"], dim=2, seed=402)]
+    for spec in specs:
+        rdg.rdg_structure.cache_clear()
+        rgg.rgg_structure.cache_clear()
+        t0 = time.perf_counter()
+        plan = spec.plan(16, device=dev)
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan.reseed(spec.seed + 1)
+        torch.cuda.synchronize(dev)
+        hot = time.perf_counter() - t0
+        print(f"  plan {type(spec).__name__} P=16: cold {cold * 1e6:.1f} us, reseed "
+              f"{hot * 1e6:.1f} us ({cold / hot:.2f}x)")
+    rdg.rdg_structure.cache_clear()
+    step("cold plans and reseeds")
+    return {"slabs": slabs, "rgg_slab": rgg_slab}
+
+
+def slot_kernels():
+    """The kernels a slot function calls: ``(module, name, plain version,
+    positions of the arguments the call writes into)``."""
+    from repro_torch.core import sampling
+    from repro_torch.distrib import engine
+    from repro_torch.kernels.geom.ref import pair_edges_ref
+    from repro_torch.kernels.sampler.ref import (chunk_ba_ref, chunk_decode_ref, chunk_rmat_ref,
+                                                 sample_rows_ref)
+    return [(sampling, "chunk_sample", sample_rows_ref, (4,)),
+            (engine, "chunk_decode", chunk_decode_ref, ()),
+            (engine, "chunk_rmat", chunk_rmat_ref, (8,)),
+            (engine, "chunk_ba", chunk_ba_ref, (6, 7)),
+            (engine, "pair_edges", pair_edges_ref, ())]
+
+
+class held_kernels:
+    """Within: every kernel call of a slot function also runs the kernel's
+    plain version on the same inputs (what the call writes into is cloned
+    first), the two are held equal in ``errs``, and the kernel's result
+    goes on.  Each kernel thus meets its plain version at the shapes and
+    on the data the served slab gives it; ``seen`` counts the calls held."""
+
+    def __init__(self, errs: Errors, what: str):
+        self.errs, self.what, self.seen, self.undo = errs, what, {}, []
+
+    def __enter__(self):
+        import torch
+
+        def copy(x):
+            if isinstance(x, tuple):
+                return tuple(copy(t) for t in x)
+            return x.clone() if torch.is_tensor(x) else x
+
+        def pairs(r):
+            return (r,) if torch.is_tensor(r) else r
+
+        for mod, name, plain, writes in slot_kernels():
+            kernel = getattr(mod, name)
+
+            def both(*a, _k=kernel, _p=plain, _w=writes, _n=name, **kw):
+                pa = [copy(x) if i in _w else x for i, x in enumerate(a)]
+                got = _k(*a, **kw)
+                want = _p(*pa, **kw)
+                for x, y in zip(pairs(got), pairs(want)):
+                    self.errs.same(_n, x, y, f"{_n} in {self.what}")
+                self.seen[_n] = self.seen.get(_n, 0) + 1
+                return got
+
+            setattr(mod, name, both)
+            self.undo.append((mod, name, kernel))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, kernel in self.undo:
+            setattr(mod, name, kernel)
+
+
+def serve_timing(dev, out: dict, errs: Errors) -> list:
+    """Phase 4 of path 3f: the first slab of each of the fleet's packing
+    groups and the class-8192 RGG slab, run as ``tick`` runs them, with
+    every kernel held against its plain version on its inputs there; HYP
+    rows of 3000 points at class 4096; ``pair_edges`` timed at the
+    fleet's pair slab (the kernels line's serving row)."""
+    import torch
+    from repro_torch.distrib import runtime
+    from repro_torch.kernels.geom import ops as G
+    from repro_torch.kernels.geom.ref import GEOM_HYP, pair_edges_ref
+    from torch_geom_rows import pair_rows
+
+    seen = {}
+    for prog, valid, rows in out["slabs"] + [out["rgg_slab"]]:
+        what = (f"the served {prog.plan_kind} slab at class {prog.capacity} "
+                f"({int(valid.sum())} rows)")
+        t0 = time.perf_counter()
+        with held_kernels(errs, what) as held:
+            payload, ok = runtime.run_slab(prog.slot_fn, prog.signature(), valid, rows, dev,
+                                           **prog.slot_kwargs(rows))
+        require(bool(ok.any()), f"{what}: no edge kept")
+        print(f"  {what}: every kernel equals its plain version ({held.seen}), "
+              f"{time.perf_counter() - t0:.3f}s")
+        for k, c in held.seen.items():
+            seen[k] = seen.get(k, 0) + c
+        del payload, ok
+        torch.cuda.empty_cache()
+    for name in ("chunk_sample", "chunk_decode", "chunk_rmat", "chunk_ba", "pair_edges"):
+        require(seen.get(name, 0) > 0, f"serve: no served slab held {name} against its plain "
+                                       f"version")
+
+    # HYP rows past the staging pair_edges had by capacity: 3000 points a
+    # side at class 4096
+    hrows = pair_rows(2, 3000, 2, seed=3000, device=dev, kinds=(GEOM_HYP,))
+    hrows[-1][:] = True
+    kw = dict(capacity=4096, dim=2, kinds=(GEOM_HYP,), stage={GEOM_HYP: 3000})
+    ea, ka = G.pair_edges(*hrows, **kw)
+    eb, kb = pair_edges_ref(*hrows, **kw)
+    errs.same("pair_edges", ea, eb, "pair_edges edges, HYP rows of 3000 at class 4096")
+    errs.same("pair_edges", ka, kb, "pair_edges keep, HYP rows of 3000 at class 4096")
+    ec, kc = G.pair_edges(*hrows, capacity=3000, dim=2, kinds=(GEOM_HYP,))
+    require(int(ka.sum()) > 0 and all(torch.equal(ea[r][ka[r]], ec[r][kc[r]]) for r in range(2)),
+            "serve: HYP rows at class 4096 differ from their own capacity 3000")
+    print(f"  pair_edges HYP rows of 3000 points at class 4096 (stage 3000): {int(ka.sum())} "
+          f"edges, equal to the plain version's and to capacity 3000's")
+    del ea, ka, eb, kb, ec, kc, hrows
+    torch.cuda.empty_cache()
+
+    # pair_edges at the fleet's pair slab, as the slab program calls it
+    prog, valid, rows = next(x for x in out["slabs"] if x[0].plan_kind == "pair")
+    _, *tabs = runtime._upload([valid] + list(rows), dev)
+    tabs = [t.reshape(-1, *t.shape[2:]) for t in tabs]
+    kw = dict(capacity=prog.capacity, dim=prog.dim, kinds=prog.kinds,
+              stage=prog.slot_kwargs(rows)["stage"])
+    (ea, ka), ms, med = timed(lambda: G.pair_edges(*tabs, **kw), reps=20,
+                              label="pair_edges, served pair slab")
+    (eb, kb), plain_ms = sync_time(lambda: pair_edges_ref(*tabs, **kw), reps=1)
+    errs.same("pair_edges", ea, eb, "pair_edges edges at the served pair slab")
+    errs.same("pair_edges", ka, kb, "pair_edges keep at the served pair slab")
+    live = tabs[-1]
+    points = int(((tabs[3] + tabs[4]) * live).sum())
+    in_bytes = sum(t.numel() * t.element_size() for t in tabs)
+    # 17 bytes written per slot; 1 + 2*2 Threefry blocks per regenerated point
+    bytes_s = (in_bytes + 17 * ka.numel()) / HBM_BYTES_PER_S
+    ops_s = points * 5 * THREEFRY_OPS / INT32_OPS_PER_S
+    bound = max(bytes_s, ops_s) * 1e3
+    print(f"  pair_edges shape: the fleet's pair slab, {len(live)} rows ({int(valid.sum())} "
+          f"filled) x {prog.capacity}^2 slots, stage {kw['stage']}, {points} points, "
+          f"{int(ka.sum())} edges kept; median {med:.6f} ms (mean {ms:.6f}), plain "
+          f"{plain_ms:.3f} ms, bound {bound:.6f} ms "
+          f"({'bytes' if bytes_s >= ops_s else 'operations'}): {100 * bound / med:.1f} % of it")
+    del ea, ka, eb, kb, tabs
+    torch.cuda.empty_cache()
+    return [("pair_edges", "src/repro_torch/kernels/geom/csrc/geom.cu",
+             "src/repro/distrib/engine.py:1050", ms, med, plain_ms, bytes_s, ops_s, None,
+             f"the fleet's pair slab: {len(live)} rows at class {prog.capacity}")]
+
+
 OFF_PATH = {"pair_mask": "off the engine path, as in the reference: the engine runs its "
                          "tiles inside pair_edges, and only the reference's per-PE oracles "
                          "(rgg_pe, rhg._adjacency) call the kernel"}
@@ -2309,34 +2730,43 @@ OFF_PATH = {"pair_mask": "off the engine path, as in the reference: the engine r
 def kernel_lines(rows: list, errs: Errors, launches: dict) -> list:
     """The ``kernels`` line's entries; the bound is the larger of the
     byte time and the operation time.  ``ms`` is the mean of calls back to
-    back, ``median_ms`` the median of calls timed one at a time."""
-    return [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
-             "launches": launches[name], "max_abs_err": errs.max[name],
-             "ms": ms, "median_ms": median_ms, "plain_ms": plain_ms,
-             "bound_ms": max(bytes_s, ops_s) * 1e3,
-             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-             "library_ms": lib_ms, **({"note": OFF_PATH[name]} if name in OFF_PATH else {})}
-            for name, src, replaces, ms, median_ms, plain_ms, bytes_s, ops_s, lib_ms in rows]
+    back, ``median_ms`` the median of calls timed one at a time; a row may
+    end in a note on its shape."""
+    lines = []
+    for name, src, replaces, ms, median_ms, plain_ms, bytes_s, ops_s, lib_ms, *note in rows:
+        note = note or ([OFF_PATH[name]] if name in OFF_PATH else [])
+        lines.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                      "launches": launches[name], "max_abs_err": errs.max[name],
+                      "ms": ms, "median_ms": median_ms, "plain_ms": plain_ms,
+                      "bound_ms": max(bytes_s, ops_s) * 1e3,
+                      "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                      "library_ms": lib_ms, **({"note": note[0]} if note else {})})
+    return lines
 
 
 FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 << 22,
         "rgg_n": 1 << 22, "rhg_n": 1 << 20, "batch": 1 << 15,
         "rdg2_n": 1 << 20, "rdg3_n": 1 << 16, "brute2_n": 1 << 16, "brute3_n": 1 << 13,
         "rmat_log_n": 26, "rmat_m": 1 << 30, "ba_n": 1 << 25, "sbm_n": 1 << 24,
-        "sbm_blocks": 16, "sbm_p": (2.0 ** -17, 2.0 ** -21)}
+        "sbm_blocks": 16, "sbm_p": (2.0 ** -17, 2.0 ** -21),
+        "serve_n": 1 << 22, "serve_m": 1 << 26, "serve_rhg_n": 1 << 20, "serve_rdg_n": 1 << 18,
+        "serve_slab_bytes": 1 << 30}
 ER_KERNELS = ("chunk_sample", "chunk_decode", "hist")
 GEOM_KERNELS = ("pair_edges", "cell_points", "hist")
 RDG_KERNELS = ("triangulate", "circumspheres", "pair_edges", "cell_points")
 FAMILY_KERNELS = ("chunk_rmat", "chunk_ba", "close_wedges", "hist", "chunk_sample",
                   "chunk_decode", "pair_edges")
 STATS_KERNELS = ("hist", "chunk_sample", "chunk_decode", "pair_edges", "triangulate")
+SERVE_KERNELS = ("hist", "chunk_sample", "chunk_decode", "chunk_ba", "chunk_rmat", "pair_edges",
+                 "triangulate")
 
 
 PATHS = {"er": ("3a Erdős–Rényi", phase_main, ER_KERNELS, phase_timing),
          "geom": ("3b geometric", phase_geom, GEOM_KERNELS, geom_timing),
          "rdg": ("3c Delaunay", phase_rdg, RDG_KERNELS, rdg_timing),
          "families": ("3d families", phase_families, FAMILY_KERNELS, families_timing),
-         "stats": ("3e validation and overlap", phase_stats, STATS_KERNELS, stats_timing)}
+         "stats": ("3e validation and overlap", phase_stats, STATS_KERNELS, stats_timing),
+         "serve": ("3f serve", phase_serve, SERVE_KERNELS, serve_timing)}
 
 
 def main(argv=None) -> int:

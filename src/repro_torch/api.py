@@ -22,6 +22,9 @@ of ``repro.api``, all eight families).
    closed-form law (:mod:`repro_torch.stats`).  ``iter_edge_chunks(...,
    overlap=k)`` plans in k PE-range segments on a background thread
    while earlier segments execute (:func:`plan_emitter`).
+4. **Serve**: :func:`serve` / :func:`make_service` put many concurrent
+   requests through one :class:`repro_torch.serve.Service` (plan cache
+   with reseed, packed slabs of rows from many plans, per-request sinks).
 
 Every entry point takes ``device``: the work runs on CUDA unless the
 caller passes ``device="cpu"`` (the plain PyTorch versions of the
@@ -41,6 +44,7 @@ from typing import Iterator, Optional, Protocol, Tuple, runtime_checkable
 
 import torch
 
+from . import obs
 from .core import ba as _ba
 from .core import er as _er
 from .core import graph as _graph
@@ -336,7 +340,8 @@ def generate(spec, P: int = 1, *, device=None, rng_impl: str = DEFAULT_RNG,
     polar ``(r, θ)``)."""
     dev = runtime.resolve_device(device)
     payload, valid = runtime.run(spec.plan(P, rng_impl=rng_impl, device=dev), dev)
-    edges = payload[valid]
+    with obs.trace("extract", phase="sink"):
+        edges = payload[valid]
     del payload, valid
     points = None
     if return_points and hasattr(spec, "point_plan"):
@@ -437,3 +442,23 @@ def validate(spec, P: int = 1, **kwargs):
     from .stats import validate as _validate
 
     return _validate(spec, P, **kwargs)
+
+
+def serve(specs, P: int = 1, **kwargs):
+    """Serve many concurrent specs on one card: :func:`repro_torch.serve.serve`.
+
+    The same graphs, bit for bit, as ``[generate(s, P) for s in specs]``,
+    but plans resolve through a reseeding cache and the requests' rows
+    pack into shared slabs.  Keyword arguments go to
+    :class:`repro_torch.serve.Service`; use the class itself for
+    streaming, admission at any time and latency metrics."""
+    from .serve import serve as _serve
+
+    return _serve(specs, P, **kwargs)
+
+
+def make_service(P: int = 1, **kwargs):
+    """A :class:`repro_torch.serve.Service` (lazy front door)."""
+    from .serve import Service
+
+    return Service(P, **kwargs)

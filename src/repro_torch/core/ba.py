@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import obs
 from ..distrib.engine import KIND_BA, chunk_plan_from_columns, reseedable_chunk_plan
 from .prng import THREEFRY, device_key
 
@@ -24,14 +25,15 @@ def ba_plan(seed: int, n: int, d: int, P: int, rng_impl: str = THREEFRY):
         one = device_key(s, _TAG_BA, impl=rng_impl).numpy().astype(np.uint32)
         return np.broadcast_to(one, (P, one.size))
 
-    sec = n * np.arange(P + 1, dtype=np.int64) // P
-    ids = np.arange(P, dtype=np.int64)
-    z = np.zeros(P, np.int64)
-    plan = chunk_plan_from_columns(
-        P, ids, np.full(P, KIND_BA, np.int32), key_of(seed), z,
-        (sec[1:] - sec[:-1]) * d,
-        np.stack([np.full(P, d, np.int64), sec[:-1] * d, z], axis=1),
-        np.ones(P, bool), n, rng_impl=rng_impl)
-    # edge-id ranges (and so counts and capacity) are seed-independent:
-    # reseeding is a key swap
-    return reseedable_chunk_plan(plan, key_fn=key_of)
+    with obs.trace("plan/ba", phase="plan", family="ba", reseed=False, P=P):
+        sec = n * np.arange(P + 1, dtype=np.int64) // P
+        ids = np.arange(P, dtype=np.int64)
+        z = np.zeros(P, np.int64)
+        plan = chunk_plan_from_columns(
+            P, ids, np.full(P, KIND_BA, np.int32), key_of(seed), z,
+            (sec[1:] - sec[:-1]) * d,
+            np.stack([np.full(P, d, np.int64), sec[:-1] * d, z], axis=1),
+            np.ones(P, bool), n, rng_impl=rng_impl)
+        # edge-id ranges (and so counts and capacity) are seed-independent:
+        # reseeding is a key swap
+        return reseedable_chunk_plan(plan, key_fn=key_of)

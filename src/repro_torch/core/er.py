@@ -18,6 +18,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..distrib.engine import (
     KIND_DIRECTED,
     KIND_RECT,
@@ -153,34 +154,38 @@ def _directed_plan(seed: int, n: int, counts_of, P: int,
 
 def gnm_directed_plan(seed: int, n: int, m: int, P: int, rng_impl: str = THREEFRY):
     """ChunkPlan: one row chunk per PE (Fig. 1 left)."""
-    tree = directed_split_tree(n, P)
-    return _directed_plan(seed, n, lambda s: tree.counts(s, m), P, rng_impl)
+    with obs.trace("plan/gnm", phase="plan", family="gnm", reseed=False, P=P):
+        tree = directed_split_tree(n, P)
+        return _directed_plan(seed, n, lambda s: tree.counts(s, m), P, rng_impl)
 
 
 def gnm_undirected_plan(seed: int, n: int, m: int, P: int, rng_impl: str = THREEFRY):
     """ChunkPlan: PE i's row + column cross of the triangular chunk
     matrix (Fig. 1 right), owned bits on the row chunks."""
-    lay = _gnm_cross_layout(n, P)
-    tree = undirected_split_tree(n, P)
-    return _cross_plan(seed, n, lay, lambda s: tree.counts(s, m)[lay.leaf],
-                       P, rng_impl)
+    with obs.trace("plan/gnm", phase="plan", family="gnm", reseed=False, P=P):
+        lay = _gnm_cross_layout(n, P)
+        tree = undirected_split_tree(n, P)
+        return _cross_plan(seed, n, lay, lambda s: tree.counts(s, m)[lay.leaf],
+                           P, rng_impl)
 
 
 def gnp_directed_plan(seed: int, n: int, p: float, P: int, rng_impl: str = THREEFRY):
     """ChunkPlan: row chunks with independent Binomial(U, p) counts."""
-    sec = _sections(n, P)
-    universe = (sec[1:] - sec[:-1]) * (n - 1)
-    ids = np.arange(P, dtype=np.int64)
-    return _directed_plan(
-        seed, n, lambda s: _gnp_counts(s, ids, None, universe, p), P, rng_impl)
+    with obs.trace("plan/gnp", phase="plan", family="gnp", reseed=False, P=P):
+        sec = _sections(n, P)
+        universe = (sec[1:] - sec[:-1]) * (n - 1)
+        ids = np.arange(P, dtype=np.int64)
+        return _directed_plan(
+            seed, n, lambda s: _gnp_counts(s, ids, None, universe, p), P, rng_impl)
 
 
 def gnp_undirected_plan(seed: int, n: int, p: float, P: int, rng_impl: str = THREEFRY):
     """ChunkPlan for undirected G(n,p) (§4.3), owned bits on row chunks."""
-    lay = _gnp_cross_layout(n, P)
-    return _cross_plan(
-        seed, n, lay, lambda s: _gnp_counts(s, lay.I, lay.J, lay.universe, p),
-        P, rng_impl)
+    with obs.trace("plan/gnp", phase="plan", family="gnp", reseed=False, P=P):
+        lay = _gnp_cross_layout(n, P)
+        return _cross_plan(
+            seed, n, lay, lambda s: _gnp_counts(s, lay.I, lay.J, lay.universe, p),
+            P, rng_impl)
 
 
 def expected_gnm_universe(n: int, directed: bool) -> int:

@@ -2,6 +2,8 @@
 ``repro.core.graph``)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..kernels.hist.ops import bincount_ids
@@ -35,12 +37,14 @@ def has_duplicates(edges: torch.Tensor) -> bool:
     return bool((s[1:] == s[:-1]).all(dim=1).any())
 
 
-def degrees(edges: torch.Tensor, n: int, directed: bool = False) -> torch.Tensor:
-    """int64 [n] (out-)degrees, through the hist kernel on the card."""
-    d = torch.zeros(n, dtype=torch.int64, device=edges.device)
+def degrees(edges: torch.Tensor, n: int, directed: bool = False, *,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int64 [n] (out-)degrees, through the hist kernel on the card;
+    endpoints outside ``[0, n)`` are dropped.  Adds into ``out`` when
+    given."""
+    d = torch.zeros(n, dtype=torch.int64, device=edges.device) if out is None else out
     if edges.numel() == 0:
         return d
-    bincount_ids(edges[:, 0], n, out=d)
-    if not directed:
-        bincount_ids(edges[:, 1], n, out=d)
+    # undirected: both endpoints of every edge, one launch over the rows
+    bincount_ids(edges[:, 0] if directed else edges.reshape(-1), n, out=d)
     return d

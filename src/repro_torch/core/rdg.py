@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from scipy.spatial import Delaunay
 
+from .. import obs
 from ..distrib.engine import (GEOM_CERT, POINTS_CUBE, pair_plan_from_columns,
                               pair_slot_index)
 from ..distrib.runtime import resolve_device
@@ -67,8 +68,9 @@ def default_chunk_P(P: int, dim: int) -> int:
 def rdg_point_plan(seed: int, n: int, P: int, dim: int = 2, rng_impl: str = THREEFRY,
                    chunk_P: int = 0):
     """Cube PointPlan over the RDG cell grid."""
-    grid = rdg_grid(n, chunk_P or default_chunk_P(P, dim), dim)
-    return grid_point_plan(seed, grid, n, P, rng_impl)
+    with obs.trace("plan/rdg", phase="plan", family="rdg", reseed=False, P=P):
+        grid = rdg_grid(n, chunk_P or default_chunk_P(P, dim), dim)
+        return grid_point_plan(seed, grid, n, P, rng_impl)
 
 
 def _torus_canonical(cell: Cell, g: int) -> Tuple[Cell, Tuple[int, ...]]:
@@ -431,19 +433,22 @@ class RdgStructure:
         """The GEOM_CERT PairPlan of this structure's (P, grid) for
         ``seed``; its ``reseed_fn`` re-runs only the device passes, on the
         same device."""
-        cols = self._columns(seed, device)
-        out = self._emit(self.P, np.arange(cols[0], dtype=np.int64) % self.P, cols)
+        with obs.trace("plan/rdg", phase="plan", family="rdg", reseed=False, P=self.P):
+            cols = self._columns(seed, device)
+            out = self._emit(self.P, np.arange(cols[0], dtype=np.int64) % self.P, cols)
         return dataclasses.replace(out, reseed_fn=functools.partial(self.emit, device=device))
 
     def segment(self, seed: int, lo: int, hi: int, device=None):
         """The ``PlanEmitter`` segment of global PEs [lo, hi), re-indexed to
         [0, hi - lo); the segments in order reproduce :meth:`emit`'s per-PE
         row order (rows are dealt round-robin in global row order)."""
-        k, gid_a, gid_b, geom_a, geom_b = self._columns(seed, device)
-        pe = np.arange(k, dtype=np.int64) % self.P
-        sel = (pe >= lo) & (pe < hi)
-        sub = (int(sel.sum()), gid_a[sel], gid_b[sel], geom_a[sel], geom_b[sel])
-        return self._emit(hi - lo, pe[sel] - lo, sub)
+        with obs.trace("plan/rdg", phase="plan", family="rdg", reseed=False, P=self.P,
+                       lo=lo, hi=hi):
+            k, gid_a, gid_b, geom_a, geom_b = self._columns(seed, device)
+            pe = np.arange(k, dtype=np.int64) % self.P
+            sel = (pe >= lo) & (pe < hi)
+            sub = (int(sel.sum()), gid_a[sel], gid_b[sel], geom_a[sel], geom_b[sel])
+            return self._emit(hi - lo, pe[sel] - lo, sub)
 
 
 @functools.lru_cache(maxsize=None)

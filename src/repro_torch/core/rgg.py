@@ -21,6 +21,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..distrib.engine import (GEOM_TORUS, POINTS_CUBE, PairPlan, make_pair_plan,
                               make_point_plan, require_counter_rng)
 from .chunking import chunks_per_dim, cube_chunks_for_pe
@@ -349,7 +350,8 @@ def rgg_point_plan(seed: int, n: int, radius: float, P: int, dim: int = 2,
     """Cube PointPlan over the RGG cell grid: every cell once, dealt to
     PEs by Morton chunk, keyed by cell id (the stream the pair plan
     regenerates)."""
-    return rgg_structure(n, radius, P, dim, rng_impl, chunk_P).emit_points(seed)
+    with obs.trace("plan/rgg", phase="plan", family="rgg", reseed=False, P=P):
+        return rgg_structure(n, radius, P, dim, rng_impl, chunk_P).emit_points(seed)
 
 
 def rgg_pair_plan(seed: int, n: int, radius: float, P: int, dim: int = 2,
@@ -361,4 +363,5 @@ def rgg_pair_plan(seed: int, n: int, radius: float, P: int, dim: int = 2,
     once; rows are dealt to PEs by the Morton chunk of the pair's first
     cell.  The device regenerates both cells' points from their hashed
     keys and runs the float32 r^2 test.  Empty cells emit no rows."""
-    return rgg_structure(n, radius, P, dim, rng_impl, chunk_P).emit(seed)
+    with obs.trace("plan/rgg", phase="plan", family="rgg", reseed=False, P=P):
+        return rgg_structure(n, radius, P, dim, rng_impl, chunk_P).emit(seed)

@@ -21,6 +21,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..distrib.engine import (GEOM_HYP, POINTS_POLAR, make_point_plan,
                               pair_plan_from_columns)
 from .prng import THREEFRY, PhiloxReplayer, device_key, fold_in, fold_in_many, hash_paths, host_rng
@@ -222,46 +223,48 @@ def rhg_engine_point_plan(params: RHGParams, P: int, rng_impl: str = THREEFRY):
     """Polar PointPlan over the engine cell layout (core included), cells
     dealt round-robin by global index, with each cell's first vertex id
     in ``gid0``."""
-    t = rhg_engine_table(params, rng_impl)
-    per_pe, gid0 = [], []
-    for pe in range(P):
-        sl = slice(pe, None, P)
-        per_pe.append((
-            t.key_data[sl],
-            t.count[sl],
-            np.stack([t.ring[sl], t.cell[sl]], axis=1),
-            np.stack([t.clo[sl], t.chi[sl], t.width[sl]], axis=1),
-        ))
-        gid0.append(t.gid0[sl])
-    out = make_point_plan(per_pe, POINTS_POLAR, scale=params.alpha, dim=2,
-                          rng_impl=rng_impl, gid0=gid0)
-    return dataclasses.replace(
-        out, reseed_fn=lambda s: rhg_engine_point_plan(
-            dataclasses.replace(params, seed=s), P, rng_impl))
+    with obs.trace("plan/rhg", phase="plan", family="rhg", reseed=False, P=P):
+        t = rhg_engine_table(params, rng_impl)
+        per_pe, gid0 = [], []
+        for pe in range(P):
+            sl = slice(pe, None, P)
+            per_pe.append((
+                t.key_data[sl],
+                t.count[sl],
+                np.stack([t.ring[sl], t.cell[sl]], axis=1),
+                np.stack([t.clo[sl], t.chi[sl], t.width[sl]], axis=1),
+            ))
+            gid0.append(t.gid0[sl])
+        out = make_point_plan(per_pe, POINTS_POLAR, scale=params.alpha, dim=2,
+                              rng_impl=rng_impl, gid0=gid0)
+        return dataclasses.replace(
+            out, reseed_fn=lambda s: rhg_engine_point_plan(
+                dataclasses.replace(params, seed=s), P, rng_impl))
 
 
 def rhg_pair_plan(params: RHGParams, P: int, rng_impl: str = THREEFRY):
     """GEOM_HYP PairPlan: every candidate cell pair exactly once, dealt to
     PEs by the first cell's index.  The candidate list is a pure
     function of the spec, so the union is exact for any P."""
-    t = rhg_engine_table(params, rng_impl)
-    code = _pair_codes(t, params.R)
-    N = len(t.ring)
-    ia, ib = code // N, code % N
-    k = ia.size
-    fp = np.broadcast_to(np.array([params.alpha, cosh_threshold(params.R)]), (k, 2))
-    geom_a = np.stack([t.clo[ia], t.chi[ia], t.cell[ia].astype(np.float64),
-                       t.width[ia]], axis=1)
-    geom_b = np.stack([t.clo[ib], t.chi[ib], t.cell[ib].astype(np.float64),
-                       t.width[ib]], axis=1)
-    out = pair_plan_from_columns(
-        P, ia % P, np.full(k, GEOM_HYP, np.int32),
-        t.key_data[ia], t.key_data[ib], t.count[ia], t.count[ib],
-        t.gid0[ia][:, None], t.gid0[ib][:, None], geom_a, geom_b,
-        fp, ia == ib, rng_impl=rng_impl)
-    return dataclasses.replace(
-        out, reseed_fn=lambda s: rhg_pair_plan(
-            dataclasses.replace(params, seed=s), P, rng_impl))
+    with obs.trace("plan/rhg", phase="plan", family="rhg", reseed=False, P=P):
+        t = rhg_engine_table(params, rng_impl)
+        code = _pair_codes(t, params.R)
+        N = len(t.ring)
+        ia, ib = code // N, code % N
+        k = ia.size
+        fp = np.broadcast_to(np.array([params.alpha, cosh_threshold(params.R)]), (k, 2))
+        geom_a = np.stack([t.clo[ia], t.chi[ia], t.cell[ia].astype(np.float64),
+                           t.width[ia]], axis=1)
+        geom_b = np.stack([t.clo[ib], t.chi[ib], t.cell[ib].astype(np.float64),
+                           t.width[ib]], axis=1)
+        out = pair_plan_from_columns(
+            P, ia % P, np.full(k, GEOM_HYP, np.int32),
+            t.key_data[ia], t.key_data[ib], t.count[ia], t.count[ib],
+            t.gid0[ia][:, None], t.gid0[ib][:, None], geom_a, geom_b,
+            fp, ia == ib, rng_impl=rng_impl)
+        return dataclasses.replace(
+            out, reseed_fn=lambda s: rhg_pair_plan(
+                dataclasses.replace(params, seed=s), P, rng_impl))
 
 
 def _pair_codes(t: RhgEngineTable, R: float) -> np.ndarray:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import obs
 from ..distrib.engine import KIND_RMAT, chunk_plan_from_columns, reseedable_chunk_plan
 from .prng import THREEFRY, device_key
 
@@ -26,15 +27,16 @@ def rmat_plan(seed: int, log_n: int, m: int, P: int,
         one = device_key(s, _TAG_RMAT, impl=rng_impl).numpy().astype(np.uint32)
         return np.broadcast_to(one, (P, one.size))
 
-    a, b, c, _ = probs
-    sec = m * np.arange(P + 1, dtype=np.int64) // P
-    ids = np.arange(P, dtype=np.int64)
-    z = np.zeros(P, np.int64)
-    fparams = np.broadcast_to(np.array([float(a), float(b), float(c), 0.0]), (P, 4))
-    plan = chunk_plan_from_columns(
-        P, ids, np.full(P, KIND_RMAT, np.int32), key_of(seed), z,
-        sec[1:] - sec[:-1],
-        np.stack([np.full(P, log_n, np.int64), sec[:-1], z], axis=1),
-        np.ones(P, bool), 1 << log_n, fparams=fparams, rng_impl=rng_impl)
-    # edge-id sections are seed-independent: reseeding is a key swap
-    return reseedable_chunk_plan(plan, key_fn=key_of)
+    with obs.trace("plan/rmat", phase="plan", family="rmat", reseed=False, P=P):
+        a, b, c, _ = probs
+        sec = m * np.arange(P + 1, dtype=np.int64) // P
+        ids = np.arange(P, dtype=np.int64)
+        z = np.zeros(P, np.int64)
+        fparams = np.broadcast_to(np.array([float(a), float(b), float(c), 0.0]), (P, 4))
+        plan = chunk_plan_from_columns(
+            P, ids, np.full(P, KIND_RMAT, np.int32), key_of(seed), z,
+            sec[1:] - sec[:-1],
+            np.stack([np.full(P, log_n, np.int64), sec[:-1], z], axis=1),
+            np.ones(P, bool), 1 << log_n, fparams=fparams, rng_impl=rng_impl)
+        # edge-id sections are seed-independent: reseeding is a key swap
+        return reseedable_chunk_plan(plan, key_fn=key_of)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..distrib.engine import (KIND_RECT, KIND_TRI, chunk_plan_from_columns,
                               reseedable_chunk_plan)
 from .chunking import section_bounds
@@ -87,22 +88,23 @@ def sbm_plan(seed: int, n: int, B: int, p_in: float, p_out: float,
     every block region as a TRI/RECT chunk with a hash-seeded Binomial
     count, generated by both endpoint block owners and owned by the row
     block's PE."""
-    ri, rj, sec, diag, U = _region_layout(n, B)
-    pvec = np.where(diag, p_in, p_out)
-    flat_r, pe, owned = _cross_pack(ri, rj, P)
-    kind = np.where(diag, KIND_TRI, KIND_RECT).astype(np.int32)[flat_r]
-    params = _region_params(sec, ri, rj, diag)[flat_r]
-    plan = chunk_plan_from_columns(
-        P, pe, kind, _region_keys(seed, ri, rj, rng_impl)[flat_r],
-        U[flat_r], _region_counts(seed, ri, rj, U, pvec)[flat_r],
-        params, owned, n, rng_impl=rng_impl)
-    # the layout and ownership are seed-independent; a reseed recomputes
-    # the counts and keys and scatters them through flat_r (mirror rows
-    # share their region's count and key)
-    return reseedable_chunk_plan(
-        plan,
-        key_fn=lambda s: _region_keys(s, ri, rj, rng_impl)[flat_r],
-        count_fn=lambda s: _region_counts(s, ri, rj, U, pvec)[flat_r])
+    with obs.trace("plan/sbm", phase="plan", family="sbm", reseed=False, P=P):
+        ri, rj, sec, diag, U = _region_layout(n, B)
+        pvec = np.where(diag, p_in, p_out)
+        flat_r, pe, owned = _cross_pack(ri, rj, P)
+        kind = np.where(diag, KIND_TRI, KIND_RECT).astype(np.int32)[flat_r]
+        params = _region_params(sec, ri, rj, diag)[flat_r]
+        plan = chunk_plan_from_columns(
+            P, pe, kind, _region_keys(seed, ri, rj, rng_impl)[flat_r],
+            U[flat_r], _region_counts(seed, ri, rj, U, pvec)[flat_r],
+            params, owned, n, rng_impl=rng_impl)
+        # the layout and ownership are seed-independent; a reseed recomputes
+        # the counts and keys and scatters them through flat_r (mirror rows
+        # share their region's count and key)
+        return reseedable_chunk_plan(
+            plan,
+            key_fn=lambda s: _region_keys(s, ri, rj, rng_impl)[flat_r],
+            count_fn=lambda s: _region_counts(s, ri, rj, U, pvec)[flat_r])
 
 
 def sbm_plan_segment(seed: int, n: int, B: int, p_in: float, p_out: float,
@@ -116,24 +118,26 @@ def sbm_plan_segment(seed: int, n: int, B: int, p_in: float, p_out: float,
     own hashed generator.  The tables equal ``slice_plan(sbm_plan(...),
     lo, hi)`` field by field except ``capacity``, which is the
     segment's own (each slot's draws do not depend on it)."""
-    ri, rj, sec, diag, U = _region_layout(n, B)
-    flat_r, pe, owned = _cross_pack(ri, rj, P)
-    sel = (pe >= lo) & (pe < hi)
-    flat_r, pe, owned = flat_r[sel], pe[sel], owned[sel]
-    # distinct regions this range touches, in canonical order
-    needed = np.zeros(len(ri), bool)
-    needed[flat_r] = True
-    ridx = np.nonzero(needed)[0]
-    inv = np.zeros(len(ri), np.int64)
-    inv[ridx] = np.arange(len(ridx), dtype=np.int64)
-    keys = _region_keys(seed, ri[ridx], rj[ridx], rng_impl)
-    cnt = _region_counts(seed, ri[ridx], rj[ridx], U[ridx],
-                         np.where(diag[ridx], p_in, p_out))
-    kind = np.where(diag, KIND_TRI, KIND_RECT).astype(np.int32)
-    params = _region_params(sec, ri, rj, diag)
-    return chunk_plan_from_columns(
-        hi - lo, pe - lo, kind[flat_r], keys[inv[flat_r]], U[flat_r],
-        cnt[inv[flat_r]], params[flat_r], owned, n, rng_impl=rng_impl)
+    with obs.trace("plan/sbm", phase="plan", family="sbm", reseed=False,
+                   P=P, lo=lo, hi=hi):
+        ri, rj, sec, diag, U = _region_layout(n, B)
+        flat_r, pe, owned = _cross_pack(ri, rj, P)
+        sel = (pe >= lo) & (pe < hi)
+        flat_r, pe, owned = flat_r[sel], pe[sel], owned[sel]
+        # distinct regions this range touches, in canonical order
+        needed = np.zeros(len(ri), bool)
+        needed[flat_r] = True
+        ridx = np.nonzero(needed)[0]
+        inv = np.zeros(len(ri), np.int64)
+        inv[ridx] = np.arange(len(ridx), dtype=np.int64)
+        keys = _region_keys(seed, ri[ridx], rj[ridx], rng_impl)
+        cnt = _region_counts(seed, ri[ridx], rj[ridx], U[ridx],
+                             np.where(diag[ridx], p_in, p_out))
+        kind = np.where(diag, KIND_TRI, KIND_RECT).astype(np.int32)
+        params = _region_params(sec, ri, rj, diag)
+        return chunk_plan_from_columns(
+            hi - lo, pe - lo, kind[flat_r], keys[inv[flat_r]], U[flat_r],
+            cnt[inv[flat_r]], params[flat_r], owned, n, rng_impl=rng_impl)
 
 
 def block_of(n: int, B: int, v: np.ndarray) -> np.ndarray:

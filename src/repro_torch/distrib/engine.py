@@ -31,6 +31,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.prng import THREEFRY, check_rng_impl
 from ..core.sampling import round_up_capacity, sample_rows
 from ..kernels.geom.ops import cell_points, pair_edges
@@ -130,7 +131,9 @@ class ChunkPlan:
         if self.reseed_fn is None:
             raise ValueError(
                 "plan carries no reseed emitter; re-emit from the GraphSpec")
-        return self.reseed_fn(int(seed))
+        with obs.trace("plan/reseed", phase="plan", reseed=True,
+                       plan=type(self).__name__):
+            return self.reseed_fn(int(seed))
 
 
 def _key_data_of(key) -> np.ndarray:
@@ -245,6 +248,11 @@ def deal_plan(plan: ChunkPlan, P: int) -> ChunkPlan:
     any P executes the identical edge set.  Mirror (recomputed,
     un-owned) rows are dropped -- ownership already makes the union
     exact."""
+    with obs.trace("plan/deal", phase="plan", P=P, virtual=plan.num_pes):
+        return _deal_plan(plan, P)
+
+
+def _deal_plan(plan: ChunkPlan, P: int) -> ChunkPlan:
     # np.argwhere walks v-major, c-minor; dealing by stable sort on v % P
     # keeps that order within each PE
     idx = np.argwhere(plan.owned & (plan.kind != KIND_EMPTY))
@@ -401,12 +409,19 @@ class PointPlan:
         """Non-empty cells in pe-major order (every cell is unique)."""
         return np.argwhere(self.count > 0).astype(np.int64)
 
+    def signature(self) -> tuple:
+        return ("point", self.kind, self.count.shape, self.key_data.shape[-1],
+                self.cell.shape[-1], self.geom.shape[-1], self.scale, self.dim,
+                self.capacity, self.rng_impl)
+
     def reseed(self, seed: int) -> "PointPlan":
         """Equivalent plan for ``seed`` (see :meth:`ChunkPlan.reseed`)."""
         if self.reseed_fn is None:
             raise ValueError(
                 "plan carries no reseed emitter; re-emit from the GraphSpec")
-        return self.reseed_fn(int(seed))
+        with obs.trace("plan/reseed", phase="plan", reseed=True,
+                       plan=type(self).__name__):
+            return self.reseed_fn(int(seed))
 
 
 def make_point_plan(
@@ -570,12 +585,19 @@ class PairPlan:
     def stream_index(self) -> np.ndarray:
         return active_pair_index(self)
 
+    def signature(self) -> tuple:
+        return ("pair", self.active.shape, self.key_a.shape[-1], self.gid_a.shape[-1],
+                self.geom_a.shape[-1], self.fparams.shape[-1], self.capacity,
+                self.kinds_present, self.dim, self.rng_impl)
+
     def reseed(self, seed: int) -> "PairPlan":
         """Equivalent plan for ``seed`` (see :meth:`ChunkPlan.reseed`)."""
         if self.reseed_fn is None:
             raise ValueError(
                 "plan carries no reseed emitter; re-emit from the GraphSpec")
-        return self.reseed_fn(int(seed))
+        with obs.trace("plan/reseed", phase="plan", reseed=True,
+                       plan=type(self).__name__):
+            return self.reseed_fn(int(seed))
 
 
 def make_pair_plan(
@@ -731,14 +753,18 @@ def _pair_fn(capacity: int, rng_impl: str, kinds: Sequence[int] = (GEOM_HYP,),
     active)`` on ``[R]`` row tensors -> (edges int64 ``[R, capacity^2,
     2]``, keep bool ``[R, capacity^2]``) of canonical ``(max gid, min
     gid)`` edges; ``keep`` folds in validity, the self-pair rule and the
-    active bit."""
+    active bit.
+
+    A caller that knows its rows' counts on the host may pass ``stage``,
+    each kind's largest count (see :func:`pair_edges`), which sizes the
+    staging of their points."""
     require_counter_rng(rng_impl)
     kinds = tuple(sorted(frozenset(int(k) for k in kinds) - {GEOM_EMPTY}))
 
     def rows(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_b,
-             fparams, self_pair, active):
+             fparams, self_pair, active, stage=None):
         return pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b,
                           geom_a, geom_b, fparams, self_pair, active,
-                          capacity=capacity, dim=dim, kinds=kinds)
+                          capacity=capacity, dim=dim, kinds=kinds, stage=stage)
 
     return rows

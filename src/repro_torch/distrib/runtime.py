@@ -21,8 +21,18 @@ contributes output, pe-major).  On that:
   time: a background planner thread builds segment k+1 while segment
   k's waves execute (plan/execute overlap), and the regrouped stream is
   the unsegmented plan's.
+* :func:`run_slab` executes one packed ``[D, B]`` slab of rows that the
+  serving scheduler (:mod:`repro_torch.serve`) assembled from many plans
+  sharing one slot function.
 
 There are no collectives: one card executes every virtual PE's rows.
+There is no compile either: a plan's slot function is a closure over
+its static parameters, cached by the plan's ``signature()`` (the stand-in
+for the reference's compile cache, whose hits and misses the
+``compile_cache`` events report).  The reference's spans (``run/exec``,
+``wave/*``, ``slab/exec``, ``plan/overlap``) are opened here; while
+tracing is on, ``run/exec``, ``wave/device`` and ``slab/exec`` end in a
+``torch.cuda.synchronize``, so device time lands in them.
 """
 from __future__ import annotations
 
@@ -31,10 +41,12 @@ import threading
 from collections import deque
 from contextlib import nullcontext
 from dataclasses import dataclass
-from typing import Callable, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .. import obs
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,13 +73,39 @@ def plan_tensors(plan, device) -> Tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
+# slot functions by (path, signature, ...): see the module docstring
+_CACHE: Dict[tuple, Callable] = {}
+
+
+def cache_clear() -> None:
+    _CACHE.clear()
+
+
+def _slot_fn(kind: str, key: tuple, thunk: Callable[[], Callable]) -> Callable:
+    """The cached slot function of ``key``; ``thunk`` builds it on a miss."""
+    fn = _CACHE.get(key)
+    obs.event("compile_cache", kind=kind, hit=fn is not None)
+    if fn is None:
+        fn = _CACHE[key] = thunk()
+    return fn
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def run(plan, device=None):
     """Execute a plan's full table; returns ``(payload, valid)``."""
     dev = resolve_device(device)
+    fn = _slot_fn("run", ("run", plan.signature()), plan.slot_fn)
     tables = plan_tensors(plan, dev)
     P, C = tables[0].shape[:2]      # every plan kind's tables are [P, C, ...]
     rows = [t.reshape(P * C, *t.shape[2:]) for t in tables]
-    payload, valid = plan.slot_fn()(*rows)
+    with obs.trace("run/exec", phase="exec", mode="run"):
+        payload, valid = fn(*rows)
+        if obs.is_enabled():
+            _sync(dev)
     return (payload.reshape(P, C, *payload.shape[1:]),
             valid.reshape(P, C, *valid.shape[1:]))
 
@@ -189,7 +227,8 @@ class PlanEmitter:
 
 def _plan_feed(emitter: PlanEmitter, device: torch.device):
     """Start the background planner: it builds the segments in PE order
-    into a bounded queue (at most two segments ahead of execution).
+    into a bounded queue (at most two segments ahead of execution), each
+    in a ``plan/overlap`` span on the planner's thread.
     Items are ``(lo, plan)``, then ``None`` at exhaustion; an exception of
     the planner is put on the queue for the consumer to raise.  Returns
     ``(queue, stop)``: setting ``stop`` ends the planner at its next
@@ -219,8 +258,13 @@ def _plan_feed(emitter: PlanEmitter, device: torch.device):
     def planner() -> None:
         try:
             with guard:
-                for lo, hi in bounds:
-                    if stop.is_set() or not put((lo, emitter.build(lo, hi))):
+                for i, (lo, hi) in enumerate(bounds):
+                    if stop.is_set():
+                        return
+                    with obs.trace("plan/overlap", phase="plan", segment=i,
+                                   segments=len(bounds), lo=lo, hi=hi):
+                        seg = emitter.build(lo, hi)
+                    if not put((lo, seg)):
                         return
             put(None)
         except BaseException as e:  # forwarded to the consumer thread
@@ -238,7 +282,10 @@ def _stream_emitter_waves(emitter: PlanEmitter, batch: int, prefetch: int,
     feed, stop = _plan_feed(emitter, device)
     try:
         while True:
-            item = feed.get()
+            # un-phased: the consumer's stall on the planner (nonzero only
+            # when planning, not execution, sets the pace)
+            with obs.trace("plan/overlap/wait"):
+                item = feed.get()
             if item is None:
                 return
             if isinstance(item, BaseException):
@@ -264,23 +311,91 @@ def stream_waves(plan, batch: int = 1, prefetch: int = 2,
     if isinstance(plan, PlanEmitter):
         yield from _stream_emitter_waves(plan, batch, prefetch, dev)
         return
-    ws = wave_schedule(plan, 1, batch)
+    with obs.trace("wave/schedule", phase="exec", D=1, batch=batch):
+        ws = wave_schedule(plan, 1, batch)
     if not ws.num_waves:
         return
-    fn = plan.slot_fn()
+    fn = _slot_fn("wave", ("wave", plan.signature(), ws.batch), plan.slot_fn)
     tables = plan_tensors(plan, dev)
     sched = torch.from_numpy(ws.sched[:, 0]).to(dev, torch.int64)  # [W, B, 2]
     valid = torch.from_numpy(ws.valid[:, 0]).to(dev)                # [W, B]
+    traced = obs.is_enabled()
+
+    def emit(rows, payload, ok) -> Wave:
+        if traced:
+            # measurement mode: wait for the card here so that device time
+            # lands in its own span (queued waves overlap when disabled)
+            with obs.trace("wave/device", phase="exec"):
+                _sync(dev)
+        with obs.trace("wave/sink", phase="sink"):
+            return Wave(payload[None], ok[None], rows)
+
     pending: deque = deque()
     for w in range(ws.num_waves):
-        s = sched[w]
-        payload, ok = fn(*(t[s[:, 0], s[:, 1]] for t in tables))
-        pending.append(Wave(payload[None], (ok & valid[w][:, None])[None],
-                            ws.rows[w]))
+        with obs.trace("wave/dispatch", phase="exec", wave=w):
+            s = sched[w]
+            payload, ok = fn(*(t[s[:, 0], s[:, 1]] for t in tables))
+            ok = ok & valid[w][:, None]
+        pending.append((ws.rows[w], payload, ok))
         if len(pending) >= max(1, int(prefetch)):
-            yield pending.popleft()
+            yield emit(*pending.popleft())
     while pending:
-        yield pending.popleft()
+        yield emit(*pending.popleft())
+
+
+# --------------------------------------------------------------------------
+# slab execution: packed [D, B] rows from *different* plans (repro_torch.serve)
+# --------------------------------------------------------------------------
+
+def _upload(arrays: Sequence[np.ndarray], dev: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The host tables as tensors on ``dev`` in one copy: packed into one
+    byte buffer (pinned, on a card) at 16-byte aligned offsets, copied
+    with ``non_blocking``, and viewed back (uint32 as int32, the same
+    bits).  The pinned buffer is not reused before the copy ends: the
+    caching host allocator records the copy's stream."""
+    arrays = [np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32 else a)
+              for a in arrays]
+    offs, total = [], 0
+    for a in arrays:
+        offs.append(total)
+        total += (a.nbytes + 15) // 16 * 16
+    host = torch.empty(max(total, 16), dtype=torch.uint8, pin_memory=dev.type == "cuda")
+    flat = host.numpy()
+    for a, o in zip(arrays, offs):
+        flat[o: o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host.to(dev, non_blocking=True)
+    return tuple(buf[o: o + a.nbytes].view(torch.from_numpy(a[:0]).dtype).reshape(a.shape)
+                 for a, o in zip(arrays, offs))
+
+
+def run_slab(slot_fn_thunk: Callable[[], Callable], signature: tuple,
+             valid: np.ndarray, rows: Sequence[np.ndarray], device=None,
+             **slot_kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Execute one packed ``[D, B]`` slab; returns ``(payload [D, B, ...],
+    valid [D, B, L])`` on the device, padding rows masked.
+
+    ``rows`` are the per-slot input tables (``[D, B, ...]`` numpy, one a
+    table the slot function takes) assembled by the scheduler from any
+    mix of plans sharing the program named by ``signature``; ``valid``
+    masks the padding rows.  One card runs the whole slab as one batch of
+    ``D B`` rows (one launch of each kernel of the program), after one
+    upload of the tables.  ``slot_fn_thunk`` is called only on a miss of
+    the slot-function cache; ``slot_kwargs`` go to the slot function
+    (the pair program's ``stage``)."""
+    dev = resolve_device(device)
+    valid = np.asarray(valid, bool)
+    D, B = valid.shape
+    key = ("slab", signature, valid.shape,
+           tuple((r.shape[2:], r.dtype.str) for r in rows))
+    fn = _slot_fn("slab", key, slot_fn_thunk)
+    ok_rows, *tables = _upload([valid] + list(rows), dev)
+    with obs.trace("slab/exec", phase="exec", mode="slab"):
+        payload, ok = fn(*(t.reshape(D * B, *t.shape[2:]) for t in tables), **slot_kwargs)
+        ok = ok & ok_rows.reshape(D * B, 1)
+        if obs.is_enabled():
+            _sync(dev)
+    return (payload.reshape(D, B, *payload.shape[1:]),
+            ok.reshape(D, B, *ok.shape[1:]))
 
 
 def stream_slots(plan, batch: int = 1, prefetch: int = 2, device=None

@@ -38,9 +38,16 @@
 //   one's keep stores stay shared-memory stores); a row whose two halves
 //   do not fit in the card's 227 KB (HYP from capacity 1815) takes the
 //   whole of it, with a second barrier before the next decode.  A row
-//   needs 64 bytes a capacity on HYP rows and 32 on TORUS rows, so a
-//   launch takes capacity up to 3630 with HYP rows and 7261 with TORUS
-//   rows alone.
+//   stages its kind's `stage` points a side, 32 bytes each on HYP rows and
+//   16 on TORUS rows: each kind's stage bounds its rows' counts, and is
+//   the capacity unless the caller knows a smaller bound from its host
+//   tables (a serving slab runs its rows at a power-of-two class above
+//   their own capacity).  A row's area is the larger kind's, so a launch
+//   takes a HYP stage up to 3630 and a TORUS stage up to 7261 (not both),
+//   at any capacity.  A live row whose count exceeds its kind's stage is
+//   refused, never clamped: a launch given stages below the capacity
+//   first runs a check kernel whose device assertion fails it (a kernel of
+//   its own, so that the assertion's call costs pair_edges no registers).
 // * cell_points writes 8 dim + 1 bytes per slot and draws 1 + 2 dim
 //   Threefry blocks (72 integer operations each) per point.  Threads map
 //   to points, not slots: a persistent CTA takes tiles of cells (about 16
@@ -65,6 +72,7 @@
 // the kernels equal their plain PyTorch versions, and the reference, bit
 // for bit.
 #include <cuda_runtime.h>
+#include <assert.h>
 #include <stdint.h>
 
 #include "../../delaunay/csrc/predicates.cuh"
@@ -150,7 +158,9 @@ struct PairArgs {
   const bool *self_pair, *active;
   int64_t K, G, F, rows;
   int cap, dim, kinds;   // kinds: the bits of the row kinds the launch runs
+  int stage_hyp, stage_torus;  // points staged a side by kind (<= cap)
   int tile_rows, area;   // rows a tile, bytes of a row's point area (16-aligned)
+  int half;              // bytes of the area before side b (16-aligned)
   int stage_keep;        // 1: keep bytes staged in shared memory, 0: stored as computed
   int halves;            // shared-memory halves: 2, or 1 for rows too wide for two
   uint32_t m_cap;        // ceil(2^32 / cap)
@@ -238,8 +248,11 @@ __device__ void pair_decode(const PairArgs& a, int64_t tile, TileBuf b, int* war
     rr.ga = a.gid_a[r * a.K];
     rr.gb = a.gid_b[r * a.K];
     const int64_t ca = a.count_a[r], cb = a.count_b[r];
-    rr.ca = live ? (int)(ca < 0 ? 0 : (ca > cap ? cap : ca)) : 0;
-    rr.cb = live ? (int)(cb < 0 ? 0 : (cb > cap ? cap : cb)) : 0;
+    // the kind's stage bounds the counts (stage_check_kernel refuses a
+    // launch whose rows pass it; the clamp keeps the staging in bounds)
+    const int lim = ek == kGeomHyp ? a.stage_hyp : ek == kGeomTorus ? a.stage_torus : cap;
+    rr.ca = live ? (int)(ca < 0 ? 0 : (ca > lim ? lim : ca)) : 0;
+    rr.cb = live ? (int)(cb < 0 ? 0 : (cb > lim ? lim : cb)) : 0;
     rr.thr = ek == kGeomHyp || ek == kGeomTorus ? a.fparams[r * a.F + 1] : 0.0;
     int flags = (a.self_pair[r] ? kRowSelf : 0) | ek << 1;
     if (ek == kGeomCert) {
@@ -267,15 +280,15 @@ __device__ void pair_decode(const PairArgs& a, int64_t tile, TileBuf b, int* war
     const RowRec& rr = b.rec[t];
     const bool side_b = k >= rr.ca;
     const int i = side_b ? k - rr.ca : k;
-    const int s = side_b ? cap + i : i;
+    char* side = b.area + (size_t)t * a.area + (side_b ? a.half : 0);
     const uint32_t* key = (side_b ? a.key_b : a.key_a) + 2 * r;
     const double* geom = (side_b ? a.geom_b : a.geom_a) + r * a.G;
     const Key2x32 slot = tf_fold_in(Key2x32{key[0], key[1]}, (uint32_t)i);
     const double g0 = a.fparams[r * a.F];
     if (((rr.flags >> 1) & 3) == kGeomHyp) {
-      hyp_features(slot, geom, g0, (double*)(b.area + (size_t)t * a.area) + 4 * s);
+      hyp_features(slot, geom, g0, (double*)side + 4 * i);
     } else {
-      float* pt = (float*)(b.area + (size_t)t * a.area) + 4 * s;
+      float* pt = (float*)side + 4 * i;
       for (int d = 0; d < a.dim; ++d)
         pt[d] = (float)((geom[d] + uniform53(slot, (uint32_t)d)) / g0);
     }
@@ -316,10 +329,11 @@ __device__ void pair_write(const PairArgs& a, int64_t tile, TileBuf b) {
       }
     } else if (valid) {
       if (ek == kGeomHyp) {
-        kp = hyp_tile((const double*)pts + 4 * i, (const double*)pts + 4 * (cap + j), rr.thr);
+        kp = hyp_tile((const double*)pts + 4 * i, (const double*)(pts + a.half) + 4 * j,
+                      rr.thr);
       } else {
-        kp = euclid_tile((const float*)pts + 4 * i, (const float*)pts + 4 * (cap + j), a.dim,
-                         (float)rr.thr);
+        kp = euclid_tile((const float*)pts + 4 * i, (const float*)(pts + a.half) + 4 * j,
+                         a.dim, (float)rr.thr);
       }
     }
     edges[s] = make_longlong2(u > v ? u : v, u > v ? v : u);
@@ -424,6 +438,21 @@ int launch_persistent(F* fn, const A& a, int64_t tiles, size_t shared, void* str
   const int64_t grid = tiles < (int64_t)sms * per_sm ? tiles : (int64_t)sms * per_sm;
   fn<<<(unsigned)grid, kThreads, shared, (cudaStream_t)stream>>>(a, tiles);
   return (int)cudaGetLastError();
+}
+
+// refuse a launch whose live HYP or TORUS row holds more points (at most
+// cap) than its kind's stage: the assertion fails the launch, and the
+// CUDA context with it, before pair_edges_kernel runs on the stream
+__global__ void stage_check_kernel(PairArgs a) {
+  for (int64_t r = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; r < a.rows;
+       r += (int64_t)gridDim.x * blockDim.x) {
+    const int ek = effective_kind(a.kind[r], a.kinds);
+    if (!a.active[r] || (ek != kGeomHyp && ek != kGeomTorus)) continue;
+    const int64_t lim = ek == kGeomHyp ? a.stage_hyp : a.stage_torus;
+    const int64_t ca = a.count_a[r] < a.cap ? a.count_a[r] : a.cap;
+    const int64_t cb = a.count_b[r] < a.cap ? a.count_b[r] : a.cap;
+    assert(ca <= lim && cb <= lim);
+  }
 }
 
 template <bool STAGE>
@@ -621,17 +650,26 @@ uint32_t magic(uint32_t d) { return (uint32_t)((((uint64_t)1 << 32) + d - 1) / d
 // [R, G]; fparams float64 [R, F]; self_pair, active bool [R]; kinds = the
 // bits of the row kinds the launch runs (1 HYP, 2 TORUS, 4 CERT); a row of
 // another kind keeps nothing, as in the plain version.  Out: edges int64
-// [R, cap^2, 2], keep bool [R, cap^2] (16-byte aligned).  Returns the
-// cudaError_t: cudaErrorInvalidValue for a row too wide for shared memory.
+// [R, cap^2, 2], keep bool [R, cap^2] (16-byte aligned).  stage_hyp and
+// stage_torus (0..cap) bound the counts of the live HYP and TORUS rows: a
+// row's points are staged in shared memory for that many a side, and a
+// count past its bound fails the launch with a device assertion (of a
+// check kernel launched first where a stage is below cap).  Returns
+// the cudaError_t: cudaErrorInvalidValue for a stage too wide for shared
+// memory.
 extern "C" int pair_edges(const void* kind, const void* key_a, const void* key_b,
                           const void* count_a, const void* count_b, const void* gid_a,
                           const void* gid_b, long long K, const void* geom_a,
                           const void* geom_b, long long G, const void* fparams,
                           long long F, const void* self_pair, const void* active,
-                          long long rows, long long cap, int dim, int kinds, void* edges,
+                          long long rows, long long cap, long long stage_hyp,
+                          long long stage_torus, int dim,
+                          int kinds, void* edges,
                           void* keep, void* stream) {
   if (rows == 0 || cap == 0) return 0;
-  if (cap > 32768 || kinds < 0 || kinds > 7 || ((uintptr_t)keep & 15) ||
+  if (cap > 32768 || stage_hyp < 0 || stage_hyp > cap || stage_torus < 0 ||
+      stage_torus > cap || kinds < 0 || kinds > 7 ||
+      ((uintptr_t)keep & 15) ||
       ((uintptr_t)edges & 15))
     return (int)cudaErrorInvalidValue;
   PairArgs a;
@@ -649,6 +687,7 @@ extern "C" int pair_edges(const void* kind, const void* key_a, const void* key_b
   a.active = (const bool*)active;
   a.K = K, a.G = G, a.F = F, a.rows = rows;
   a.cap = (int)cap, a.dim = dim, a.kinds = kinds;
+  a.stage_hyp = (int)stage_hyp, a.stage_torus = (int)stage_torus;
   a.edges = (longlong2*)edges;
   a.keep = (uint8_t*)keep;
   const int cc = (int)(cap * cap);
@@ -656,11 +695,14 @@ extern "C" int pair_edges(const void* kind, const void* key_a, const void* key_b
   a.step_j = kThreads % (int)cap;
   a.step_i = kThreads / (int)cap % (int)cap;
   a.step_row = kThreads / (int)cap / (int)cap;
-  // a row's point area: 2 cap float64 features (HYP), 2 cap float32 x 4
-  // points (TORUS), K ids (CERT)
-  int area = 0;
-  if (kinds & kHyp) area = 2 * (int)cap * 32;
-  if ((kinds & kTorus) && 2 * (int)cap * 16 > area) area = 2 * (int)cap * 16;
+  // a row's point area: two sides of stage_hyp float64 features x 4 (HYP)
+  // or of stage_torus float32 x 4 points (TORUS), side b at byte `half`
+  // whatever the row's kind; K ids (CERT)
+  int half = 0;
+  if (kinds & kHyp) half = (int)stage_hyp * 32;
+  if ((kinds & kTorus) && (int)stage_torus * 16 > half) half = (int)stage_torus * 16;
+  a.half = (half + 15) / 16 * 16;
+  int area = 2 * a.half;
   if ((kinds & kCert) && 8 * (int)K > area) area = 8 * (int)K;
   a.area = (area + 15) / 16 * 16;
   // about 4096 slots a tile, in whole 512-slot windows where a multiple of
@@ -682,6 +724,12 @@ extern "C" int pair_edges(const void* kind, const void* key_a, const void* key_b
   while (tr > 1 && 2 * tile_buf_bytes(tr, (int)cap, a.area, true) > 48 * 1024) tr /= 2;
   a.stage_keep = 2 * tile_buf_bytes(tr, (int)cap, a.area, true) <= 48 * 1024;
   a.tile_rows = a.stage_keep ? tr : 1;
+  if (((kinds & kHyp) && stage_hyp < cap) || ((kinds & kTorus) && stage_torus < cap)) {
+    const long long blocks = (rows + 255) / 256 < 1024 ? (rows + 255) / 256 : 1024;
+    stage_check_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   return a.stage_keep ? launch_pair_edges<true>(a, stream) : launch_pair_edges<false>(a, stream);
 }
 

@@ -8,20 +8,21 @@ fails.  There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+from typing import Mapping, Optional
 
 import torch
 
 from .. import build
 from . import libm
 from .ref import (GEOM_CERT, GEOM_EMPTY, GEOM_HYP, GEOM_TORUS, POINTS_CUBE, POINTS_POLAR,
-                  cell_points_ref, pair_edges_ref)
+                  cell_points_ref, pair_edges_ref, stage_bounds)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
 _C = ctypes.c_int
 _SIGNATURES = {
     "pair_edges": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P,
-                   _I, _I, _C, _C, _P, _P, _P],
+                   _I, _I, _I, _I, _C, _C, _P, _P, _P],
     "cell_points": [_P, _P, _P, _I, _P, _I, _C, ctypes.c_double, _I, _I, _C,
                     _P, _P, _P],
     "libm_eval": [_C, _P, _P, _I, _P],
@@ -39,20 +40,30 @@ def _lib():
 
 
 def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_b,
-               fparams, self_pair, active, *, capacity: int, dim: int, kinds):
+               fparams, self_pair, active, *, capacity: int, dim: int, kinds,
+               stage: Optional[Mapping[int, int]] = None):
     """(edges int64 ``[R, capacity^2, 2]``, keep bool ``[R, capacity^2]``)
     of ``R`` GEOM_TORUS / GEOM_HYP / GEOM_CERT candidate-pair rows (see
     :func:`.ref.pair_edges_ref`).  ``kind`` int32 ``[R]``; keys int32
     ``[R, 2]`` (the uint32 words' bits); counts int64 ``[R]``; gids int64
     ``[R, K]``; geoms float64 ``[R, G]``; ``fparams`` float64 ``[R, F]``;
-    ``self_pair`` and ``active`` bool ``[R]``.  On the card a row's points
-    (32 bytes each on HYP rows, 16 on TORUS rows, 2 capacity of them) must
-    fit in a block's shared memory: capacity up to 3630 with HYP rows and
-    7261 with TORUS rows alone on an H100; the launch raises beyond."""
+    ``self_pair`` and ``active`` bool ``[R]``.
+
+    ``stage`` maps ``GEOM_HYP`` and ``GEOM_TORUS`` to a bound on the
+    counts of that kind's active rows which the caller knows from its host
+    tables, e.g. the largest count of each kind in a serving slab whose
+    rows run at a capacity class above their own; a kind left out is
+    bounded by ``capacity``.  The bound is a precondition: a row past it
+    is refused (the plain version raises ``ValueError``; on the card a
+    check kernel launched first fails the launch with a device assertion,
+    which ends the process's CUDA context), never clamped.  On the card a row stages ``2 stage`` points
+    of its kind (32 bytes each on HYP rows, 16 on TORUS rows) in a
+    block's shared memory: a HYP stage up to 3630 or a TORUS stage up to
+    7261 on an H100, at any capacity; the launch raises beyond."""
     if kind.device.type == "cpu":
         return pair_edges_ref(kind, key_a, key_b, count_a, count_b, gid_a, gid_b,
                               geom_a, geom_b, fparams, self_pair, active,
-                              capacity=capacity, dim=dim, kinds=kinds)
+                              capacity=capacity, dim=dim, kinds=kinds, stage=stage)
     R, dev = kind.shape[0], kind.device
     K, G, F = gid_a.shape[-1], geom_a.shape[-1], fparams.shape[-1]
     build.check_arg(kind, "kind", torch.int32, (R,), dev)
@@ -75,6 +86,7 @@ def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_
     if F < need_f or G < need or K < 1 or dim not in (2, 3):
         raise ValueError(f"pair_edges: want F >= {need_f}, G >= {need}, K >= 1, dim 2 or 3; "
                          f"got F={F}, G={G}, K={K}, dim={dim}")
+    stage_hyp, stage_torus = stage_bounds(stage, capacity)
     bits = sum(_KIND_BITS[k] for k in set(kinds) - {GEOM_EMPTY})
     slots = capacity * capacity
     edges = torch.empty((R, slots, 2), dtype=torch.int64, device=dev)
@@ -84,7 +96,8 @@ def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_
             kind.data_ptr(), key_a.data_ptr(), key_b.data_ptr(), count_a.data_ptr(),
             count_b.data_ptr(), gid_a.data_ptr(), gid_b.data_ptr(), K,
             geom_a.data_ptr(), geom_b.data_ptr(), G, fparams.data_ptr(), F,
-            self_pair.data_ptr(), active.data_ptr(), R, capacity, dim, bits,
+            self_pair.data_ptr(), active.data_ptr(), R, capacity, stage_hyp, stage_torus,
+            dim, bits,
             edges.data_ptr(), keep.data_ptr(), build.stream_arg(dev)), "pair_edges")
         build.LAUNCHES["pair_edges"] += 1
     return edges, keep

@@ -93,9 +93,34 @@ def cube_draw(key, geom: torch.Tensor, capacity: int, dim: int) -> torch.Tensor:
     return geom[:, None, :dim] + counter_uniform(key, capacity, dim)
 
 
+def stage_bounds(stage, capacity: int):
+    """``(HYP, TORUS)`` bounds of ``pair_edges``' ``stage`` mapping (a kind
+    left out, or no mapping, is bounded by the capacity)."""
+    stage = {} if stage is None else dict(stage)
+    if set(stage) - {GEOM_HYP, GEOM_TORUS}:
+        raise ValueError(f"pair_edges: stage bounds GEOM_HYP and GEOM_TORUS rows, got {stage}")
+    out = tuple(int(stage.get(k, capacity)) for k in (GEOM_HYP, GEOM_TORUS))
+    if not all(0 <= b <= capacity for b in out):
+        raise ValueError(f"pair_edges: stage {stage} outside 0..capacity={capacity}")
+    return out
+
+
+def check_stage(kind, count_a, count_b, active, kinds, capacity: int, stage) -> None:
+    """Raise ``ValueError`` where an active row of a kind the launch runs
+    holds more points (at most ``capacity``) than its kind's stage."""
+    for k, bound in zip((GEOM_HYP, GEOM_TORUS), stage_bounds(stage, capacity)):
+        if k not in kinds or bound == capacity:
+            continue
+        live = active & (kind == k)
+        most = torch.maximum(count_a, count_b).clamp(0, capacity)
+        if bool((live & (most > bound)).any()):
+            raise ValueError(f"pair_edges: a row of kind {k} holds {int(most[live].max())} "
+                             f"points, past its stage {bound}")
+
+
 def pair_edges_ref(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a,
                    geom_b, fparams, self_pair, active, *, capacity: int, dim: int,
-                   kinds=(GEOM_HYP, GEOM_TORUS)):
+                   kinds=(GEOM_HYP, GEOM_TORUS), stage=None):
     """(edges int64 ``[R, capacity^2, 2]``, keep bool ``[R, capacity^2]``)
     of ``R`` candidate-pair rows: slot ``i * capacity + j`` holds the
     canonical edge ``(max, min)`` of ``gid_a + i`` and ``gid_b + j`` (on
@@ -103,7 +128,11 @@ def pair_edges_ref(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a,
     slots hold points (``i < count_a``, ``j < count_b``), ``i < j`` on a
     self pair, the row is active and the row's geometry test passes.
     ``fparams`` is ``(g, r^2)`` on TORUS rows and ``(alpha, cosh R)`` on
-    HYP rows."""
+    HYP rows.  ``stage`` bounds each kind's counts (see
+    :func:`repro_torch.kernels.geom.ops.pair_edges`): a row past it
+    raises, as the kernel refuses it."""
+    if stage is not None:
+        check_stage(kind, count_a, count_b, active, kinds, capacity, stage)
     N = capacity
     R = kind.shape[0]
     dev = kind.device

@@ -624,3 +624,128 @@ def test_validate_on_the_card_equals_cpu(cuda):
         for x, y in zip(a.checks, b.checks):
             assert (x.name, x.passed, x.observed, x.expected, x.pvalue) == \
                 (y.name, y.passed, y.observed, y.expected, y.pvalue)
+
+
+# ------------------------------------------------------------------ serving
+
+@pytest.mark.parametrize("spec", [api.GNM(n=3000, m=2_500_000, seed=1),
+                                  api.SBM(n=4000, blocks=2, p_in=0.6, p_out=0.3, seed=3),
+                                  api.GNP(n=1 << 14, p=0.01, seed=2)],
+                         ids=["GNM-dense", "SBM-dense", "GNP"])
+def test_slab_at_class_capacity_equals_generate(cuda, spec):
+    """A served request runs its chunk rows at the power-of-two class
+    above the plan's capacity, so ``chunk_sample`` sorts each row in
+    another bucket layout; dense rows take redraw rounds.  The delivered
+    edges equal ``generate``'s on the card."""
+    from repro_torch.serve import Service, program_of
+
+    plan = spec.plan(4)
+    assert program_of(plan).capacity > plan.capacity
+    before = build.LAUNCHES["chunk_sample"]
+    svc = Service(4, device=cuda, slab_batch=3)
+    g = svc.submit(spec).result()
+    s = svc.submit(spec, sink="stats").result()
+    assert build.LAUNCHES["chunk_sample"] > before
+    want = api.generate(spec, 4, device=cuda)
+    assert torch.equal(g.edges, want.edges) and g.edges.device.type == "cuda"
+    assert s["num_edges"] == want.m and torch.equal(s["degrees"], want.degrees())
+    assert svc.syncs <= svc.stats["slabs"]
+
+
+def staged_rows(counts: dict, R: int, device):
+    """``R`` rows of each kind in ``counts`` (kind -> the largest count of
+    its rows, which row 0 of the kind holds), concatenated: the rows of a
+    pair slab and the ``stage`` its scheduler passes."""
+    parts = [pair_rows(R, n, 2, seed=3000, device=device, kinds=(k,))
+             for k, n in counts.items()]
+    rows = [torch.cat([p[t][:, :1] if t in (5, 6) else p[t] for p in parts])
+            for t in range(12)]
+    rows[-1][:] = True
+    return rows
+
+
+@pytest.mark.parametrize("counts,cap", [({GEOM_HYP: 2500}, 4096),
+                                        ({GEOM_HYP: 3630}, 4096),
+                                        ({GEOM_TORUS: 5000}, 8192),
+                                        ({GEOM_HYP: 300, GEOM_TORUS: 300}, 512),
+                                        ({GEOM_HYP: 3000, GEOM_TORUS: 4096}, 4096)],
+                         ids=["hyp-2500", "hyp-3630", "torus-5000", "mixed-300",
+                              "mixed-3000-4096"])
+def test_pair_edges_staged_by_counts_at_class_capacity(cuda, counts, cap):
+    """A pair slab runs its rows at the class capacity ``cap`` and stages
+    each kind's largest count a side: the kernel equals its plain version
+    at that capacity, and the kept edges, in order, equal the rows run at
+    their own capacity (the largest count).  A TORUS row of 4096 points
+    beside HYP rows of 3000 fits (each kind stages its own bound).  Without ``stage`` the
+    class capacity outgrows shared memory; a bound past the capacity is
+    refused."""
+    R = 2 if cap > 1024 else 19
+    rows = staged_rows(counts, R, cuda)
+    kinds = tuple(counts)
+    ea, ka = G.pair_edges(*rows, capacity=cap, dim=2, kinds=kinds, stage=counts)
+    eb, kb = pair_edges_ref(*rows, capacity=cap, dim=2, kinds=kinds, stage=counts)
+    assert torch.equal(ea, eb) and torch.equal(ka, kb)
+    own = max(counts.values())
+    ec, kc = G.pair_edges(*rows, capacity=own, dim=2, kinds=kinds, stage=counts)
+    for r in range(len(rows[0])):
+        assert torch.equal(ea[r][ka[r]], ec[r][kc[r]]), r
+    assert int(ka.sum()) == int(kc.sum()) > 0
+    if cap * (32 if GEOM_HYP in kinds else 16) * 2 > 232448:
+        with pytest.raises(RuntimeError):
+            G.pair_edges(*rows, capacity=cap, dim=2, kinds=kinds)
+    with pytest.raises(ValueError):
+        G.pair_edges(*rows, capacity=cap, dim=2, kinds=kinds, stage={kinds[0]: cap + 1})
+
+
+def test_pair_edges_refuses_a_count_past_its_stage(cuda):
+    """A HYP row of 300 points under a stage of 299 fails the launch with
+    the kernel's device assertion (never a clamped row).  The assertion
+    ends the process's CUDA context, so a child process makes the call."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import torch, sys\n"
+            "sys.path[:0] = ['src', 'tests']\n"
+            "from test_torch_cuda import staged_rows\n"
+            "from repro_torch.kernels.geom import ops as G\n"
+            "from repro_torch.kernels.geom.ref import GEOM_HYP\n"
+            "rows = staged_rows({GEOM_HYP: 300}, 3, torch.device('cuda'))\n"
+            "G.pair_edges(*rows, capacity=512, dim=2, kinds=(GEOM_HYP,), stage={GEOM_HYP: 299})\n"
+            "torch.cuda.synchronize()\n"
+            "print('no error')\n")
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode != 0 and "no error" not in run.stdout, run.stdout
+    assert "device-side assert" in run.stderr or "Assertion" in run.stderr, run.stderr[-2000:]
+
+
+def test_served_pair_plan_past_the_old_staging_limit(cuda):
+    """An RGG plan whose capacity (4097..7261) has class 8192, past what
+    pair_edges staged by capacity; served, it equals generate."""
+    from repro_torch.serve import Service, program_of
+
+    spec = api.RGG(n=20000, radius=0.45, seed=5, chunks=1)
+    plan = spec.plan(1)
+    assert 4096 < plan.capacity <= 7261 and program_of(plan).capacity == 8192
+    got = Service(1, device=cuda, slab_batch=2).submit(spec, sink="stats").result()
+    want = api.generate(spec, 1, device=cuda)
+    assert got["num_edges"] == want.m and torch.equal(got["degrees"], want.degrees())
+
+
+def test_serve_fault_reissue_and_overlap_on_the_card(cuda):
+    from repro_torch.serve import Service
+
+    spec = api.GNM(n=1 << 14, m=1 << 20, seed=4)
+    svc = Service(16, D=4, device=cuda, slab_batch=4)
+    t = svc.submit(spec)
+    svc.inject_fault([1, 2], at_slab=1)
+    svc.drain()
+    assert svc.scheduler.reissued > 0
+    assert torch.equal(t.result().edges, api.generate(spec, 16, device=cuda).edges)
+    sbm = api.SBM(n=4000, blocks=5, p_in=0.01, p_out=0.001, seed=3)
+    got = list(Service(8, device=cuda).submit(sbm, sink="chunks", overlap=4).chunks())
+    want = list(api.iter_edge_chunks(sbm, 8, device=cuda))
+    assert [c.pe for c in got] == [c.pe for c in want]
+    assert all(torch.equal(a.edges(), b.edges()) for a, b in zip(got, want))
