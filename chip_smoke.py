@@ -89,11 +89,23 @@ or of the JAX package.  Phases, each printed with its seconds:
       GNM with D=4 slab rows; an RGG of capacity 4097..7261 served at
       class 8192 and HYP rows at class 4096 (``pair_edges`` staged by
       counts); each family's cold plan against its reseed;
+   g. contract checking (``repro_torch.analyze``): the port and this
+      script lint clean; every program of the registry (8 families x
+      plan kinds x run and wave, the serving slabs, the ``pair_mask``
+      and ``triangulate`` kernel cases) runs on the card under the op
+      scan and ``set_sync_debug_mode("error")`` with no finding, its
+      outputs equal to the same case's on the CPU (plain versions) bit
+      for bit; a slot function planted with ``.item()``, ``nonzero`` or
+      ``torch.rand`` is found once by the scan and by
+      ``runtime.run(check=True)``; ``generate(GNM(n=2^24, m=2^28), 1)``
+      with ``check=True`` on a cold slot-function cache against
+      ``check=False``, in turns (the check's one-time cost);
    each checked on the device; each ``collect`` must launch ``hist`` once
    per non-empty chunk of its first pass plus once per section histogram.  ``pair_mask`` is
-   not on any path: as in
+   on no generator path: as in
    the reference, the engine runs its tiles inside ``pair_edges``, and
-   only the reference's per-PE oracles call the kernel itself.
+   only the reference's per-PE oracles and the registry's kernel case
+   (path g) call the kernel itself.
 4. each kernel timed at its main-path shape beside its plain version,
    the library call computing the same function (where there is one)
    and its bound (``pair_mask`` at its own contract's shape, the
@@ -124,7 +136,8 @@ or of the JAX package.  Phases, each printed with its seconds:
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
 
-``--only PATH`` (``er``, ``geom``, ``rdg``, ``families``, ``stats``, ``serve``; repeatable)
+``--only PATH`` (``er``, ``geom``, ``rdg``, ``families``, ``stats``, ``serve``, ``analyze``;
+repeatable)
 builds and runs
 only that main path and its phase 4 timing, and ``--no-timing`` stops
 after the path: run the same script in two checkouts in turns to
@@ -141,24 +154,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 bandwidth,
-# int32 issue = 132 SMs x 128 lanes x 1.98 GHz boost clock (the 64 INT32
-# lanes, and the 64 FMA lanes, where the compiler issues integer adds and
-# multiply-adds as IMAD: chunk_rmat ran its 72-operation Threefry blocks
-# at 1.2x the 64-lane rate on the card), and float32 outside the tensor
-# cores
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 128 * 1.98e9
-FP32_OPS_PER_S = 67e12
-# float64 outside the tensor cores = 132 SMs x 64 FP64 lanes x 2 (an FMA)
-# x 1.98 GHz: the in-sphere scan of triangulate and the circumspheres are
-# scalar float64 FMA chains whose rounding the tensor cores do not
-# reproduce
-FP64_OPS_PER_S = 132 * 64 * 2 * 1.98e9
-# Threefry-2x32: 20 rounds of (add, rotate, xor) plus 6 key injections of
-# two adds; the collision sampler runs three per drawn slot (the 64-bit
-# remainder is not counted, so the bound is a lower bound)
-THREEFRY_OPS = 20 * 3 + 6 * 2
+
+def cost():
+    """The analytic bytes and operations of the kernels' launches
+    (``repro_torch.launch.cost``): every bound below comes from it."""
+    from repro_torch.launch import cost as c
+
+    return c
+
+
+def bound_terms(c) -> tuple:
+    """``(bytes seconds, operations seconds)`` of a launch's cost against
+    the H100 SXM's peaks (``repro_torch.launch.roofline.H100``)."""
+    from repro_torch.launch.roofline import H100
+
+    return c.seconds(H100)
+
 
 
 def require(cond, what: str) -> None:
@@ -995,8 +1006,8 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     slots = plan.active.size * cap ** 2
     points = int(((full[3] + full[4]) * full[-1]).sum())
     in_bytes = sum(t.numel() * t.element_size() for t in full)
-    rgg_bytes = (in_bytes + 17 * slots) / HBM_BYTES_PER_S * 1e3
-    rgg_ops = points * 5 * THREEFRY_OPS / INT32_OPS_PER_S * 1e3
+    rgg_bytes, rgg_ops = (x * 1e3 for x in bound_terms(
+        cost().pair_edges(in_bytes, plan.active.size, cap, points)))
     rgg_bound = max(rgg_bytes, rgg_ops)
     print(f"  pair_edges at the RGG generate shape: {plan.active.size} rows x "
           f"{cap}^2 slots: median {rgg_med:.3f} ms one at a time (mean {rgg_ms:.3f}), bound "
@@ -1031,8 +1042,7 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     # a multiply, an FMA (2) and a compare per pair
     rows.append(("pair_mask", "src/repro_torch/kernels/pairmask/csrc/pairmask.cu",
                  "src/repro/kernels/pairmask/pairmask.py:56", ms, med, plain_ms,
-                 ((a.numel() + b.numel()) * 4 + out.numel()) / HBM_BYTES_PER_S,
-                 out.numel() * 6 / FP32_OPS_PER_S, None))
+                 *bound_terms(cost().pair_mask(a.numel(), b.numel(), out.numel())), None))
     print(f"  pair_mask shape: euclid [{a.shape[0]}, {MASK_ROWS}, 8] x same, the "
           f"cells of the first {a.shape[0]} RGG pair rows in the oracles' blocks; its mask "
           f"equals pair_edges' keep there")
@@ -1057,10 +1067,10 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
     in_bytes = sum(t.numel() * t.element_size() for t in wave)
     # 17 bytes written per slot; 1 + 2*2 Threefry blocks per regenerated point
     # (the transcendentals of the hyperbolic features are not counted)
-    wave_bytes = (in_bytes + 17 * slots) / HBM_BYTES_PER_S
+    wave_bytes, wave_ops = bound_terms(cost().pair_edges(in_bytes, R, cap, points))
     rows.append(("pair_edges", "src/repro_torch/kernels/geom/csrc/geom.cu",
                  "src/repro/distrib/engine.py:1050", ms, med, plain_ms, wave_bytes,
-                 points * 5 * THREEFRY_OPS / INT32_OPS_PER_S, None))
+                 wave_ops, None))
     dev_ms = graph_ms_per_call(lambda: G.pair_edges(*wave, **kw), 20)
     # the stores alone: every row inactive, so nothing is decoded
     idle = wave[:-1] + [torch.zeros_like(live)]
@@ -1103,8 +1113,7 @@ def geom_timing(dev, main: dict, errs: Errors) -> list:
         in_bytes = sum(t.numel() * t.element_size() for t in prow)
         # every slot written once; 1 + 2 dim Threefry blocks per point (the
         # polar decode's arccosh is not counted)
-        bytes_s = (in_bytes + cells * cap * (8 * dim + 1)) / HBM_BYTES_PER_S
-        ops_s = drawn * (1 + 2 * dim) * THREEFRY_OPS / INT32_OPS_PER_S
+        bytes_s, ops_s = bound_terms(cost().cell_points(in_bytes, cells, cap, dim, drawn))
         if tag == "RGG":
             rows.append(("cell_points", "src/repro_torch/kernels/geom/csrc/geom.cu",
                          "src/repro/distrib/engine.py:644", ms, med, plain_ms, bytes_s, ops_s,
@@ -1166,20 +1175,20 @@ def sampler_timing(dev, plan, errs: Errors, label: str):
         del want
     torch.cuda.empty_cache()
     slots, drawn = R * cap, int(cnt.clamp(0, cap).sum())
-    ops = drawn * 3 * THREEFRY_OPS / INT32_OPS_PER_S
+    out_s, ops = bound_terms(cost().chunk_sample(R, cap, drawn))
     # slot-order draws written, read and bucketed, each bucket read and
     # written once, sentinels written once; the rounds' stretches on top
     design = drawn * 40 + (slots - drawn) * 8
     print(f"  chunk_sample {label}: [{R}, {cap}], {drawn} drawn slots, redraw rounds a row "
           f"{torch.bincount(rounds).tolist()} (rows with 0, 1, ...); median {med:.6f} ms "
           f"(mean {ms:.6f}) against torch.sort of the same rows {lib_med:.6f} (mean {lib_ms:.6f}); "
-          f"bound {max(ops, slots * 8 / HBM_BYTES_PER_S) * 1e3:.6f} ms (operations "
-          f"{ops * 1e3:.6f}, bytes {slots * 8 / HBM_BYTES_PER_S * 1e3:.6f}); the design moves "
-          f"at least {design / 1e9:.3f} GB ({design / HBM_BYTES_PER_S * 1e3:.6f} ms at 3.35 TB/s) "
+          f"bound {max(ops, out_s) * 1e3:.6f} ms (operations "
+          f"{ops * 1e3:.6f}, bytes {out_s * 1e3:.6f}); the design moves "
+          f"at least {design / 1e9:.3f} GB ({bound_terms(cost().Cost(design))[0] * 1e3:.6f} ms at 3.35 TB/s) "
           f"plus a scratch buffer of {slots * 8 / 2**30:.3f} GiB; plain version {plain_ms:.3f} ms")
     row = ("chunk_sample", "src/repro_torch/kernels/sampler/csrc/collision.cu",
            "src/repro/core/sampling.py:91-133", ms, med, plain_ms,
-           slots * 8 / HBM_BYTES_PER_S, ops, lib_ms)
+           out_s, ops, lib_ms)
     return row, vals
 
 
@@ -1209,7 +1218,7 @@ def phase_timing(dev, main: dict, errs: Errors) -> list:
     del ea, ka, eb, kb, vals
     rows.append(("chunk_decode", "src/repro_torch/kernels/sampler/csrc/sampler.cu",
                  "src/repro/core/sampling.py:155", ms, med, plain_ms,
-                 slots * (8 + 16 + 1) / HBM_BYTES_PER_S, 0.0, None))
+                 *bound_terms(cost().chunk_decode(kind.numel(), cap)), None))
     torch.cuda.empty_cache()
 
     # collect adds each chunk's endpoint ids into its section's degree
@@ -1239,7 +1248,7 @@ def phase_timing(dev, main: dict, errs: Errors) -> list:
               "hist at its main-path shape")
     touched = int(torch.unique(ids).numel())
     # each id read once, each touched bin's count read and written once
-    bound = (ids.numel() * 8 + touched * 16) / HBM_BYTES_PER_S
+    bound, _ = bound_terms(cost().hist(ids.numel(), touched))
     rows.append(("hist", "src/repro_torch/kernels/hist/csrc/hist.cu",
                  "src/repro/kernels/hist/hist.py:54", ms, med, plain_ms, bound, 0.0, lib_ms))
     print(f"  hist shape: {ids.numel()} ids into {bins} bins ({touched} touched); host loop "
@@ -1563,7 +1572,8 @@ def dt_round_timing(dev, errs: Errors, r: int, points, counts) -> tuple:
     tests = scanned * D.group_size(dim)
     in_bytes = pts.numel() * 8 + cnt.numel() * 8
     out_bytes = out[0].numel() * 4 + out[1].numel() + out[2].numel()
-    bytes_s, ops_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S, tests * (2 * dim + 4) / FP64_OPS_PER_S
+    bytes_s, ops_s = bound_terms(cost().triangulate(in_bytes, out_bytes, scanned,
+                                                    D.group_size(dim), dim))
     # the trip's parts: clock64 cycles summed over rows and trips
     cyc = parts.sum(dim=0).double()
     share = cyc / cyc.sum()
@@ -1614,8 +1624,7 @@ def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
     # determinants and the division are about 20 d^2 operations a simplex
     rows.append(("circumspheres", "src/repro_torch/kernels/delaunay/csrc/delaunay.cu",
                  "src/repro/core/rdg.py:99", ms, med, plain_ms,
-                 (simp.numel() * 8 + R * (8 * d + 9)) / HBM_BYTES_PER_S,
-                 R * 20 * d * d / FP64_OPS_PER_S, None))
+                 *bound_terms(cost().circumspheres(R, d)), None))
     print(f"  circumspheres shape: the first round's certification batch, {R} simplices "
           f"[{d1}, {d}]")
 
@@ -1631,7 +1640,7 @@ def rdg_timing(dev, rdgs: dict, errs: Errors) -> list:
     slots = ka.numel()
     in_bytes = sum(t.numel() * t.element_size() for t in full)
     # not a row of the kernels line (pair_edges has its RHG row): printed
-    bound = (in_bytes + 17 * slots) / HBM_BYTES_PER_S * 1e3
+    bound = max(bound_terms(cost().pair_edges(in_bytes, R, plan.capacity, 0))) * 1e3
     print(f"  pair_edges on GEOM_CERT rows: the RDG 2-D plan, {R} rows x 16 slots, "
           f"{int(ka.sum())} edges kept; kernel median {med:.4f} ms (mean {ms:.4f}), plain "
           f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes): {100 * bound / med:.1f} % of it")
@@ -1968,7 +1977,6 @@ def families_timing(dev, fam: dict, errs: Errors) -> list:
     shapes (the plain versions on the first 2^22 slots: the whole shape
     does not fit), close_wedges at the largest buffer of each clustering
     collect (an SBM chunk, prefix form; an RHG wave, mask form)."""
-    import math
     import torch
     from repro_torch.distrib.runtime import plan_tensors
     from repro_torch.kernels.sampler import ops as S
@@ -2000,10 +2008,10 @@ def families_timing(dev, fam: dict, errs: Errors) -> list:
     errs.same("chunk_rmat", a[0], b[0], "chunk_rmat on its first 2^22 slots")
     errs.same("chunk_rmat", a[1], b[1], "chunk_rmat keep on its first 2^22 slots")
     del a, b
-    ops = slots * (2 + log_n) * THREEFRY_OPS / INT32_OPS_PER_S
+    out_s, ops = bound_terms(cost().chunk_rmat(kind.numel(), cap, log_n))
     rows.append(("chunk_rmat", "src/repro_torch/kernels/sampler/csrc/sampler.cu",
                  "src/repro/distrib/engine.py:426", ms, med, plain_ms,
-                 slots * 17 / HBM_BYTES_PER_S, ops, None))
+                 out_s, ops, None))
     print(f"  chunk_rmat: {slots} slots x {2 + log_n} Threefry blocks; bound {ops * 1e3:.3f} ms "
           f"(operations), {ms / (ops * 1e3):.2f}x; plain version {plain_ms:.3f} ms on the first "
           f"{sub} slots")
@@ -2030,10 +2038,10 @@ def families_timing(dev, fam: dict, errs: Errors) -> list:
     # a step: fold_in64 (2 blocks), split (2), two 64-bit words (2); the
     # reciprocal and five remainders of a step are not counted, so this is
     # a lower bound
-    ops = steps * 6 * THREEFRY_OPS / INT32_OPS_PER_S
+    out_s, ops = bound_terms(cost().chunk_ba(kind.numel(), cap, steps))
     rows.append(("chunk_ba", "src/repro_torch/kernels/sampler/csrc/sampler.cu",
                  "src/repro/distrib/engine.py:446", ms, med, plain_ms,
-                 slots * 17 / HBM_BYTES_PER_S, ops, None))
+                 out_s, ops, None))
     print(f"  chunk_ba: {slots} slots, {steps} chain steps walked ({steps / slots:.4f} a slot) "
           f"x 6 Threefry blocks; the warps issued {issued} steps ({issued / steps:.4f}x the "
           f"walked: lanes refilled from each warp's batch); bound {ops * 1e3:.3f} ms (operations), "
@@ -2075,27 +2083,26 @@ def families_timing(dev, fam: dict, errs: Errors) -> list:
         a, b = su[in_u][both], sv[both]
         steps = int((table.off[a + 1] - table.off[a] + table.off[b + 1] - table.off[b]).sum())
         hits_u, hits_uv = int(in_u.sum()), int(both.sum())
-        nbytes = (flat.shape[0] if mask is not None else 0) + valid * 16 + table.nbytes() + Sn * 8
-        ops = ((valid + hits_u) * 8 + steps * 4) / INT32_OPS_PER_S
-        bound = max(nbytes / HBM_BYTES_PER_S, ops)
+        mask_bytes = flat.shape[0] if mask is not None else 0
+        c = cost().close_wedges(mask_bytes, valid, table.nbytes(), Sn, hits_u, steps)
+        nbytes = c.bytes
+        bytes_s, ops = bound_terms(c)
+        bound = max(bytes_s, ops)
         if form == "prefix":     # the kernels line's entry; the wave is printed only
             rows.append(("close_wedges", "src/repro_torch/kernels/wedges/csrc/wedges.cu",
                          "src/repro/stats/accumulate.py:42", ms, med, plain_ms,
-                         nbytes / HBM_BYTES_PER_S, ops, None))
+                         bytes_s, ops, None))
         # PR 16's bound, for continuity: per live row and valid slot two
         # binary searches of ceil(log2(NB + 1)) + 1 steps of 4 operations,
         # and the [S, NB] table read once
-        old_steps = math.ceil(math.log2(NB + 1)) + 1
-        old_bound = max(((flat.shape[0] if mask is not None else 0) + valid * 16 + Sn * NB * 8
-                         + Sn * 8) / HBM_BYTES_PER_S,
-                        live * valid * 2 * old_steps * 4 / INT32_OPS_PER_S)
+        old_bound = max(bound_terms(cost().close_wedges_pr16(mask_bytes, valid, Sn, NB, live)))
         print(f"  close_wedges at the {label}: {flat.shape[0]} slots, {valid} valid, {Sn} samples "
               f"({live} live rows), neighbour table width {NB}, sum of row lengths "
               f"{table.ids.numel()}, union {table.union} vertices in {table.hkey.numel()} slots "
               f"(filter 2^{table.log_f} bits); u in the union {hits_u}, both "
               f"{hits_uv}, {steps} merge entries; median {med:.6f} ms (device {dev_ms:.6f} ms "
               f"by graph replay), bound "
-              f"{bound * 1e3:.6f} ms ({'bytes' if nbytes / HBM_BYTES_PER_S >= ops else 'operations'}"
+              f"{bound * 1e3:.6f} ms ({'bytes' if bytes_s >= ops else 'operations'}"
               f": {nbytes} bytes, operations {ops * 1e3:.6f} ms), {100 * bound * 1e3 / med:.1f} % "
               f"of the median, {100 * bound * 1e3 / dev_ms:.1f} % of the device time; PR 16's "
               f"formula {old_bound * 1e3:.6f} ms; plain {plain_ms:.3f} ms")
@@ -2661,9 +2668,11 @@ def serve_timing(dev, out: dict, errs: Errors) -> list:
         what = (f"the served {prog.plan_kind} slab at class {prog.capacity} "
                 f"({int(valid.sum())} rows)")
         t0 = time.perf_counter()
+        # check=False: the held kernels compare on the host, which the
+        # contract scan would rightly refuse; 3f and 3g scan the slab programs
         with held_kernels(errs, what) as held:
             payload, ok = runtime.run_slab(prog.slot_fn, prog.signature(), valid, rows, dev,
-                                           **prog.slot_kwargs(rows))
+                                           check=False, **prog.slot_kwargs(rows))
         require(bool(ok.any()), f"{what}: no edge kept")
         print(f"  {what}: every kernel equals its plain version ({held.seen}), "
               f"{time.perf_counter() - t0:.3f}s")
@@ -2707,8 +2716,7 @@ def serve_timing(dev, out: dict, errs: Errors) -> list:
     points = int(((tabs[3] + tabs[4]) * live).sum())
     in_bytes = sum(t.numel() * t.element_size() for t in tabs)
     # 17 bytes written per slot; 1 + 2*2 Threefry blocks per regenerated point
-    bytes_s = (in_bytes + 17 * ka.numel()) / HBM_BYTES_PER_S
-    ops_s = points * 5 * THREEFRY_OPS / INT32_OPS_PER_S
+    bytes_s, ops_s = bound_terms(cost().pair_edges(in_bytes, len(live), prog.capacity, points))
     bound = max(bytes_s, ops_s) * 1e3
     print(f"  pair_edges shape: the fleet's pair slab, {len(live)} rows ({int(valid.sum())} "
           f"filled) x {prog.capacity}^2 slots, stage {kw['stage']}, {points} points, "
@@ -2722,9 +2730,114 @@ def serve_timing(dev, out: dict, errs: Errors) -> list:
              f"the fleet's pair slab: {len(live)} rows at class {prog.capacity}")]
 
 
-OFF_PATH = {"pair_mask": "off the engine path, as in the reference: the engine runs its "
+def same_outputs(name: str, a: tuple, b: tuple) -> None:
+    """A registry case's outputs on the card against the CPU's, bit for
+    bit: ``(payload, valid)`` pairs where valid (padding slots are the
+    kernels' own), a kernel case whole (``triangulate``: ``simp`` and
+    ``alive`` on the ``ok`` rows)."""
+    import torch
+
+    require(len(a) == len(b), f"{name}: {len(a)} outputs on the card, {len(b)} on the CPU")
+    if name.startswith("kernels/delaunay"):
+        ok = b[2]
+        require(torch.equal(a[2].cpu(), ok), f"{name}: ok differs from the CPU's")
+        for x, y in zip(a[:2], b[:2]):
+            require(torch.equal(x.cpu()[ok], y[ok]), f"{name}: output differs from the CPU's")
+        return
+    if name.startswith("kernels/"):
+        for x, y in zip(a, b):
+            require(torch.equal(x.cpu(), y), f"{name}: output differs from the CPU's")
+        return
+    for (pa, va), (pb, vb) in zip(zip(a[::2], a[1::2]), zip(b[::2], b[1::2])):
+        va = va.cpu()
+        require(torch.equal(va, vb), f"{name}: valid mask differs from the CPU's")
+        require(torch.equal(pa.cpu()[va], pb[vb]), f"{name}: payload differs from the CPU's")
+
+
+def phase_analyze(dev, sizes: dict) -> dict:
+    """3g, contract checking: the port and this script lint clean; every
+    registry case runs on the card under the op scan and sync-debug mode
+    "error" with zero findings, its outputs equal to the same case's on
+    the CPU (plain versions); each planted violation is found exactly
+    once on the card, by the scan and by ``runtime.run(check=True)``; and
+    ``generate(GNM(2^24, 2^28), 1)`` with ``check=True`` (cold cache)
+    against ``check=False``, in turns."""
+    import torch
+    from torch_planted import Planted
+    from repro_torch import api
+    from repro_torch.analyze import lint, opscan, programs
+    from repro_torch.distrib import runtime
+
+    t0 = time.perf_counter()
+    found = lint.lint_paths([str(ROOT / "src" / "repro_torch"), str(ROOT / "chip_smoke.py")])
+    require(not found, "lint: " + "; ".join(f.format() for f in found))
+    lint_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    card = programs.scan_programs(device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = {r.name: r for r in programs.scan_programs(device="cpu")}
+    cpu_s = time.perf_counter() - t0
+    launches: dict = {}
+    for r in card:
+        require(r.ok, f"{r.name} on the card: {r.error or [f.to_json() for f in r.scan.findings]}")
+        require(cpu[r.name].ok, f"{r.name} on the CPU: {cpu[r.name].error}")
+        same_outputs(r.name, r.outputs, cpu[r.name].outputs)
+        for k, n in r.launches.items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"  lint: 0 findings ({lint_s:.3f}s); registry: {len(card)} cases, 0 findings on the "
+          f"card under sync-debug \"error\" ({card_s:.3f}s) and on the CPU ({cpu_s:.3f}s), "
+          f"outputs equal bit for bit; entry-point calls {launches}")
+    for r in card:
+        print(f"    {r.name:<32} {r.seconds * 1e3:9.3f} ms  ops {r.flops:,.0f}  bytes "
+              f"{r.bytes:,.0f}  launches {r.launches}")
+
+    base = api.GNM(n=64, m=128, seed=1, chunks=4).plan(4)
+    for rule in ("host-callback", "dynamic-shape", "nondeterministic-rng"):
+        planted = Planted(base, rule, tag="chip")
+        _, rep = opscan.scan_call(runtime.run, planted, dev, check=False, sync_debug=True)
+        require([f.rule for f in rep.findings] == [rule],
+                f"planted {rule}: the card's scan found {[f.rule for f in rep.findings]}")
+        try:
+            runtime.run(planted, dev, check=True)
+            require(False, f"planted {rule}: run(check=True) did not raise")
+        except AssertionError as e:
+            require(rule in str(e), f"planted {rule}: run(check=True) raised {e}")
+        print(f"  planted {rule}: found once on the card ({rep.findings[0].detail})")
+
+    # five rounds of True, False, False, True, each on a cold cache
+    spec = api.GNM(n=sizes["gnm_n"], m=sizes["gnm_m"], seed=1)
+    walls = {True: [], False: []}
+    for check in (True, False, False, True) * 5:
+        runtime.cache_clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = api.generate(spec, 1, device=dev, check=check)
+        torch.cuda.synchronize()
+        walls[check].append(time.perf_counter() - t0)
+        require(g.m == sizes["gnm_m"], f"GNM generate with check={check}: {g.m} edges")
+        del g
+        torch.cuda.empty_cache()
+    on, off = (sorted(walls[c]) for c in (True, False))
+    print(f"  generate(GNM(2^24, 2^28), 1) on a cold slot-function cache, check True/False/"
+          f"False/True x 5: check=True {', '.join(f'{w:.6f}' for w in walls[True])} s, "
+          f"check=False {', '.join(f'{w:.6f}' for w in walls[False])} s; medians "
+          f"{on[5] * 1e3:.3f} / {off[5] * 1e3:.3f} ms (quartiles {on[2] * 1e3:.3f}-"
+          f"{on[7] * 1e3:.3f} / {off[2] * 1e3:.3f}-{off[7] * 1e3:.3f}): the check's "
+          f"one-time cost {(on[5] - off[5]) * 1e3:.3f} ms")
+    return {"cases": len(card)}
+
+
+def analyze_timing(dev, out: dict, errs: Errors) -> list:
+    """Phase 4 of 3g: nothing to time beyond the path's own turns."""
+    return []
+
+
+OFF_PATH = {"pair_mask": "off the engine paths, as in the reference: the engine runs its "
                          "tiles inside pair_edges, and only the reference's per-PE oracles "
-                         "(rgg_pe, rhg._adjacency) call the kernel"}
+                         "(rgg_pe, rhg._adjacency) and the contract registry's kernel case "
+                         "(path 3g) call the kernel"}
 
 
 def kernel_lines(rows: list, errs: Errors, launches: dict) -> list:
@@ -2759,6 +2872,10 @@ FAMILY_KERNELS = ("chunk_rmat", "chunk_ba", "close_wedges", "hist", "chunk_sampl
 STATS_KERNELS = ("hist", "chunk_sample", "chunk_decode", "pair_edges", "triangulate")
 SERVE_KERNELS = ("hist", "chunk_sample", "chunk_decode", "chunk_ba", "chunk_rmat", "pair_edges",
                  "triangulate")
+# the kernels the registry launches on the card (RDG's planning and the
+# kernel cases among them)
+ANALYZE_KERNELS = ("chunk_sample", "chunk_decode", "chunk_ba", "chunk_rmat", "pair_edges",
+                   "cell_points", "pair_mask", "triangulate", "circumspheres")
 
 
 PATHS = {"er": ("3a Erdős–Rényi", phase_main, ER_KERNELS, phase_timing),
@@ -2766,7 +2883,8 @@ PATHS = {"er": ("3a Erdős–Rényi", phase_main, ER_KERNELS, phase_timing),
          "rdg": ("3c Delaunay", phase_rdg, RDG_KERNELS, rdg_timing),
          "families": ("3d families", phase_families, FAMILY_KERNELS, families_timing),
          "stats": ("3e validation and overlap", phase_stats, STATS_KERNELS, stats_timing),
-         "serve": ("3f serve", phase_serve, SERVE_KERNELS, serve_timing)}
+         "serve": ("3f serve", phase_serve, SERVE_KERNELS, serve_timing),
+         "analyze": ("3g contract checking", phase_analyze, ANALYZE_KERNELS, analyze_timing)}
 
 
 def main(argv=None) -> int:

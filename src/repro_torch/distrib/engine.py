@@ -99,7 +99,7 @@ class ChunkPlan:
     @property
     def kinds_present(self) -> Tuple[int, ...]:
         """Distinct non-empty chunk kinds of the plan."""
-        return tuple(sorted(int(k) for k in np.unique(self.kind) if k != KIND_EMPTY))
+        return tuple(sorted(int(k) for k in np.unique(self.kind) if k != KIND_EMPTY))  # repro: allow(no-numpy-unique) O(P*C) static plan metadata, not edge dedup
 
     @property
     def rmat_log_n(self) -> int:
@@ -572,7 +572,7 @@ class PairPlan:
     @property
     def kinds_present(self) -> Tuple[int, ...]:
         """Distinct non-empty geometry kinds of the plan."""
-        return tuple(sorted(int(k) for k in np.unique(self.kind) if k != GEOM_EMPTY))
+        return tuple(sorted(int(k) for k in np.unique(self.kind) if k != GEOM_EMPTY))  # repro: allow(no-numpy-unique) O(P*C) static plan metadata, not edge dedup
 
     # ---- the runtime's plan protocol ----
 

@@ -25,6 +25,16 @@ contributes output, pe-major).  On that:
   serving scheduler (:mod:`repro_torch.serve`) assembled from many plans
   sharing one slot function.
 
+``check=True`` scans each slot-function cache entry **once**, on its
+first checked call: that execution runs under the op trace of
+:mod:`repro_torch.analyze.opscan`, and a collective raises
+``assert_communication_free``'s error, any other violation of the
+generator contract (every program kind's in the port) an
+``AssertionError`` naming the rule.  An entry that
+fails is scanned again on its next checked call (the reference's
+``_Entry.checked``).  ``D`` (the reference's mesh rows) deals a plan's
+PEs onto ``D`` rows of each wave, all on the one card; it must divide P.
+
 There are no collectives: one card executes every virtual PE's rows.
 There is no compile either: a plan's slot function is a closure over
 its static parameters, cached by the plan's ``signature()`` (the stand-in
@@ -47,19 +57,8 @@ import numpy as np
 import torch
 
 from .. import obs
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks
-    for the CPU.  Raises when CUDA is asked for and there is none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions of the kernels")
-    return dev
+from ..analyze import opscan
+from ..kernels.build import resolve_device
 
 
 def plan_tensors(plan, device) -> Tuple[torch.Tensor, ...]:
@@ -75,10 +74,13 @@ def plan_tensors(plan, device) -> Tuple[torch.Tensor, ...]:
 
 # slot functions by (path, signature, ...): see the module docstring
 _CACHE: Dict[tuple, Callable] = {}
+# the cache keys whose entry passed its contract scan
+_CHECKED: set = set()
 
 
 def cache_clear() -> None:
     _CACHE.clear()
+    _CHECKED.clear()
 
 
 def _slot_fn(kind: str, key: tuple, thunk: Callable[[], Callable]) -> Callable:
@@ -95,15 +97,29 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run(plan, device=None):
+def _checked(key: tuple, check: bool, step: Callable):
+    """``step()``, under the op scan when ``check`` asks for it and the
+    cache entry ``key`` has not passed its scan yet (every program kind's
+    contract is the generator contract in the port)."""
+    if not check or key in _CHECKED:
+        return step()
+    with opscan.trace() as census:
+        out = step()
+    opscan.assert_contract(census, opscan.GENERATOR_CONTRACT, f"{key[0]} program {key[1]}")
+    _CHECKED.add(key)
+    return out
+
+
+def run(plan, device=None, check: bool = True):
     """Execute a plan's full table; returns ``(payload, valid)``."""
     dev = resolve_device(device)
-    fn = _slot_fn("run", ("run", plan.signature()), plan.slot_fn)
+    key = ("run", plan.signature())
+    fn = _slot_fn("run", key, plan.slot_fn)
     tables = plan_tensors(plan, dev)
     P, C = tables[0].shape[:2]      # every plan kind's tables are [P, C, ...]
     rows = [t.reshape(P * C, *t.shape[2:]) for t in tables]
     with obs.trace("run/exec", phase="exec", mode="run"):
-        payload, valid = fn(*rows)
+        payload, valid = _checked(key, check, lambda: fn(*rows))
         if obs.is_enabled():
             _sync(dev)
     return (payload.reshape(P, C, *payload.shape[1:]),
@@ -128,11 +144,19 @@ class WaveSchedule:
         return self.sched.shape[0]
 
 
+def check_rows(P: int, D: int) -> None:
+    """Raise unless ``D`` mesh rows can shard ``P`` PEs."""
+    if D < 1 or P % D:
+        raise ValueError(f"mesh of {D} devices cannot shard a {P}-PE plan: "
+                         f"P % devices must be 0")
+
+
 def wave_schedule(plan, D: int = 1, batch: int = 1) -> WaveSchedule:
     """Deal the plan's owned rows into waves of ``batch`` rows per mesh
-    row (the reference's schedule; the port runs it with ``D = 1``)."""
+    row (the reference's schedule)."""
     index = np.asarray(plan.stream_index())
     P = plan.num_pes
+    check_rows(P, D)
     ppd = P // D
     starts = np.searchsorted(index[:, 0], np.arange(P + 1))
     per_pe = [index[starts[pe]: starts[pe + 1], 1] for pe in range(P)]
@@ -225,7 +249,7 @@ class PlanEmitter:
                      if cuts[s + 1] > cuts[s])
 
 
-def _plan_feed(emitter: PlanEmitter, device: torch.device):
+def _plan_feed(emitter: PlanEmitter, device: torch.device, D: int = 1):
     """Start the background planner: it builds the segments in PE order
     into a bounded queue (at most two segments ahead of execution), each
     in a ``plan/overlap`` span on the planner's thread.
@@ -242,7 +266,7 @@ def _plan_feed(emitter: PlanEmitter, device: torch.device):
     the device before the hand-off."""
     q: _queue.Queue = _queue.Queue(maxsize=2)
     stop = threading.Event()
-    bounds = emitter.segment_bounds()
+    bounds = emitter.segment_bounds(D)
     # made here, so a device without an index is the consumer's current one
     guard = torch.cuda.device(device) if device.type == "cuda" else nullcontext()
 
@@ -274,12 +298,12 @@ def _plan_feed(emitter: PlanEmitter, device: torch.device):
     return q, stop
 
 
-def _stream_emitter_waves(emitter: PlanEmitter, batch: int, prefetch: int,
-                          device: torch.device) -> Iterator[Wave]:
+def _stream_emitter_waves(emitter: PlanEmitter, D: int, batch: int, prefetch: int,
+                          device: torch.device, check: bool) -> Iterator[Wave]:
     """:func:`stream_waves` over a lazily segmented plan: execute segment
     k's waves while the planner thread emits segment k+1.  ``Wave.rows``
     carry global PE ids."""
-    feed, stop = _plan_feed(emitter, device)
+    feed, stop = _plan_feed(emitter, device, D)
     try:
         while True:
             # un-phased: the consumer's stall on the planner (nonzero only
@@ -291,7 +315,8 @@ def _stream_emitter_waves(emitter: PlanEmitter, batch: int, prefetch: int,
             if isinstance(item, BaseException):
                 raise item
             lo, seg = item
-            for wave in stream_waves(seg, batch=batch, prefetch=prefetch, device=device):
+            for wave in stream_waves(seg, batch=batch, prefetch=prefetch, device=device,
+                                     D=D, check=check):
                 if lo:
                     wave = Wave(wave.payload, wave.valid,
                                 tuple(None if r is None else (r[0] + lo, r[1])
@@ -301,24 +326,31 @@ def _stream_emitter_waves(emitter: PlanEmitter, batch: int, prefetch: int,
         stop.set()
 
 
-def stream_waves(plan, batch: int = 1, prefetch: int = 2,
-                 device=None) -> Iterator[Wave]:
-    """Stream a plan as :class:`Wave` slabs of ``batch`` rows; at most
+def stream_waves(plan, batch: int = 1, prefetch: int = 2, device=None, *, D: int = 1,
+                 check: bool = False) -> Iterator[Wave]:
+    """Stream a plan as :class:`Wave` slabs of ``D`` rows of ``batch``
+    slots (one program call of ``D batch`` rows each); at most
     ``prefetch`` executed waves are held before they are yielded.  A
     :class:`PlanEmitter` streams through the plan/execute overlap path,
-    with global PE ids in ``Wave.rows``."""
+    with global PE ids in ``Wave.rows``.  ``check`` scans the wave
+    program once (see the module docstring)."""
     dev = resolve_device(device)
     if isinstance(plan, PlanEmitter):
-        yield from _stream_emitter_waves(plan, batch, prefetch, dev)
+        yield from _stream_emitter_waves(plan, D, batch, prefetch, dev, check)
         return
-    with obs.trace("wave/schedule", phase="exec", D=1, batch=batch):
-        ws = wave_schedule(plan, 1, batch)
+    with obs.trace("wave/schedule", phase="exec", D=D, batch=batch):
+        ws = wave_schedule(plan, D, batch)
     if not ws.num_waves:
         return
-    fn = _slot_fn("wave", ("wave", plan.signature(), ws.batch), plan.slot_fn)
+    key = ("wave", plan.signature(), D, ws.batch)
+    fn = _slot_fn("wave", key, plan.slot_fn)
     tables = plan_tensors(plan, dev)
-    sched = torch.from_numpy(ws.sched[:, 0]).to(dev, torch.int64)  # [W, B, 2]
-    valid = torch.from_numpy(ws.valid[:, 0]).to(dev)                # [W, B]
+    B = ws.batch
+    # [W, D B] global PE and slot of every row of a wave
+    pes = ws.sched[..., 0] + (np.arange(D) * (plan.num_pes // D))[None, :, None]
+    pes = torch.from_numpy(pes.reshape(-1, D * B)).to(dev, torch.int64)
+    slots = torch.from_numpy(ws.sched[..., 1].reshape(-1, D * B)).to(dev, torch.int64)
+    valid = torch.from_numpy(ws.valid.reshape(-1, D * B)).to(dev)
     traced = obs.is_enabled()
 
     def emit(rows, payload, ok) -> Wave:
@@ -328,14 +360,17 @@ def stream_waves(plan, batch: int = 1, prefetch: int = 2,
             with obs.trace("wave/device", phase="exec"):
                 _sync(dev)
         with obs.trace("wave/sink", phase="sink"):
-            return Wave(payload[None], ok[None], rows)
+            return Wave(payload.reshape(D, B, *payload.shape[1:]),
+                        ok.reshape(D, B, *ok.shape[1:]), rows)
+
+    def step(w: int):
+        payload, ok = fn(*(t[pes[w], slots[w]] for t in tables))
+        return payload, ok & valid[w][:, None]
 
     pending: deque = deque()
     for w in range(ws.num_waves):
         with obs.trace("wave/dispatch", phase="exec", wave=w):
-            s = sched[w]
-            payload, ok = fn(*(t[s[:, 0], s[:, 1]] for t in tables))
-            ok = ok & valid[w][:, None]
+            payload, ok = _checked(key, check, lambda: step(w))
         pending.append((ws.rows[w], payload, ok))
         if len(pending) >= max(1, int(prefetch)):
             yield emit(*pending.popleft())
@@ -369,8 +404,8 @@ def _upload(arrays: Sequence[np.ndarray], dev: torch.device) -> Tuple[torch.Tens
 
 
 def run_slab(slot_fn_thunk: Callable[[], Callable], signature: tuple,
-             valid: np.ndarray, rows: Sequence[np.ndarray], device=None,
-             **slot_kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
+             valid: np.ndarray, rows: Sequence[np.ndarray], device=None, *,
+             check: bool = True, **slot_kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
     """Execute one packed ``[D, B]`` slab; returns ``(payload [D, B, ...],
     valid [D, B, L])`` on the device, padding rows masked.
 
@@ -381,7 +416,8 @@ def run_slab(slot_fn_thunk: Callable[[], Callable], signature: tuple,
     ``D B`` rows (one launch of each kernel of the program), after one
     upload of the tables.  ``slot_fn_thunk`` is called only on a miss of
     the slot-function cache; ``slot_kwargs`` go to the slot function
-    (the pair program's ``stage``)."""
+    (the pair program's ``stage``).  ``check`` scans the slab program
+    once (see the module docstring)."""
     dev = resolve_device(device)
     valid = np.asarray(valid, bool)
     D, B = valid.shape
@@ -389,19 +425,24 @@ def run_slab(slot_fn_thunk: Callable[[], Callable], signature: tuple,
            tuple((r.shape[2:], r.dtype.str) for r in rows))
     fn = _slot_fn("slab", key, slot_fn_thunk)
     ok_rows, *tables = _upload([valid] + list(rows), dev)
-    with obs.trace("slab/exec", phase="exec", mode="slab"):
+    def step():
         payload, ok = fn(*(t.reshape(D * B, *t.shape[2:]) for t in tables), **slot_kwargs)
-        ok = ok & ok_rows.reshape(D * B, 1)
+        return payload, ok & ok_rows.reshape(D * B, 1)
+
+    with obs.trace("slab/exec", phase="exec", mode="slab"):
+        payload, ok = _checked(key, check, step)
         if obs.is_enabled():
             _sync(dev)
     return (payload.reshape(D, B, *payload.shape[1:]),
             ok.reshape(D, B, *ok.shape[1:]))
 
 
-def stream_slots(plan, batch: int = 1, prefetch: int = 2, device=None
+def stream_slots(plan, batch: int = 1, prefetch: int = 2, device=None, *, D: int = 1,
+                 check: bool = False
                  ) -> Iterator[Tuple[int, np.ndarray, torch.Tensor, torch.Tensor]]:
     """Flattened :func:`stream_waves`: ``(pe, slots, payload, valid)``
-    per batch, pe-major; takes a :class:`PlanEmitter` too (``pe`` is then
-    the global PE id)."""
-    for wave in stream_waves(plan, batch=batch, prefetch=prefetch, device=device):
+    per batch (pe-major for ``D = 1``); takes a :class:`PlanEmitter` too
+    (``pe`` is then the global PE id)."""
+    for wave in stream_waves(plan, batch=batch, prefetch=prefetch, device=device, D=D,
+                             check=check):
         yield from wave.chunks()

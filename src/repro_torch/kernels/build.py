@@ -60,6 +60,19 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks
+    for the CPU.  Raises when CUDA is asked for and there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels")
+    return dev
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

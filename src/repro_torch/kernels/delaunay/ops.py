@@ -13,6 +13,10 @@ Capacities are static per (padded size, dim) bucket, as the reference's:
 exact, 3-D may leak slots), ``cavity_capacity`` the largest cavity one
 insertion may delete, ``group_size`` the candidates per trip.  An
 overflow clears the row's ``ok`` and the planner expands the halo.
+
+Each entry point is opaque to the op scan of
+``repro_torch.analyze.opscan``: inside a trace a call counts as one
+launch, whichever version runs.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import functools
 
 import torch
 
+from ...analyze import opscan
 from .. import build
 from .predicates import circumsphere
 from .ref import triangulate_ref
@@ -72,6 +77,7 @@ def cluster_size(B: int, N: int, dim: int, device=None) -> int:
     return _cluster(int(B), int(N), dim, cavity_capacity(dim), group_size(dim), index)
 
 
+@opscan.opaque("triangulate")
 def triangulate(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simplices: int,
                 cavity: int, group: int, work: torch.Tensor | None = None,
                 parts: torch.Tensor | None = None):
@@ -82,7 +88,7 @@ def triangulate(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simplices
     the card a row stops at the trip that clears its ``ok``, and ``parts``
     (int64 ``[B, 6]``, card only) the clock64 cycles its trips spent in
     each of :data:`TRIP_PARTS`.  On the card each row runs on a cluster
-    of :func:`cluster_size` CTAs."""
+    of :func:`cluster_size` CTAs.  The kernel reads nothing back."""
     if pts.device.type == "cpu":
         if parts is not None:
             raise ValueError("parts counts device clock cycles: CUDA tensors only")
@@ -117,6 +123,7 @@ def triangulate(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simplices
     return simp, alive, ok
 
 
+@opscan.opaque("circumspheres")
 def circumspheres(simp: torch.Tensor):
     """``(center float64 [R, d], r2 float64 [R], nondeg bool [R])`` of
     ``R`` simplices ``simp`` float64 ``[R, d+1, d]``, rounded as the
@@ -148,9 +155,7 @@ def batched_delaunay(points, counts, *, dim: int, device=None):
     plus its super-simplex (vertex ids ``>= N``); a row that is not
     ``ok`` must be rebuilt with a larger halo.  Count-0 rows cost no
     trips."""
-    from ...distrib.runtime import resolve_device
-
-    dev = resolve_device(device)
+    dev = build.resolve_device(device)
     pts = torch.as_tensor(points, dtype=torch.float64).to(dev).contiguous()
     cnt = torch.as_tensor(counts, dtype=torch.int64).to(dev).contiguous()
     B, N, d = pts.shape

@@ -94,16 +94,31 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def triangulate_ref(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simplices: int,
-                    cavity: int, group: int = GROUP, work: torch.Tensor | None = None):
+                    cavity: int, group: int = GROUP, work: torch.Tensor | None = None,
+                    read_back: bool = True):
     """Triangulate ``B`` padded rows: ``pts`` float64 ``[B, N, d]`` (slots
     ``>= cnt`` ignored), ``cnt`` int ``[B]``.  Returns ``(simp [B, S, d+1]
     int32, alive [B, S] bool, ok [B] bool)``.  ``work``, an int64 ``[B,
     2]`` tensor, receives each row's trip count and the sum over its trips
-    of the alive slots the trip scanned."""
+    of the alive slots the trip scanned.
+
+    Every trip runs on all rows with fixed shapes (a finished row's trip
+    changes nothing), updates the state in place and reads nothing back.
+    The host reads whether a row is still live once every trip on the
+    CPU and every 16 trips on a card.  On the CPU it also
+    reads the rows' largest ``top``, and the scan covers slots up to it
+    plus what the trips before the next read can append; on a card every
+    trip scans the whole slot table and is replayed from a captured CUDA
+    graph (one trip is some 250 small launches, which the host would
+    otherwise issue one by one).  ``read_back=False`` reads nothing: it
+    runs ``N`` trips over the whole slot table, which finish every row,
+    since a trip of a live row always inserts its first candidate."""
     B, N, d = pts.shape
     if d != dim or dim not in (2, 3):
         raise ValueError(f"points are {d}-dimensional, expected dim {dim} in (2, 3)")
     dev = pts.device
+    # trips between two host reads (0: none)
+    check_every = (1 if dev.type == "cpu" else 16) if read_back else 0
     S, CAV, G = num_simplices, cavity, group
     F, W, UC = CAV * (d + 1), boundary_capacity(CAV, d), 3 * CAV
     V = N + d + 1
@@ -114,16 +129,18 @@ def triangulate_ref(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simpl
     sup = super_simplex(pts, cnt)
     work_pts = torch.cat([pts, sup], dim=1)                      # [B, V, d]
     c0, r20, nd0 = circumsphere(sup)
-    vid = torch.zeros((B, S, d + 1), **i64)
+    # W trash slots past S take the writes of the new simplices that get
+    # no slot, and a trash column past N the insertions of no candidate
+    vid = torch.zeros((B, S + W, d + 1), **i64)
     vid[:, 0] = torch.arange(d + 1, **i64) + N
-    cc = torch.zeros((B, S, d), dtype=pts.dtype, device=dev)
+    cc = torch.zeros((B, S + W, d), dtype=pts.dtype, device=dev)
     cc[:, 0] = c0
-    ss = torch.zeros((B, S), dtype=pts.dtype, device=dev)       # |cc|^2 per slot
+    ss = torch.zeros((B, S + W), dtype=pts.dtype, device=dev)   # |cc|^2 per slot
     ss[:, 0] = _norm2(c0)
-    rr = torch.full((B, S), -math.inf, dtype=pts.dtype, device=dev)
+    rr = torch.full((B, S + W), -math.inf, dtype=pts.dtype, device=dev)
     rr[:, 0] = torch.where(nd0, r20, math.inf)
     valid = torch.arange(N, device=dev)[None, :] < cnt[:, None]
-    ins = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    ins = torch.zeros((B, N + 1), dtype=torch.bool, device=dev)
     nins = torch.zeros(B, **i64)
     top = torch.ones(B, **i64)
     ok = torch.ones(B, dtype=torch.bool, device=dev)
@@ -132,66 +149,61 @@ def triangulate_ref(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simpl
     gi, ui = torch.arange(G, **i64), torch.arange(UC, **i64)
     ci, wi = torch.arange(CAV, **i64), torch.arange(W, **i64)
     offdiag = gi[:, None] != gi[None, :]
+    zero = torch.zeros((), dtype=pts.dtype, device=dev)
+    # slots a trip may append: its first candidate's boundary facets (at
+    # most F) and the budget W of the others
+    grow = F + W
 
-    while True:
-        act = (nins < cnt).nonzero().squeeze(1)
-        if act.numel() == 0:
-            break
-        A = act.numel()
-        # slots past top are dead (rr = -inf) and never bad: scan [0, T)
-        T = min(int(top[act].max()), S)
-        rows_t = slice(None) if A == B else act
-        a_cc, a_rr, a_ss = cc[rows_t, :T], rr[rows_t, :T], ss[rows_t, :T]
-        a_cnt, a_nins, a_top = cnt[act], nins[act], top[act]
-        trips[act] += 1
-        scanned[act] += (a_rr > -math.inf).sum(dim=1)
-        ra = act[:, None]
+    def trip(T: int) -> None:
+        live = nins < cnt
+        a_cc, a_rr, a_ss = cc[:, :T], rr[:, :T], ss[:, :T]
+        trips.add_(live)
+        scanned.add_((a_rr > -math.inf).sum(dim=1) * live)
 
         # candidates: G uninserted points at strided ranks of the remainder
-        icum = torch.cumsum((valid[act] & ~ins[act]).to(torch.int64), dim=1)
-        rem = a_cnt - a_nins
+        icum = torch.cumsum((valid & ~ins[:, :N]).to(torch.int64), dim=1)
+        rem = cnt - nins
         stride = torch.clamp(torch.div(rem, G, rounding_mode="floor"), min=1)
         ranks = gi[None, :] * stride[:, None]
-        cand = torch.searchsorted(icum, ranks + 1)               # [A, G]
+        cand = torch.searchsorted(icum, ranks + 1)               # [B, G]
         cm = ranks < rem[:, None]
-        p = work_pts[ra, cand.clamp(0, V - 1)]                   # [A, G, d]
+        p = _take(work_pts, cand.clamp(0, V - 1))                # [B, G, d]
 
         # one in-sphere scan of the slot table for the whole group
-        zero = torch.zeros((), dtype=pts.dtype, device=dev)
         dot = fma(a_cc[:, :, None, 0], p[:, None, :, 0], zero)
-        for k in range(1, d):
-            dot = fma(a_cc[:, :, None, k], p[:, None, :, k], dot)
+        for j in range(1, d):
+            dot = fma(a_cc[:, :, None, j], p[:, None, :, j], dot)
         d2 = (a_ss[..., None] - dot * 2.0) + sum_squares(p)[:, None, :]
-        bad = (d2 < a_rr[..., None]) & cm[:, None, :]          # [A, T, G]
+        bad = (d2 < a_rr[..., None]) & cm[:, None, :]          # [B, T, G]
         tie = (d2 == a_rr[..., None]) & cm[:, None, :]
 
         # the union cavity in ascending slot order, then each candidate's
         ucum = torch.cumsum(bad.any(dim=-1).to(torch.int64), dim=1)
         nu = ucum[:, -1]
-        uni = torch.searchsorted(ucum, (ui + 1).expand(A, UC).contiguous())
+        uni = torch.searchsorted(ucum, (ui + 1).expand(B, UC).contiguous())
         badu = _take(bad, uni.clamp(0, T - 1)) & (ui[None, :] < nu[:, None])[..., None]
-        cumu = torch.cumsum(badu.to(torch.int64), dim=1)         # [A, UC, G]
-        nb = cumu[:, -1]                                         # [A, G]
+        cumu = torch.cumsum(badu.to(torch.int64), dim=1)         # [B, UC, G]
+        nb = cumu[:, -1]                                         # [B, G]
         locidx = torch.searchsorted(cumu.transpose(1, 2).contiguous(),
-                                    (ci + 1).expand(A, G, CAV).contiguous())
+                                    (ci + 1).expand(B, G, CAV).contiguous())
         badidx = torch.where(locidx < UC, _take(uni, locidx.clamp(0, UC - 1)), S)
         cmask = ci[None, None, :] < nb[..., None]
-        cav = vid[act[:, None, None], badidx.clamp(0, S - 1)]    # [A, G, CAV, d+1]
-        ffl = torch.sort(cav[..., fidx], dim=-1).values.reshape(A, G, F, d)
-        fm = cmask.repeat_interleave(d + 1, dim=2)               # [A, G, F]
+        cav = _take(vid, badidx.clamp(0, S - 1))                 # [B, G, CAV, d+1]
+        ffl = torch.sort(cav[..., fidx], dim=-1).values.reshape(B, G, F, d)
+        fm = cmask[..., None].expand(B, G, CAV, d + 1).reshape(B, G, F)
         key = ffl[..., 0]
-        for k in range(1, d):
-            key = key * V + ffl[..., k]
+        for j in range(1, d):
+            key = key * V + ffl[..., j]
         key = torch.where(fm, key, V ** d + torch.arange(F, **i64))
         sk = torch.sort(key, dim=-1).values
         left = torch.searchsorted(sk, key)
         nxt = torch.gather(sk, 2, (left + 1).clamp(0, F - 1))
         bnd = fm & torch.where(left + 1 < F, nxt != key, True)   # a facet seen once
         bcum = torch.cumsum(bnd.to(torch.int64), dim=2)
-        nnew = bcum[..., -1]                                     # [A, G]
+        nnew = bcum[..., -1]                                     # [B, G]
 
         # stage 1: disjoint cavities, within the new-simplex budget W
-        ov = (badu[..., :, None] & badu[..., None, :]).any(dim=1)   # [A, G, G]
+        ov = (badu[..., :, None] & badu[..., None, :]).any(dim=1)   # [B, G, G]
         accs = [cm[:, 0]]
         newsum = torch.where(cm[:, 0], nnew[:, 0], 0)
         for j in range(1, G):
@@ -203,21 +215,21 @@ def triangulate_ref(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simpl
         acc = torch.stack(accs, dim=1)
 
         # the survivors' boundary facets, compacted to W new simplices
-        wcum = torch.cumsum((acc[..., None] & bnd).reshape(A, G * F).to(torch.int64), dim=1)
+        wcum = torch.cumsum((acc[..., None] & bnd).reshape(B, G * F).to(torch.int64), dim=1)
         nw = wcum[:, -1]
-        wsel = torch.searchsorted(wcum, (wi + 1).expand(A, W).contiguous())
+        wsel = torch.searchsorted(wcum, (wi + 1).expand(B, W).contiguous())
         wm = wi[None, :] < nw[:, None]
         wsafe = wsel.clamp(0, G * F - 1)
         wowner = torch.div(wsafe, F, rounding_mode="floor")
-        lpos = torch.gather(bcum.reshape(A, G * F), 1, wsafe) - 1
-        wf = _take(ffl.reshape(A, G * F, d), wsafe)              # [A, W, d]
+        lpos = torch.gather(bcum.reshape(B, G * F), 1, wsafe) - 1
+        wf = _take(ffl.reshape(B, G * F, d), wsafe)              # [B, W, d]
         wnew = torch.cat([wf, torch.gather(cand, 1, wowner)[..., None]], dim=2)
-        wctr, wr2, wnok = circumsphere(work_pts[act[:, None, None], wnew])
+        wctr, wr2, wnok = circumsphere(_take(work_pts, wnew))
 
         # stage 2: drop a survivor inside an earlier survivor's new sphere
-        pw = sum_squares(wctr[:, :, None, :] - p[:, None, :, :])  # [A, W, G]
+        pw = sum_squares(wctr[:, :, None, :] - p[:, None, :, :])  # [B, W, G]
         oh = ((wowner[..., None] == gi) & wm[..., None])[..., :, None]    # owner one-hot
-        hg = (oh & (pw < wr2[..., None])[..., None, :]).any(dim=1)        # [A, G, G]
+        hg = (oh & (pw < wr2[..., None])[..., None, :]).any(dim=1)        # [B, G, G]
         tg = (oh & (pw == wr2[..., None])[..., None, :]).any(dim=1)
         faccs = [acc[:, 0]]
         for j in range(1, G):
@@ -225,37 +237,67 @@ def triangulate_ref(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simpl
             faccs.append(acc[:, j] & ~(prev & hg[:, :j, j]).any(dim=1))
         facc = torch.stack(faccs, dim=1)
 
-        # slots: a survivor reuses its killed slots, then appends past top
+        # slots: a survivor reuses its killed slots, then appends past top;
+        # a new simplex without a slot below S goes to its trash slot
         a = torch.where(facc, torch.clamp(nnew - nb, min=0), 0)
         aoff = torch.cumsum(a, dim=1) - a
         fmask = wm & torch.gather(facc, 1, wowner)
         nb_o = torch.gather(nb, 1, wowner)
-        reuse = _take(badidx.reshape(A, G * CAV), wowner * CAV + lpos.clamp(0, CAV - 1))
+        reuse = _take(badidx.reshape(B, G * CAV), wowner * CAV + lpos.clamp(0, CAV - 1))
         slots = torch.where(fmask, torch.where(lpos < nb_o, reuse,
-                                               a_top[:, None] + torch.gather(aoff, 1, wowner)
-                                               + lpos - nb_o), S + wi)
-        kr, ks = (bad & facc[:, None, :]).any(dim=-1).nonzero(as_tuple=True)
-        rr[act[kr], ks] = -math.inf
-        put = slots < S
-        rows = act[:, None].expand(A, W)[put]
-        at = slots[put]
-        vid[rows, at] = wnew[put]
-        cc[rows, at] = wctr[put]
-        ss[rows, at] = _norm2(wctr[put])
-        rr[rows, at] = torch.where(wnok, wr2, math.inf)[put]
-        a_top = a_top + a.sum(dim=1)
+                                               top[:, None] + torch.gather(aoff, 1, wowner)
+                                               + lpos - nb_o), S)
+        slots = torch.where(slots < S, slots, S + wi)
+        killed = (bad & facc[:, None, :]).any(dim=-1)            # [B, T]
+        rr[:, :T] = torch.where(killed, -math.inf, a_rr)
+        vid.scatter_(1, slots[..., None].expand(B, W, d + 1), wnew)
+        cc.scatter_(1, slots[..., None].expand(B, W, d), wctr)
+        ss.scatter_(1, slots, _norm2(wctr))
+        rr.scatter_(1, slots, torch.where(wnok, wr2, math.inf))
+        new_top = top + a.sum(dim=1)
         hit = cm & (cand < N)
-        ins[act[:, None].expand(A, G)[hit], cand[hit]] = facc[hit]
+        ins.scatter_(1, torch.where(hit, cand, N), facc & hit)
         okc = ((nu <= UC)
                & torch.where(facc, (nb > 0) & (nb <= CAV) & (nnew <= W), True).all(dim=1)
                & ~tie.any(dim=(1, 2))
                & ~(fmask & ~wnok).any(dim=1)
                & ~(tg & facc[:, :, None] & facc[:, None, :] & offdiag).any(dim=(1, 2))
-               & (a_top <= S))
-        top[act] = a_top
-        nins[act] = a_nins + facc.sum(dim=1)
-        ok[act] = ok[act] & okc
+               & (new_top <= S))
+        top.copy_(new_top)
+        nins.add_(facc.sum(dim=1))
+        ok.logical_and_(okc)
+
+    graph, T, k = None, S, 0
+    while True:
+        if check_every and k % check_every == 0:
+            if dev.type == "cpu":
+                live_rows, most = torch.stack([(nins < cnt).sum(), top.max()]).tolist()
+                # slots past top are dead (rr = -inf) and never bad: scan [0, T)
+                T = min(most + check_every * grow, S)
+            else:
+                live_rows, T = int((nins < cnt).sum()), S
+            if not live_rows:
+                break
+        elif not check_every and k == N:
+            break
+        k += 1
+        if dev.type == "cpu":
+            trip(T)
+        elif graph is None:
+            # the first trip runs as it is (on a side stream, as capture
+            # wants), the next are replays of its capture
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                trip(S)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                trip(S)
+        else:
+            graph.replay()
+    del graph
 
     if work is not None:
         work.copy_(torch.stack([trips, scanned], dim=1))
-    return vid.to(torch.int32), rr > -math.inf, ok
+    return vid[:, :S].to(torch.int32), rr[:, :S] > -math.inf, ok

@@ -48,6 +48,14 @@
 //   refused, never clamped: a launch given stages below the capacity
 //   first runs a check kernel whose device assertion fails it (a kernel of
 //   its own, so that the assertion's call costs pair_edges no registers).
+//   Only such a launch runs the instance that reads the stages
+//   (pair_edges_kernel<STAGE, BELOW = true>): every other one runs the
+//   BELOW = false instance, which bounds its rows by the capacity, finds
+//   side b of a row after side a's cap points and reads nothing of its
+//   Stage argument.  The stages are that argument, not fields of
+//   PairArgs: a grown PairArgs cost every path 8-12 % (a stack frame in
+//   the no-stage instance), so the paths that stage nothing compile to the
+//   same per-row work as before stages existed.
 // * cell_points writes 8 dim + 1 bytes per slot and draws 1 + 2 dim
 //   Threefry blocks (72 integer operations each) per point.  Threads map
 //   to points, not slots: a persistent CTA takes tiles of cells (about 16
@@ -150,6 +158,15 @@ struct alignas(16) RowRec {
 };
 constexpr int kRowSelf = 1, kRowCert = 8;
 
+// a launch whose stages are below the capacity (a serving slab's): the
+// points staged a side by kind, and the byte offset of side b in a row's
+// area.  A kernel argument of its own beside PairArgs, which is as it was
+// before stages existed
+struct Stage {
+  int hyp, torus;        // points staged a side by kind (<= cap)
+  int half;              // bytes of the area before side b (16-aligned)
+};
+
 struct PairArgs {
   const int32_t* kind;
   const uint32_t *key_a, *key_b;
@@ -158,9 +175,7 @@ struct PairArgs {
   const bool *self_pair, *active;
   int64_t K, G, F, rows;
   int cap, dim, kinds;   // kinds: the bits of the row kinds the launch runs
-  int stage_hyp, stage_torus;  // points staged a side by kind (<= cap)
   int tile_rows, area;   // rows a tile, bytes of a row's point area (16-aligned)
-  int half;              // bytes of the area before side b (16-aligned)
   int stage_keep;        // 1: keep bytes staged in shared memory, 0: stored as computed
   int halves;            // shared-memory halves: 2, or 1 for rows too wide for two
   uint32_t m_cap;        // ceil(2^32 / cap)
@@ -233,8 +248,13 @@ __host__ __device__ __forceinline__ size_t tile_buf_bytes(int TR, int cap, int a
 
 // decode tile `tile` into `b`: one thread a row fills the row's record
 // (and a CERT row's test and ids), then the rows' points (only slots that
-// hold one) are spread over all threads by a prefix of their counts
-__device__ void pair_decode(const PairArgs& a, int64_t tile, TileBuf b, int* warp_sum) {
+// hold one) are spread over all threads by a prefix of their counts.
+// BELOW: a kind's stage may be below the capacity, so it bounds the counts
+// and side b starts at byte `half` whatever the row's kind; else the
+// capacity bounds them and side b follows side a's `cap` points
+template <bool BELOW>
+__device__ void pair_decode(const PairArgs& a, const Stage& st, int64_t tile, TileBuf b,
+                            int* warp_sum) {
   const int TR = a.tile_rows, cap = a.cap;
   const int64_t r0 = tile * TR;
   const int nr = (int)(a.rows - r0 < TR ? a.rows - r0 : TR);
@@ -250,9 +270,14 @@ __device__ void pair_decode(const PairArgs& a, int64_t tile, TileBuf b, int* war
     const int64_t ca = a.count_a[r], cb = a.count_b[r];
     // the kind's stage bounds the counts (stage_check_kernel refuses a
     // launch whose rows pass it; the clamp keeps the staging in bounds)
-    const int lim = ek == kGeomHyp ? a.stage_hyp : ek == kGeomTorus ? a.stage_torus : cap;
-    rr.ca = live ? (int)(ca < 0 ? 0 : (ca > lim ? lim : ca)) : 0;
-    rr.cb = live ? (int)(cb < 0 ? 0 : (cb > lim ? lim : cb)) : 0;
+    if constexpr (BELOW) {
+      const int lim = ek == kGeomHyp ? st.hyp : ek == kGeomTorus ? st.torus : cap;
+      rr.ca = live ? (int)(ca < 0 ? 0 : (ca > lim ? lim : ca)) : 0;
+      rr.cb = live ? (int)(cb < 0 ? 0 : (cb > lim ? lim : cb)) : 0;
+    } else {
+      rr.ca = live ? (int)(ca < 0 ? 0 : (ca > cap ? cap : ca)) : 0;
+      rr.cb = live ? (int)(cb < 0 ? 0 : (cb > cap ? cap : cb)) : 0;
+    }
     rr.thr = ek == kGeomHyp || ek == kGeomTorus ? a.fparams[r * a.F + 1] : 0.0;
     int flags = (a.self_pair[r] ? kRowSelf : 0) | ek << 1;
     if (ek == kGeomCert) {
@@ -280,15 +305,22 @@ __device__ void pair_decode(const PairArgs& a, int64_t tile, TileBuf b, int* war
     const RowRec& rr = b.rec[t];
     const bool side_b = k >= rr.ca;
     const int i = side_b ? k - rr.ca : k;
-    char* side = b.area + (size_t)t * a.area + (side_b ? a.half : 0);
     const uint32_t* key = (side_b ? a.key_b : a.key_a) + 2 * r;
     const double* geom = (side_b ? a.geom_b : a.geom_a) + r * a.G;
     const Key2x32 slot = tf_fold_in(Key2x32{key[0], key[1]}, (uint32_t)i);
     const double g0 = a.fparams[r * a.F];
+    // slot s of the row's area (side b after side a's cap points), or
+    // (BELOW) slot i of its side, side b at byte st.half
+    char* base = b.area + (size_t)t * a.area;
+    int s = side_b ? cap + i : i;
+    if constexpr (BELOW) {
+      base += side_b ? st.half : 0;
+      s = i;
+    }
     if (((rr.flags >> 1) & 3) == kGeomHyp) {
-      hyp_features(slot, geom, g0, (double*)side + 4 * i);
+      hyp_features(slot, geom, g0, (double*)base + 4 * s);
     } else {
-      float* pt = (float*)side + 4 * i;
+      float* pt = (float*)base + 4 * s;
       for (int d = 0; d < a.dim; ++d)
         pt[d] = (float)((geom[d] + uniform53(slot, (uint32_t)d)) / g0);
     }
@@ -297,9 +329,9 @@ __device__ void pair_decode(const PairArgs& a, int64_t tile, TileBuf b, int* war
 
 // write the edges of tile `tile` from `b`, slots spread evenly over the
 // threads (a warp instruction stores 512 contiguous bytes), and stage
-// their keep bytes in b.keep (STAGE) or store them
-template <bool STAGE>
-__device__ void pair_write(const PairArgs& a, int64_t tile, TileBuf b) {
+// their keep bytes in b.keep (STAGE) or store them; BELOW as in pair_decode
+template <bool STAGE, bool BELOW>
+__device__ void pair_write(const PairArgs& a, const Stage& st, int64_t tile, TileBuf b) {
   const int TR = a.tile_rows, cap = a.cap, cc = cap * cap;
   const int64_t r0 = tile * TR;
   const int nr = (int)(a.rows - r0 < TR ? a.rows - r0 : TR);
@@ -328,12 +360,19 @@ __device__ void pair_write(const PairArgs& a, int64_t tile, TileBuf b) {
         kp = (rr.flags & kRowCert) && ((rr.gb >> bit) & 1);
       }
     } else if (valid) {
-      if (ek == kGeomHyp) {
-        kp = hyp_tile((const double*)pts + 4 * i, (const double*)(pts + a.half) + 4 * j,
-                      rr.thr);
+      if constexpr (BELOW) {
+        if (ek == kGeomHyp) {
+          kp = hyp_tile((const double*)pts + 4 * i, (const double*)(pts + st.half) + 4 * j,
+                        rr.thr);
+        } else {
+          kp = euclid_tile((const float*)pts + 4 * i, (const float*)(pts + st.half) + 4 * j,
+                           a.dim, (float)rr.thr);
+        }
+      } else if (ek == kGeomHyp) {
+        kp = hyp_tile((const double*)pts + 4 * i, (const double*)pts + 4 * (cap + j), rr.thr);
       } else {
-        kp = euclid_tile((const float*)pts + 4 * i, (const float*)(pts + a.half) + 4 * j,
-                         a.dim, (float)rr.thr);
+        kp = euclid_tile((const float*)pts + 4 * i, (const float*)pts + 4 * (cap + j), a.dim,
+                         (float)rr.thr);
       }
     }
     edges[s] = make_longlong2(u > v ? u : v, u > v ? v : u);
@@ -367,15 +406,20 @@ __device__ void pair_keep(const PairArgs& a, int64_t tile, TileBuf b) {
 
 // STAGE: keep bytes staged in shared memory (a separate instance from the
 // wide rows', which store them as computed, so that its stores stay
-// shared-memory stores)
-template <bool STAGE>
-__global__ void __launch_bounds__(kThreads) pair_edges_kernel(PairArgs a, int64_t tiles) {
+// shared-memory stores).  BELOW: a launch whose stages are below the
+// capacity (a serving slab's): each kind's stage bounds its rows' counts,
+// and side b starts at byte st.half whatever the kind.  Every other launch
+// runs the !BELOW instance, which reads nothing of `st`: its rows are
+// bounded by the capacity and side b of a row follows side a's cap points
+template <bool STAGE, bool BELOW>
+__global__ void __launch_bounds__(kThreads) pair_edges_kernel(PairArgs a, Stage st,
+                                                              int64_t tiles) {
   extern __shared__ __align__(16) char smem[];
   __shared__ int warp_sum[kWarps];
   const size_t half = a.halves == 2 ? tile_buf_bytes(a.tile_rows, a.cap, a.area, STAGE) : 0;
   int64_t tile = blockIdx.x;
   if (tile >= tiles) return;
-  pair_decode(a, tile, tile_buf(a, smem), warp_sum);
+  pair_decode<BELOW>(a, st, tile, tile_buf(a, smem), warp_sum);
   __syncthreads();
   int k = 0;
   for (; tile < tiles; ++k, tile += gridDim.x) {
@@ -383,11 +427,11 @@ __global__ void __launch_bounds__(kThreads) pair_edges_kernel(PairArgs a, int64_
     // and tile k+1's decode in the other; one barrier (two with one half)
     const TileBuf cur = tile_buf(a, smem + (k & 1) * half);
     const TileBuf other = tile_buf(a, smem + ((k + 1) & 1) * half);
-    pair_write<STAGE>(a, tile, cur);
+    pair_write<STAGE, BELOW>(a, st, tile, cur);
     if (STAGE && k > 0) pair_keep(a, tile - gridDim.x, other);
     if (tile + gridDim.x < tiles) {
       if (a.halves == 1) __syncthreads();
-      pair_decode(a, tile + gridDim.x, other, warp_sum);
+      pair_decode<BELOW>(a, st, tile + gridDim.x, other, warp_sum);
     }
     __syncthreads();
   }
@@ -422,10 +466,10 @@ cudaError_t shared_room(F* fn, size_t* room) {
   return err;
 }
 
-// launch a persistent kernel: as many CTAs as fit on the SMs, at most one a
-// tile, with `shared` bytes of dynamic shared memory each
-template <typename F, typename A>
-int launch_persistent(F* fn, const A& a, int64_t tiles, size_t shared, void* stream) {
+// launch a persistent kernel fn(args..., tiles): as many CTAs as fit on the
+// SMs, at most one a tile, with `shared` bytes of dynamic shared memory each
+template <typename F, typename... A>
+int launch_persistent(F* fn, int64_t tiles, size_t shared, void* stream, const A&... args) {
   cudaError_t err = cudaSuccess;
   if (shared > 48 * 1024)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
@@ -436,35 +480,43 @@ int launch_persistent(F* fn, const A& a, int64_t tiles, size_t shared, void* str
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int64_t grid = tiles < (int64_t)sms * per_sm ? tiles : (int64_t)sms * per_sm;
-  fn<<<(unsigned)grid, kThreads, shared, (cudaStream_t)stream>>>(a, tiles);
+  fn<<<(unsigned)grid, kThreads, shared, (cudaStream_t)stream>>>(args..., tiles);
   return (int)cudaGetLastError();
 }
 
 // refuse a launch whose live HYP or TORUS row holds more points (at most
 // cap) than its kind's stage: the assertion fails the launch, and the
 // CUDA context with it, before pair_edges_kernel runs on the stream
-__global__ void stage_check_kernel(PairArgs a) {
+__global__ void stage_check_kernel(PairArgs a, Stage st) {
   for (int64_t r = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; r < a.rows;
        r += (int64_t)gridDim.x * blockDim.x) {
     const int ek = effective_kind(a.kind[r], a.kinds);
     if (!a.active[r] || (ek != kGeomHyp && ek != kGeomTorus)) continue;
-    const int64_t lim = ek == kGeomHyp ? a.stage_hyp : a.stage_torus;
+    const int64_t lim = ek == kGeomHyp ? st.hyp : st.torus;
     const int64_t ca = a.count_a[r] < a.cap ? a.count_a[r] : a.cap;
     const int64_t cb = a.count_b[r] < a.cap ? a.count_b[r] : a.cap;
     assert(ca <= lim && cb <= lim);
   }
 }
 
-template <bool STAGE>
-int launch_pair_edges(PairArgs a, void* stream) {
+template <bool STAGE, bool BELOW>
+int launch_pair_edges_as(PairArgs a, const Stage& st, void* stream) {
   size_t room;
-  const cudaError_t err = shared_room(pair_edges_kernel<STAGE>, &room);
+  const cudaError_t err = shared_room(pair_edges_kernel<STAGE, BELOW>, &room);
   if (err != cudaSuccess) return (int)err;
   const size_t half = tile_buf_bytes(a.tile_rows, a.cap, a.area, STAGE);
   if (half > room) return (int)cudaErrorInvalidValue;
   a.halves = 2 * half <= room ? 2 : 1;
   const int64_t tiles = (a.rows + a.tile_rows - 1) / a.tile_rows;
-  return launch_persistent(pair_edges_kernel<STAGE>, a, tiles, a.halves * half, stream);
+  return launch_persistent(pair_edges_kernel<STAGE, BELOW>, tiles, a.halves * half, stream,
+                           a, st);
+}
+
+// the no-stage instance, or (a stage below the capacity) the staged one
+template <bool STAGE>
+int launch_pair_edges(const PairArgs& a, const Stage& st, bool below, void* stream) {
+  return below ? launch_pair_edges_as<STAGE, true>(a, st, stream)
+               : launch_pair_edges_as<STAGE, false>(a, st, stream);
 }
 
 // cell_points ----------------------------------------------------------
@@ -687,7 +739,12 @@ extern "C" int pair_edges(const void* kind, const void* key_a, const void* key_b
   a.active = (const bool*)active;
   a.K = K, a.G = G, a.F = F, a.rows = rows;
   a.cap = (int)cap, a.dim = dim, a.kinds = kinds;
-  a.stage_hyp = (int)stage_hyp, a.stage_torus = (int)stage_torus;
+  // a stage below the capacity of a kind the launch runs picks the staged
+  // instance and the check kernel; any other launch runs the no-stage one
+  const bool below = ((kinds & kHyp) && stage_hyp < cap) || ((kinds & kTorus) && stage_torus < cap);
+  Stage st;
+  st.hyp = below ? (int)stage_hyp : (int)cap;
+  st.torus = below ? (int)stage_torus : (int)cap;
   a.edges = (longlong2*)edges;
   a.keep = (uint8_t*)keep;
   const int cc = (int)(cap * cap);
@@ -695,14 +752,15 @@ extern "C" int pair_edges(const void* kind, const void* key_a, const void* key_b
   a.step_j = kThreads % (int)cap;
   a.step_i = kThreads / (int)cap % (int)cap;
   a.step_row = kThreads / (int)cap / (int)cap;
-  // a row's point area: two sides of stage_hyp float64 features x 4 (HYP)
-  // or of stage_torus float32 x 4 points (TORUS), side b at byte `half`
-  // whatever the row's kind; K ids (CERT)
+  // a row's point area: two sides of st.hyp float64 features x 4 (HYP) or
+  // of st.torus float32 x 4 points (TORUS), side b at byte st.half
+  // whatever the row's kind (staged), else after side a's cap points of
+  // the row's own kind (the stages are then cap); K ids (CERT)
   int half = 0;
-  if (kinds & kHyp) half = (int)stage_hyp * 32;
-  if ((kinds & kTorus) && (int)stage_torus * 16 > half) half = (int)stage_torus * 16;
-  a.half = (half + 15) / 16 * 16;
-  int area = 2 * a.half;
+  if (kinds & kHyp) half = st.hyp * 32;
+  if ((kinds & kTorus) && st.torus * 16 > half) half = st.torus * 16;
+  st.half = (half + 15) / 16 * 16;
+  int area = 2 * st.half;
   if ((kinds & kCert) && 8 * (int)K > area) area = 8 * (int)K;
   a.area = (area + 15) / 16 * 16;
   // about 4096 slots a tile, in whole 512-slot windows where a multiple of
@@ -724,13 +782,14 @@ extern "C" int pair_edges(const void* kind, const void* key_a, const void* key_b
   while (tr > 1 && 2 * tile_buf_bytes(tr, (int)cap, a.area, true) > 48 * 1024) tr /= 2;
   a.stage_keep = 2 * tile_buf_bytes(tr, (int)cap, a.area, true) <= 48 * 1024;
   a.tile_rows = a.stage_keep ? tr : 1;
-  if (((kinds & kHyp) && stage_hyp < cap) || ((kinds & kTorus) && stage_torus < cap)) {
+  if (below) {
     const long long blocks = (rows + 255) / 256 < 1024 ? (rows + 255) / 256 : 1024;
-    stage_check_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(a);
+    stage_check_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(a, st);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return a.stage_keep ? launch_pair_edges<true>(a, stream) : launch_pair_edges<false>(a, stream);
+  return a.stage_keep ? launch_pair_edges<true>(a, st, below, stream)
+                      : launch_pair_edges<false>(a, st, below, stream);
 }
 
 // Point-plan cells: key uint32 [R, 2]; count int64 [R]; cell int64 [R, Kc];
@@ -767,10 +826,10 @@ extern "C" int cell_points(const void* key, const void* count, const void* cell,
   if (err != cudaSuccess) return (int)err;
   const int64_t tiles = (rows + tc - 1) / tc;
   if (2 * cell_buf_bytes(tc, (int)cap, dim, false) <= room)
-    return launch_persistent(cell_points_kernel<false>, a, tiles,
-                             2 * cell_buf_bytes(tc, (int)cap, dim, false), stream);
-  return launch_persistent(cell_points_kernel<true>, a, tiles,
-                           2 * cell_buf_bytes(tc, (int)cap, dim, true), stream);
+    return launch_persistent(cell_points_kernel<false>, tiles,
+                             2 * cell_buf_bytes(tc, (int)cap, dim, false), stream, a);
+  return launch_persistent(cell_points_kernel<true>, tiles,
+                           2 * cell_buf_bytes(tc, (int)cap, dim, true), stream, a);
 }
 
 // The device libm functions on a float64 array, for holding them against

@@ -4,6 +4,10 @@ For tensors on the CPU each wrapper computes its plain version
 (:mod:`.ref`); for CUDA tensors it launches its kernel on the current
 stream, counts the launch in ``build.LAUNCHES`` and raises if the launch
 fails.  There is no fallback from one to the other.
+
+Each entry point is opaque to the op scan of
+``repro_torch.analyze.opscan``: inside a trace a call counts as one
+launch, whichever version runs.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ from typing import Mapping, Optional
 
 import torch
 
+from ...analyze import opscan
 from .. import build
 from . import libm
 from .ref import (GEOM_CERT, GEOM_EMPTY, GEOM_HYP, GEOM_TORUS, POINTS_CUBE, POINTS_POLAR,
@@ -39,6 +44,7 @@ def _lib():
     return build.library("geom", _SIGNATURES)
 
 
+@opscan.opaque("pair_edges")
 def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_b,
                fparams, self_pair, active, *, capacity: int, dim: int, kinds,
                stage: Optional[Mapping[int, int]] = None):
@@ -103,6 +109,7 @@ def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_
     return edges, keep
 
 
+@opscan.opaque("cell_points")
 def cell_points(key, count, cell, geom, *, kind: str, scale: float, capacity: int,
                 dim: int):
     """(points float64 ``[R, capacity, dim]``, mask bool ``[R,

@@ -15,6 +15,10 @@ above 4096 bins to XLA's scatter; here one kernel computes both cases.
 Values are int64 throughout (the reference casts to int32 first, which
 is the same for every value below 2^31).  Negative ids are dropped
 whatever the length.
+
+Each entry point is opaque to the op scan of
+``repro_torch.analyze.opscan``: inside a trace a call counts as one
+launch, whichever version runs.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ...analyze import opscan
 from .. import build
 from .ref import hist_counts_ref
 
@@ -44,6 +49,7 @@ def _entry():
     return _ENTRY[0]
 
 
+@opscan.opaque("hist_counts")
 def hist_counts(values: torch.Tensor, num_bins: int, *, log2: bool = False,
                 drop: bool = False,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -4,6 +4,10 @@
 on the CPU; for CUDA tensors it launches the kernel on the current
 stream, counts the launch in ``build.LAUNCHES`` and raises if the launch
 fails.  There is no fallback from one to the other.
+
+Each entry point is opaque to the op scan of
+``repro_torch.analyze.opscan``: inside a trace a call counts as one
+launch, whichever version runs.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ import ctypes
 
 import torch
 
+from ...analyze import opscan
 from .. import build
 from .ref import TILES, pair_mask_ref
 
@@ -24,6 +29,7 @@ def _lib():
     return build.library("pairmask", _SIGNATURES)
 
 
+@opscan.opaque("pair_mask")
 def pair_mask(a: torch.Tensor, b: torch.Tensor, scalar, *, tile: str,
               dim: int = 2) -> torch.Tensor:
     """int8 mask ``[B, M, N]`` (or ``[M, N]`` for unbatched ``[M, F]``

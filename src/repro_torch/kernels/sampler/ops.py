@@ -5,6 +5,10 @@ For tensors on the CPU each wrapper computes its plain version
 (:mod:`.ref`); for CUDA tensors it launches its kernel on the current
 stream, counts the launch in ``build.LAUNCHES`` and raises if the launch
 fails.  There is no fallback from one to the other.
+
+Each entry point is opaque to the op scan of
+``repro_torch.analyze.opscan``: inside a trace a call counts as one
+launch, whichever version runs.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from ...analyze import opscan
 from .. import build
 from .ref import (BUCKET_CAP, LIST_CAP, buckets_per_row, chunk_ba_ref, chunk_decode_ref,
                   chunk_rmat_ref, sample_rows_ref)
@@ -32,6 +37,7 @@ def _lib():
     return build.library("sampler", _SIGNATURES)
 
 
+@opscan.opaque("chunk_sample")
 def chunk_sample(key: torch.Tensor, universe: torch.Tensor, count: torch.Tensor,
                  capacity: int, rounds: Optional[torch.Tensor] = None, *,
                  bucket_cap: int = BUCKET_CAP, list_cap: int = LIST_CAP) -> torch.Tensor:
@@ -75,6 +81,7 @@ def chunk_sample(key: torch.Tensor, universe: torch.Tensor, count: torch.Tensor,
     return out
 
 
+@opscan.opaque("chunk_decode")
 def chunk_decode(vals: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
                  count: torch.Tensor, owned: torch.Tensor):
     """(edges int64 ``[R, cap, 2]``, keep bool ``[R, cap]``) of the sorted
@@ -117,6 +124,7 @@ def _check_rows(key, kind, params, count, owned, out, capacity):
     return out, False
 
 
+@opscan.opaque("chunk_rmat")
 def chunk_rmat(key: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
                fparams: torch.Tensor, count: torch.Tensor, owned: torch.Tensor,
                log_n: int, capacity: int, out=None):
@@ -143,6 +151,7 @@ def chunk_rmat(key: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
     return edges, keep
 
 
+@opscan.opaque("chunk_ba")
 def chunk_ba(key: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
              count: torch.Tensor, owned: torch.Tensor, capacity: int, out=None,
              steps: Optional[torch.Tensor] = None):

@@ -6,6 +6,10 @@ For tensors on the CPU it computes its plain version
 kernel on the current stream, counts the launch in ``build.LAUNCHES``
 and raises if the launch fails.  There is no fallback from one to the
 other.
+
+Each entry point is opaque to the op scan of
+``repro_torch.analyze.opscan``: inside a trace a call counts as one
+launch, whichever version runs.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ...analyze import opscan
 from .. import build
 from .ref import close_wedges_table_ref
 from .table import WedgeTable, wedge_table
@@ -25,6 +30,7 @@ _I = ctypes.c_longlong
 _SIGNATURES = {"close_wedges": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P]}
 
 
+@opscan.opaque("close_wedges")
 def close_wedges(edges: torch.Tensor, table: WedgeTable, *,
                  mask: Optional[torch.Tensor] = None, count: Optional[int] = None,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:

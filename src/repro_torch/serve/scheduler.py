@@ -279,11 +279,13 @@ class Scheduler:
     a row: as many as fit in ``slab_bytes`` of output a slab, and never
     fewer than ``slab_batch`` (pair rows of capacity 32 are 17 KB, chunk
     rows of capacity 2^22 71 MB).  Results stay on ``device``.
+    ``check`` scans each new slab program once (``runtime.run_slab``).
     """
 
     def __init__(self, D: int = 1, slab_batch: int = 8, slab_bytes: Optional[int] = None,
-                 registry: Optional[obs.Registry] = None, device=None):
+                 registry: Optional[obs.Registry] = None, device=None, check: bool = True):
         self.D = int(D)
+        self.check = bool(check)
         self.B = int(slab_batch)
         if self.D < 1 or self.B < 1:
             raise ValueError(f"slabs need D >= 1 and slab_batch >= 1, got {D}, {slab_batch}")
@@ -467,7 +469,8 @@ class Scheduler:
         ks, d, b = placement
         valid, rows = self._assemble(prog, slots, placement, B)
         payload, ok = runtime.run_slab(prog.slot_fn, prog.signature(), valid, rows,
-                                       self.device, **prog.slot_kwargs(rows))
+                                       self.device, check=self.check,
+                                       **prog.slot_kwargs(rows))
         self.slabs += 1
         self.slots += len(ks)
         self._m_slabs.inc()

@@ -90,9 +90,9 @@ class Service:
     unless ``"cpu"``).  ``slab_batch`` and ``slab_bytes`` size the slabs
     (see :class:`~repro_torch.serve.scheduler.Scheduler`).
 
-    ``check`` is inert: it is kept from the reference's signature, where
-    it scans each slab program for collectives, and nothing reads it
-    until that scan comes to the port (with ``analyze``).
+    ``check`` scans each new slab signature once, on its first slab,
+    for the contracts of :mod:`repro_torch.analyze` (a collective first):
+    ``runtime.run_slab(check=True)``.
     """
 
     def __init__(self, P: int = 1, *, D: int = 1, device=None,
@@ -105,7 +105,8 @@ class Service:
         self.cache = PlanCache(cache_capacity)
         self.registry = obs.Registry("repro_serve_")
         self.scheduler = Scheduler(D, slab_batch=slab_batch, slab_bytes=slab_bytes,
-                                   registry=self.registry, device=self.device)
+                                   registry=self.registry, device=self.device,
+                                   check=check)
         self._inflight: List[Ticket] = []
         self.submitted = 0
         self.completed = 0

@@ -300,6 +300,45 @@ def test_pair_edges_wide_rows_match_plain(cuda, kinds, cap, R):
         torch.cuda.empty_cache()
 
 
+def test_registry_cases_are_clean_under_sync_debug(cuda):
+    """Every program of ``repro_torch.analyze``'s registry on the card,
+    under the op scan and ``set_sync_debug_mode("error")``: no finding,
+    and the kernel cases launch ``pair_mask`` and ``triangulate``."""
+    from repro_torch.analyze import programs
+
+    before = dict(build.LAUNCHES)
+    reports = programs.scan_programs(device=cuda)
+    bad = [(r.name, r.error, [f.to_json() for f in r.scan.findings])
+           for r in reports if not r.ok]
+    assert not bad, bad
+    assert torch.cuda.get_sync_debug_mode() == 0
+    for name in ("pair_mask", "triangulate", "pair_edges", "chunk_sample"):
+        assert build.LAUNCHES[name] > before[name], name
+
+
+# the RHG wave's capacity (HYP rows), the RGG generate plan's (TORUS
+# rows), the RDG plan's (CERT rows) and all three mixed
+INSTANCE_SHAPES = [((GEOM_HYP,), 24, 2), ((GEOM_TORUS,), 24, 2), ((GEOM_CERT,), 4, 2),
+                   (ALL_KINDS, 24, 3)]
+
+
+@pytest.mark.parametrize("kinds,cap,dim", INSTANCE_SHAPES,
+                         ids=[f"{''.join(map(str, k))}-{c}-{d}" for k, c, d in INSTANCE_SHAPES])
+def test_pair_edges_both_instances_match_plain(cuda, kinds, cap, dim):
+    """The instances without a stage (every path but serving) and with a
+    stage below the capacity (a serving slab's) on the same rows, whose
+    counts stay below the capacity so that both apply."""
+    rows = pair_rows(4000, cap, dim, seed=7 * cap + dim, device=cuda, kinds=kinds)
+    rows[3].clamp_(max=cap - 1)
+    rows[4].clamp_(max=cap - 1)
+    kw = dict(capacity=cap, dim=dim, kinds=kinds)
+    eb, kb = pair_edges_ref(*rows, **kw)
+    assert bool(kb.any())
+    for stage in (None, {GEOM_HYP: cap - 1, GEOM_TORUS: cap - 1}):
+        ea, ka = G.pair_edges(*rows, stage=stage, **kw)
+        assert torch.equal(ea, eb) and torch.equal(ka, kb), stage
+
+
 @pytest.mark.parametrize("kind,dim", [("cube", 2), ("cube", 3), ("polar", 2)])
 @pytest.mark.parametrize("cap", [1, 7, 25, 1024, 4000])
 def test_cell_points_with_empty_cells_match_plain(cuda, kind, dim, cap):
