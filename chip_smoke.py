@@ -100,12 +100,32 @@ or of the JAX package.  Phases, each printed with its seconds:
       ``runtime.run(check=True)``; ``generate(GNM(n=2^24, m=2^28), 1)``
       with ``check=True`` on a cold slot-function cache against
       ``check=False``, in turns (the check's one-time cost);
+   h. the LM stack's serving path (``repro_torch.data``, ``models``,
+      ``train.serve``): ``make_global_batch`` at ``launch/train.py``'s
+      data config (``rhg_walk``, n = 4096, sequences of 256, four a
+      shard, seed 11) with 1 and 4 shards, steps 0 to 3, and one
+      ``er_walk`` batch, on the card with the graphs cold (timed), then
+      again with every ``pair_mask`` launch of ``rhg_pe`` and every
+      ``chunk_sample``/``chunk_decode`` launch of ``gnm_undirected_pe``
+      held against its plain version on the same inputs; every batch's
+      digests equal
+      to ``golden/data.json`` on the card and on the CPU; the ten
+      architectures at smoke size in float32, the same weights on the
+      card and on the CPU (``forward`` logits, ``lm_loss``, teacher-forced
+      ``decode_step`` against the forward); Qwen3-0.6B at full width
+      (28 layers, d_model 1024, vocab 151,936) from a seeded generator,
+      ``generate`` in bf16 for 8 of the pipeline's prompts of 256 tokens
+      and 64 greedy steps (prefill and generate timed in turns; prefill
+      tokens/s and its share of the bf16 peak, decode ms a step, tokens/s
+      and its share of HBM bandwidth, peak memory, one decode step's aten
+      census under sync-debug "error", the device's idle share under the
+      profiler), then float32 teacher-forced decode against the full
+      forward at full width;
    each checked on the device; each ``collect`` must launch ``hist`` once
-   per non-empty chunk of its first pass plus once per section histogram.  ``pair_mask`` is
-   on no generator path: as in
-   the reference, the engine runs its tiles inside ``pair_edges``, and
-   only the reference's per-PE oracles and the registry's kernel case
-   (path g) call the kernel itself.
+   per non-empty chunk of its first pass plus once per section histogram.  The generator
+   paths run ``pair_mask``'s tiles inside ``pair_edges``, as the
+   reference's engine does; ``pair_mask`` itself is launched by ``rhg_pe``
+   on path h and by the registry's kernel case (path g).
 4. each kernel timed at its main-path shape beside its plain version,
    the library call computing the same function (where there is one)
    and its bound (``pair_mask`` at its own contract's shape, the
@@ -131,13 +151,15 @@ or of the JAX package.  Phases, each printed with its seconds:
    and PR 16's bound beside the new one); then the ``kernels`` line and the
    result line.  The kernel timings also print the median and min–max of
    their reps one at a time, and each ``kernels`` entry carries that
-   median as ``median_ms`` beside the back-to-back mean ``ms``.
+   median as ``median_ms`` beside the back-to-back mean ``ms``.  Path h
+   adds a second ``pair_mask`` row: the hyp tile at ``rhg_pe``'s largest
+   call.
 
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
 
-``--only PATH`` (``er``, ``geom``, ``rdg``, ``families``, ``stats``, ``serve``, ``analyze``;
-repeatable)
+``--only PATH`` (``er``, ``geom``, ``rdg``, ``families``, ``stats``, ``serve``, ``analyze``,
+``lm``; repeatable)
 builds and runs
 only that main path and its phase 4 timing, and ``--no-timing`` stops
 after the path: run the same script in two checkouts in turns to
@@ -2834,10 +2856,386 @@ def analyze_timing(dev, out: dict, errs: Errors) -> list:
     return []
 
 
-OFF_PATH = {"pair_mask": "off the engine paths, as in the reference: the engine runs its "
-                         "tiles inside pair_edges, and only the reference's per-PE oracles "
-                         "(rgg_pe, rhg._adjacency) and the contract registry's kernel case "
-                         "(path 3g) call the kernel"}
+LM_ARCH = "qwen3_0p6b"
+# aten ops that make views (no kernel), counted apart in a decode step's census
+LM_VIEW_OPS = frozenset({"aten::view", "aten::_unsafe_view", "aten::unsqueeze",
+                         "aten::squeeze", "aten::permute", "aten::expand", "aten::slice",
+                         "aten::select", "aten::transpose", "aten::t", "aten::alias",
+                         "aten::as_strided", "aten::split", "aten::split_with_sizes",
+                         "aten::chunk", "aten::unbind", "aten::detach"})
+LM_TOL = 1e-4           # card against CPU, float32: of max |logit| (and the loss, absolute)
+# float32 teacher-forced decode against the full forward at full width: the
+# two run other GEMM shapes (cuBLAS picks other kernels, summing in other
+# orders; TF32 off), about 2e-6 of max |logit| over 28 layers
+LM_DECODE_TOL = 1e-4
+# bf16 prefill's last-position logits against the float32 forward on the
+# same masters at full width: bf16 keeps 8 significant bits, rounding each
+# op's output; qwen3's width at vocab 8192 on the CPU gave 5.7e-3, 6.4e-3
+# and 8.6e-3 of max |logit| at 2, 4 and 8 layers: 5e-2 leaves room for 28
+LM_BF16_TOL = 5e-2
+
+
+def lm_groups(key: str) -> str:
+    """The LM's breakdown groups of a profiler kernel name: the GEMMs
+    (cuBLAS, CUTLASS), softmax and reductions, copies and casts, the rest."""
+    k = key.lower()
+    if "gemm" in k or "nvjet" in k or "cutlass" in k or "xmma" in k or "matmul" in k:
+        return "gemm"
+    if "softmax" in k or "reduce" in k:
+        return "softmax/reduce"
+    if "copy" in k or "cast" in k or "memcpy" in k or "memset" in k or "fill" in k:
+        return "copy/cast/fill"
+    return "elementwise/other"
+
+
+class held_lm_kernels:
+    """Within: ``rhg.pair_mask``, ``er.sample_rows`` and ``er.chunk_decode``
+    launch their kernels and hold each result against the plain version
+    on the same inputs (``pair_mask``'s on the CPU), so each meets it at
+    the pipeline's shapes and data; ``shapes`` keeps every ``pair_mask``
+    call's inputs, ``seen`` counts the calls held."""
+
+    def __init__(self, errs: Errors):
+        self.errs, self.shapes, self.seen, self.undo = errs, [], {}, []
+
+    def __enter__(self):
+        from repro_torch.core import er, rhg
+        from repro_torch.kernels.pairmask.ref import pair_mask_ref
+        from repro_torch.kernels.sampler.ref import chunk_decode_ref, sample_rows_ref
+        errs, seen = self.errs, self.seen
+        mask, sample, decode = rhg.pair_mask, er.sample_rows, er.chunk_decode
+
+        def held_mask(q, c, cosh_r, *, tile):
+            out = mask(q, c, cosh_r, tile=tile)
+            errs.same("pair_mask", out.cpu(), pair_mask_ref(q.cpu(), c.cpu(), cosh_r, tile=tile),
+                      f"pair_mask {tile} at rhg_pe's [{q.shape[0]}, 8] x [{c.shape[0]}, 8]")
+            self.shapes.append((q, c, cosh_r))
+            seen["pair_mask"] = seen.get("pair_mask", 0) + 1
+            return out
+
+        def held_sample(key, universe, count, capacity):
+            out = sample(key, universe, count, capacity)
+            errs.same("chunk_sample", out, sample_rows_ref(key, universe, count, capacity),
+                      f"chunk_sample at gnm_undirected_pe's [{key.shape[0]}, {capacity}]")
+            seen["chunk_sample"] = seen.get("chunk_sample", 0) + 1
+            return out
+
+        def held_decode(vals, kind, params, count, owned):
+            out = decode(vals, kind, params, count, owned)
+            for a, b in zip(out, chunk_decode_ref(vals, kind, params, count, owned)):
+                errs.same("chunk_decode", a, b,
+                          f"chunk_decode at gnm_undirected_pe's {list(vals.shape)}")
+            seen["chunk_decode"] = seen.get("chunk_decode", 0) + 1
+            return out
+
+        for mod, name, fn in ((rhg, "pair_mask", held_mask), (er, "sample_rows", held_sample),
+                              (er, "chunk_decode", held_decode)):
+            self.undo.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.undo:
+            setattr(mod, name, fn)
+
+
+def lm_pipeline(dev, errs: Errors) -> dict:
+    """3h, part 1: ``make_global_batch`` at ``launch/train.py``'s data
+    config on the card, timed with the graphs cold; then again with every
+    ``pair_mask``, ``chunk_sample`` and ``chunk_decode`` launch held
+    against its plain version; every batch's digests against
+    ``golden/data.json`` and against the port on the CPU."""
+    from torch_golden import batch_digests
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import build
+
+    doc = json.loads((ROOT / "src" / "repro_torch" / "golden" / "data.json").read_text())
+    configs = [(pipeline.DataConfig(**e["params"]), e["step"], e) for e in doc["batches"]]
+    pipeline._local_graph.cache_clear()
+    lm_names = ("pair_mask", "chunk_sample", "chunk_decode")
+    before = {k: build.LAUNCHES[k] for k in lm_names}
+    walls = []
+    for cfg, step, _ in configs:
+        t0 = time.perf_counter()
+        pipeline.make_global_batch(cfg, step, device=dev)
+        walls.append(time.perf_counter() - t0)
+    launches = {k: build.LAUNCHES[k] - before[k] for k in lm_names}
+    print(f"  pipeline on the card, graphs cold: {len(configs)} batches in {sum(walls):.3f}s "
+          f"(" + ", ".join(f"{c.kind}/{c.num_shards} step {s} {w:.3f}s"
+                           for (c, s, _), w in zip(configs, walls)) + f"); launches "
+          f"{launches} ({card_line()})")
+
+    pipeline._local_graph.cache_clear()
+    with held_lm_kernels(errs) as held:
+        card = [pipeline.make_global_batch(cfg, step, device=dev) for cfg, step, _ in configs]
+    shapes = held.shapes
+    require(held.seen == launches, f"held run made {held.seen} calls, the timed run launched "
+            f"{launches}")
+    t0 = time.perf_counter()
+    cpu = [pipeline.make_global_batch(cfg, step, device="cpu") for cfg, step, _ in configs]
+    cpu_s = time.perf_counter() - t0
+    for (cfg, step, e), a, b in zip(configs, card, cpu):
+        want = {k: e[k] for k in ("tokens", "labels", "positions")}
+        require(batch_digests(a) == want, f"{cfg.kind}/{cfg.num_shards} step {step}: card "
+                "tokens differ from golden/data.json")
+        require(batch_digests(b) == want, f"{cfg.kind}/{cfg.num_shards} step {step}: CPU "
+                "tokens differ from golden/data.json")
+        require(list(a["tokens"].shape) == e["shape"], "batch shape")
+    big = max(shapes, key=lambda s: s[0].shape[0] * s[1].shape[0])
+    print(f"  pipeline: {len(configs)} batches' tokens, labels, positions == golden/data.json "
+          f"on the card and on the CPU ({cpu_s:.3f}s); held {held.seen}, each launch == its "
+          f"plain version (max |err| pair_mask {errs.max['pair_mask']}, chunk_sample "
+          f"{errs.max['chunk_sample']}, chunk_decode {errs.max['chunk_decode']}); shapes q rows "
+          f"{min(s[0].shape[0] for s in shapes)}..{max(s[0].shape[0] for s in shapes)}, c rows "
+          f"{min(s[1].shape[0] for s in shapes)}..{max(s[1].shape[0] for s in shapes)}, the "
+          f"largest [{big[0].shape[0]}, 8] x [{big[1].shape[0]}, 8]")
+    prompts = card[[i for i, (c, s, _) in enumerate(configs)
+                    if c.kind == "rhg_walk" and c.num_shards == 4 and s == 0][0]]["tokens"]
+    return {"prompts": prompts, "pair_mask_big": big, "pair_mask_calls": len(shapes)}
+
+
+def lm_smoke_archs(dev) -> None:
+    """3h, part 2: the ten architectures at smoke size, float32, the same
+    weights on the card and on the CPU: ``forward`` logits, ``lm_loss``,
+    and (causal ones) teacher-forced ``decode_step`` against the full
+    forward, within ``LM_TOL``."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"  ten architectures at smoke size, float32, the card against the CPU "
+          f"(tolerance {LM_TOL} of max |logit|; {card_line()}):")
+    for arch in ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_smoke_config(arch)
+        cpu = T.model_init(cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        B, S = 2, 32
+        rng = np.random.default_rng(1)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+        batch = {"positions": torch.arange(S, dtype=torch.int32).repeat(B, 1),
+                 "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))}
+        if cfg.frontend != "none":
+            batch["embeds"] = cpu["embed"]["tok"].detach()[toks.long()]
+        else:
+            batch["tokens"] = toks
+        out = {}
+        with torch.no_grad():
+            for where, p in (("cpu", cpu), ("card", card)):
+                d = p["embed"]["tok"].device
+                b = {k: v.to(d) for k, v in batch.items()}
+                h, _, _ = T.forward(p, cfg, b)
+                logits = (h @ p["embed"]["head"]).cpu()
+                loss = float(T.lm_loss(p, cfg, b)[0])
+                dec = None
+                if cfg.causal:
+                    caches = T.caches_init(cfg, B, S, torch.float32, d)
+                    steps = []
+                    for t in range(S):
+                        lg, caches = T.decode_step(p, cfg, toks[:, t:t + 1].to(d),
+                                                   b["positions"][:, t:t + 1], caches)
+                        steps.append(lg.cpu())
+                    dec = torch.cat(steps, dim=1)
+                out[where] = (logits, loss, dec)
+        (lc, sc, dc), (lg, sg, dg) = out["cpu"], out["card"]
+        scale = float(lc.abs().max())
+        err = float((lg - lc).abs().max())
+        require(torch.isfinite(lg).all() and err <= LM_TOL * scale,
+                f"{arch}: card logits differ from the CPU's by {err} (scale {scale})")
+        require(abs(sg - sc) <= LM_TOL, f"{arch}: card loss {sg} against the CPU's {sc}")
+        line = f"  {arch:<22} logits |card - cpu| {err:.3e} of {scale:.3f}, loss {sg:.6f} " \
+               f"(cpu {sc:.6f})"
+        if dc is not None:
+            derr = float((dg - dc).abs().max())
+            ferr = float((dg - lg).abs().max())
+            require(derr <= LM_TOL * scale, f"{arch}: card decode differs from the CPU's {derr}")
+            require(ferr <= (5e-3 if cfg.moe else LM_TOL) * scale,
+                    f"{arch}: card decode differs from its forward by {ferr}")
+            line += f", decode |card - cpu| {derr:.3e}, |decode - forward| {ferr:.3e}"
+        print(line + f" ({time.perf_counter() - t0:.3f}s)")
+
+
+def lm_full_width(dev, prompts, sizes: dict) -> dict:
+    """3h, part 3: Qwen3-0.6B at full width on the card: ``model_init``
+    from a seeded generator, ``generate`` in bf16 for the pipeline's
+    prompts (prefill and greedy decode timed apart, in turns), the peak
+    memory, the device's idle share under the profiler, prefill's share
+    of the bf16 peak and decode's of HBM bandwidth; then float32
+    teacher-forced decode against the full forward."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import H100
+    from repro_torch.models import transformer as T
+    from repro_torch.train import serve
+
+    c = cost()
+    cfg = get_config(LM_ARCH)
+    B, S, steps = sizes["lm_batch"], sizes["lm_prompt"], sizes["lm_steps"]
+    prompts = np.ascontiguousarray(prompts[:B, :S])
+    require(prompts.shape == (B, S), f"prompts {prompts.shape}")
+    t0 = time.perf_counter()
+    params = T.model_init(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} KV heads, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{n_params:,} float32 masters ({n_params * 4 / 2 ** 30:.3f} GiB) initialised on the "
+          f"card in {time.perf_counter() - t0:.3f}s; compute {cfg.dtype}")
+
+    t0 = time.perf_counter()
+    serve.generate(params, cfg, prompts[:, :32], 2)         # warm-up: cuBLAS handles, plans
+    print(f"  [warm-up generate {time.perf_counter() - t0:.3f}s]")
+    pre, gen = [], []
+    out = None
+    for turn in ("prefill", "generate", "generate", "prefill"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if turn == "prefill":
+            caches, logits = serve.prefill(params, cfg, torch.from_numpy(prompts), S + steps)
+            torch.cuda.synchronize()
+            pre.append(time.perf_counter() - t0)
+            del caches, logits
+        else:
+            out = serve.generate(params, cfg, prompts, steps)
+            torch.cuda.synchronize()
+            gen.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+    require(out.shape == (B, steps) and out.dtype == np.int32, f"generate gave {out.shape}")
+    require(((out >= 0) & (out < cfg.vocab)).all(), "generated tokens out of the vocabulary")
+    p_s, g_s = min(pre), min(gen)
+    step_s = (g_s - p_s) / steps
+    pc = c.lm_prefill(cfg, B, S)
+    dc = c.lm_decode(cfg, B, S + steps // 2)
+    pre_share = pc.ops / H100.ops_per_s("bf16") / p_s
+    dec_share = dc.bytes / H100.bytes_per_s / step_s
+    card = card_line()
+    print(f"  generate B={B} prompts of {S} + {steps} greedy steps, {cfg.dtype} ({card}): "
+          f"prefill {', '.join(f'{x:.6f}' for x in pre)} s ({B * S / p_s:.1f} tokens/s, "
+          f"{pc.ops / p_s / 1e12:.3f} TFLOP/s, {100 * pre_share:.3f} % of the bf16 dense peak; "
+          f"its bound {pc.bound_s() * 1e3:.6f} ms by {pc.bound_by()}); generate "
+          f"{', '.join(f'{x:.6f}' for x in gen)} s; decode {step_s * 1e3:.6f} ms a step "
+          f"({B / step_s:.1f} tokens/s; {dc.bytes / step_s / 1e9:.3f} GB/s of weights and KV "
+          f"cache, {100 * dec_share:.3f} % of HBM bandwidth; its bound "
+          f"{dc.bound_s() * 1e3:.6f} ms by {dc.bound_by()}); peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB")
+    # one decode step's aten census on the card, under sync-debug "error":
+    # the host's dispatch per step, and any op that waits for the card
+    from repro_torch.analyze import opscan
+    caches, logits = serve.prefill(params, cfg, torch.from_numpy(prompts), S + 1)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    pos1 = torch.full((B, 1), S, dtype=torch.int32, device=dev)
+    with torch.no_grad(), opscan.trace(sync_debug=True) as census:
+        T.decode_step(params, cfg, tok, pos1, caches)
+    n_ops = sum(census.values())
+    n_views = sum(n for k, n in census.items() if opscan._split(k)[0] in LM_VIEW_OPS)
+    synced = {k: n for k, n in census.items() if opscan.TAG_SYNC in opscan._split(k)[1]}
+    print(f"  one decode step: {n_ops} aten calls ({n_ops / cfg.n_layers:.1f} a layer), "
+          f"{n_views} of them views; {sum(synced.values())} that wait for the card {synced}; "
+          f"{step_s * 1e6 / n_ops:.3f} µs of the step's wall a call")
+    del caches, logits
+    t0 = time.perf_counter()
+    prof_steps = sizes["lm_profiled_steps"]
+    _, groups, wall = profiled(lambda: serve.generate(params, cfg, prompts, prof_steps),
+                               by=lm_groups, cpu=False)
+    print_breakdown(f"generate of {prof_steps} steps ({card})", groups, wall)
+    print(f"  [profiled run and its reading {time.perf_counter() - t0:.3f}s]")
+
+    # float32 at the same width: teacher-forced decode of the last
+    # positions against the full forward's logits on the same masters
+    f32 = cfg.replace(dtype="float32")
+    K = sizes["lm_check_steps"]
+    S0 = S - K
+    toks = torch.from_numpy(prompts).to(dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h, _, _ = T.forward(params, f32, {"tokens": toks, "positions": pos})
+        full = (h[:, S0 - 1:] @ params["embed"]["head"]).float()
+        del h
+        caches, last = serve.prefill(params, f32, toks[:, :S0], S)
+        dec = [last[:, None]]
+        for t in range(S0, S):
+            lg, caches = T.decode_step(params, f32, toks[:, t:t + 1], pos[:, t:t + 1], caches)
+            dec.append(lg)
+        dec = torch.cat(dec, dim=1).float()
+        _, last16 = serve.prefill(params, cfg, toks, S)
+    scale = float(full.abs().max())
+    err = float((dec - full).abs().max())
+    require(torch.isfinite(dec).all() and err <= LM_DECODE_TOL * scale,
+            f"float32 teacher-forced decode differs from the forward by {err} (scale {scale})")
+    require(last16.dtype == torch.bfloat16, f"bf16 prefill gave {last16.dtype} logits")
+    want = full[:, -1]
+    err16 = float((last16.float() - want).abs().max())
+    scale16 = float(want.abs().max())
+    same_top = int((last16.float().argmax(-1) == want.argmax(-1)).sum())
+    require(torch.isfinite(last16).all() and err16 <= LM_BF16_TOL * scale16,
+            f"bf16 prefill logits differ from the float32 forward's by {err16} (scale {scale16})")
+    print(f"  bf16 prefill against the float32 forward on the same masters, position {S - 1}: "
+          f"max |err| {err16:.3e} of {scale16:.3f} ({err16 / scale16:.3e} of it; tolerance "
+          f"{LM_BF16_TOL}), the same top token in {same_top} of {B} rows")
+    print(f"  float32 at full width: prefill {S0} + {K} teacher-forced decode steps against "
+          f"the full forward's logits at positions {S0 - 1}..{S - 1}: max |err| {err:.3e} of "
+          f"{scale:.3f} (tolerance {LM_DECODE_TOL} of it; {time.perf_counter() - t0:.3f}s, "
+          f"{card})")
+    del params, caches, full, dec, last16
+    torch.cuda.empty_cache()
+    return {"prefill_s": p_s, "step_s": step_s}
+
+
+def phase_lm(dev, sizes: dict) -> dict:
+    """Phase 3h: the LM stack's serving path (``--only lm``): the data
+    pipeline on the card, the ten architectures at smoke size against the
+    CPU, and Qwen3-0.6B at full width served in bf16."""
+    errs = Errors()
+    t0 = time.perf_counter()
+    out = lm_pipeline(dev, errs)
+    print(f"  [3h pipeline {time.perf_counter() - t0:.3f}s]", flush=True)
+    t1 = time.perf_counter()
+    lm_smoke_archs(dev)
+    print(f"  [3h smoke architectures {time.perf_counter() - t1:.3f}s]", flush=True)
+    t1 = time.perf_counter()
+    out.update(lm_full_width(dev, out["prompts"], sizes))
+    print(f"  [3h full width {time.perf_counter() - t1:.3f}s]", flush=True)
+    out["errs"] = errs
+    return out
+
+
+def lm_timing(dev, out: dict, errs: Errors) -> list:
+    """Phase 4 of 3h: ``pair_mask``'s hyp tile at ``rhg_pe``'s largest
+    call, beside its plain version and its bound."""
+    from repro_torch.kernels.pairmask.ops import pair_mask
+    from repro_torch.kernels.pairmask.ref import pair_mask_ref
+
+    for k in ("pair_mask", "chunk_sample", "chunk_decode"):
+        errs.max[k] = max(errs.max[k], out["errs"].max[k])
+    q, c, cosh_r = out["pair_mask_big"]
+    res, ms, med = timed(lambda: pair_mask(q, c, cosh_r, tile="hyp"), reps=50,
+                         label="pair_mask hyp, rhg_pe's largest call")
+    ref, plain_ms = sync_time(lambda: pair_mask_ref(q, c, cosh_r, tile="hyp"), reps=5)
+    errs.same("pair_mask", res, ref, "pair_mask hyp at rhg_pe's largest call")
+    dev_ms = graph_ms_per_call(lambda: pair_mask(q, c, cosh_r, tile="hyp"), 50)
+    bytes_s, ops_s = bound_terms(cost().pair_mask_hyp(q.numel(), c.numel(), res.numel()))
+    bound = max(bytes_s, ops_s) * 1e3
+    print(f"  pair_mask shape: hyp [{q.shape[0]}, 8] x [{c.shape[0]}, 8] float64 (rhg_pe's "
+          f"largest of {out['pair_mask_calls']} calls); median {med:.6f} ms (mean {ms:.6f}; "
+          f"device {dev_ms:.6f} ms a call, graph replay), plain {plain_ms:.6f} ms, bound "
+          f"{bound:.6f} ms ({'bytes' if bytes_s >= ops_s else 'operations'}): "
+          f"{dev_ms / bound:.2f}x the bound by device time")
+    return [("pair_mask", "src/repro_torch/kernels/pairmask/csrc/pairmask.cu",
+             "src/repro/kernels/pairmask/pairmask.py:56", ms, med, plain_ms, bytes_s, ops_s,
+             None, f"hyp tile at rhg_pe's largest call on path 3h, [{q.shape[0]}, 8] x "
+                   f"[{c.shape[0]}, 8] float64")]
+
+
+OFF_PATH = {"pair_mask": "euclid tile at its own contract's shape (the oracles' 128-row cell "
+                         "blocks): the engine runs its tiles inside pair_edges; the hyp tile "
+                         "is launched on path 3h by rhg_pe, the LM pipeline's graph (its row "
+                         "below)"}
 
 
 def kernel_lines(rows: list, errs: Errors, launches: dict) -> list:
@@ -2863,7 +3261,9 @@ FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 
         "rmat_log_n": 26, "rmat_m": 1 << 30, "ba_n": 1 << 25, "sbm_n": 1 << 24,
         "sbm_blocks": 16, "sbm_p": (2.0 ** -17, 2.0 ** -21),
         "serve_n": 1 << 22, "serve_m": 1 << 26, "serve_rhg_n": 1 << 20, "serve_rdg_n": 1 << 18,
-        "serve_slab_bytes": 1 << 30}
+        "serve_slab_bytes": 1 << 30,
+        "lm_batch": 8, "lm_prompt": 256, "lm_steps": 64, "lm_check_steps": 16,
+        "lm_profiled_steps": 16}
 ER_KERNELS = ("chunk_sample", "chunk_decode", "hist")
 GEOM_KERNELS = ("pair_edges", "cell_points", "hist")
 RDG_KERNELS = ("triangulate", "circumspheres", "pair_edges", "cell_points")
@@ -2872,6 +3272,8 @@ FAMILY_KERNELS = ("chunk_rmat", "chunk_ba", "close_wedges", "hist", "chunk_sampl
 STATS_KERNELS = ("hist", "chunk_sample", "chunk_decode", "pair_edges", "triangulate")
 SERVE_KERNELS = ("hist", "chunk_sample", "chunk_decode", "chunk_ba", "chunk_rmat", "pair_edges",
                  "triangulate")
+# rhg_pe tests adjacency with pair_mask, gnm_undirected_pe samples and decodes
+LM_KERNELS = ("pair_mask", "chunk_sample", "chunk_decode")
 # the kernels the registry launches on the card (RDG's planning and the
 # kernel cases among them)
 ANALYZE_KERNELS = ("chunk_sample", "chunk_decode", "chunk_ba", "chunk_rmat", "pair_edges",
@@ -2884,7 +3286,8 @@ PATHS = {"er": ("3a Erdős–Rényi", phase_main, ER_KERNELS, phase_timing),
          "families": ("3d families", phase_families, FAMILY_KERNELS, families_timing),
          "stats": ("3e validation and overlap", phase_stats, STATS_KERNELS, stats_timing),
          "serve": ("3f serve", phase_serve, SERVE_KERNELS, serve_timing),
-         "analyze": ("3g contract checking", phase_analyze, ANALYZE_KERNELS, analyze_timing)}
+         "analyze": ("3g contract checking", phase_analyze, ANALYZE_KERNELS, analyze_timing),
+         "lm": ("3h LM serving", phase_lm, LM_KERNELS, lm_timing)}
 
 
 def main(argv=None) -> int:

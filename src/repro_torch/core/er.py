@@ -26,8 +26,12 @@ from ..distrib.engine import (
     chunk_plan_from_columns,
     reseedable_chunk_plan,
 )
-from .chunking import directed_split_tree, tri_size, undirected_split_tree
+from ..kernels.build import resolve_device
+from ..kernels.sampler.ops import chunk_decode
+from .chunking import (Chunk, directed_split_tree, tri_size, undirected_chunks_for_pe,
+                       undirected_split_tree)
 from .prng import THREEFRY, PhiloxReplayer, device_key, fold_in, fold_in_many, hash_paths
+from .sampling import key_bits32, round_up_capacity, sample_rows
 from .variates import binomial
 
 _CHUNK_TAG = 11  # mixed into per-chunk hashes
@@ -186,6 +190,52 @@ def gnp_undirected_plan(seed: int, n: int, p: float, P: int, rng_impl: str = THR
         return _cross_plan(
             seed, n, lay, lambda s: _gnp_counts(s, lay.I, lay.J, lay.universe, p),
             P, rng_impl)
+
+
+# --------------------------------------------------------------------------
+# per-PE undirected G(n,m): every edge incident to a PE's vertex range
+# --------------------------------------------------------------------------
+
+def _chunk_key(seed: int, ch: Chunk) -> torch.Tensor:
+    return device_key(seed, _CHUNK_TAG, ch.row_sec, ch.col_sec)
+
+
+def _gen_chunks(seed: int, n: int, chunks: List[Tuple[Chunk, int]], device) -> np.ndarray:
+    """The edges of a list of (chunk, count), batched by kind: all tri
+    chunks, then all rect chunks, each batch one ``sample_rows`` call and
+    one ``chunk_decode`` call on ``device`` at the capacity of its largest
+    count."""
+    if not chunks:
+        return np.zeros((0, 2), dtype=np.int64)
+    out = []
+    for kind, code in (("tri", KIND_TRI), ("rect", KIND_RECT)):
+        sel = [(ch, c) for ch, c in chunks if ch.kind == kind]
+        if not sel:
+            continue
+        cap = round_up_capacity(max(c for _, c in sel))
+        keys = key_bits32(torch.stack([_chunk_key(seed, ch) for ch, _ in sel]))  # repro: allow(no-per-chunk-host-loop) per-PE oracle, as the reference's _gen_chunks
+        universe = torch.tensor([ch.universe for ch, _ in sel], dtype=torch.int64)
+        count = torch.tensor([c for _, c in sel], dtype=torch.int64)
+        params = torch.tensor([[ch.rlo, 0, 0] if kind == "tri"
+                               else [ch.chi - ch.clo, ch.rlo, ch.clo] for ch, _ in sel],
+                              dtype=torch.int64)
+        R = len(sel)
+        keys, universe, count, params = (t.to(device) for t in (keys, universe, count, params))
+        vals = sample_rows(keys, universe, count, cap)
+        edges, keep = chunk_decode(vals, torch.full((R,), code, dtype=torch.int32, device=device),
+                                   params, count, torch.ones(R, dtype=torch.bool, device=device))
+        out.append(edges[keep].cpu().numpy())
+    return np.concatenate(out, axis=0)
+
+
+def gnm_undirected_pe(seed: int, n: int, m: int, P: int, pe: int, device=None) -> np.ndarray:
+    """All edges incident to PE ``pe``'s vertex range, as (u, v) with
+    u > v (``repro.core.er.gnm_undirected_pe``).  Includes the redundantly
+    recomputed cross-chunk edges (the paper's 2m recomputation bound):
+    every edge appears on both endpoint PEs.  Runs on ``device`` (CUDA
+    unless the caller passes ``"cpu"``)."""
+    chunks = undirected_chunks_for_pe(seed, n, m, P, pe)
+    return _gen_chunks(seed, n, chunks, resolve_device(device))
 
 
 def expected_gnm_universe(n: int, directed: bool) -> int:

@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -24,10 +24,14 @@ import torch
 from .. import obs
 from ..distrib.engine import (GEOM_HYP, POINTS_POLAR, make_point_plan,
                               pair_plan_from_columns)
+from ..kernels.build import resolve_device
+from ..kernels.hypdist.ops import pad_features, precompute_features
+from ..kernels.pairmask.ops import pair_mask
 from .prng import THREEFRY, PhiloxReplayer, device_key, fold_in, fold_in_many, hash_paths, host_rng
 from .variates import binomial, multinomial_split
 
 _TAG_ANN = 31
+_TAG_CELLS, _TAG_V = 32, 33  # per-PE cell layout of rhg_pe (the data pipeline's graph)
 _TAG_V_ENG = 35       # device vertex stream of the engine cell layout
 _TAG_CELLS_ENG = 36   # range-recursion streams of the engine cell layout
 _CELL_OCC = 8         # expected vertices per cell (paper's tuning constant)
@@ -91,6 +95,13 @@ def _cdf(params: RHGParams, r: float) -> float:
     """mu(B_r(0)) = (cosh(alpha r) - 1)/(cosh(alpha R) - 1)  (Eq. A.2)."""
     a = params.alpha
     return (math.cosh(a * r) - 1.0) / (math.cosh(a * params.R) - 1.0)
+
+
+def _inv_cdf_interval(params: RHGParams, lo: float, hi: float, u: np.ndarray) -> np.ndarray:
+    """Inverse radial CDF restricted to [lo, hi)."""
+    a = params.alpha
+    clo, chi = np.cosh(a * lo), np.cosh(a * hi)
+    return np.arccosh(clo + u * (chi - clo)) / a
 
 
 def annuli_boundaries(params: RHGParams) -> np.ndarray:
@@ -315,3 +326,233 @@ def _pair_codes(t: RhgEngineTable, R: float) -> np.ndarray:
     keep = np.ones(len(allc), bool)
     keep[1:] = allc[1:] != allc[:-1]
     return allc[keep]
+
+
+# --------------------------------------------------------------------------
+# per-PE generation over the P-dependent cell layout (``rhg_pe``), the
+# graph of the LM data pipeline
+# --------------------------------------------------------------------------
+
+class RangeCounter:
+    """1-D hashed binomial recursion over [0, units): per-cell counts and
+    recursion-order (== angular-order) vertex-id offsets."""
+
+    def __init__(self, seed: int, tag: int, annulus: int, units: int, total: int):
+        self.seed, self.tag, self.annulus, self.units = seed, tag, annulus, units
+        self._memo: Dict[Tuple[int, int], int] = {(0, units): total}
+
+    def _children(self, lo: int, hi: int) -> Tuple[int, int]:
+        mid = (lo + hi) // 2
+        key_l = (lo, mid)
+        if key_l not in self._memo:
+            cp = self.count(lo, hi)
+            rng = host_rng(self.seed, self.tag, self.annulus, lo, hi)
+            cl = binomial(rng, cp, (mid - lo) / (hi - lo))
+            self._memo[key_l] = cl
+            self._memo[(mid, hi)] = cp - cl
+        return self._memo[key_l], self._memo[(mid, hi)]
+
+    def count(self, lo: int, hi: int) -> int:
+        if (lo, hi) in self._memo:
+            return self._memo[(lo, hi)]
+        # descend from the smallest memoized ancestor
+        clo, chi = 0, self.units
+        while (clo, chi) != (lo, hi):
+            mid = (clo + chi) // 2
+            self._children(clo, chi)
+            if hi <= mid:
+                chi = mid
+            elif lo >= mid:
+                clo = mid
+            else:
+                raise AssertionError("query range must align with recursion")
+        return self._memo[(lo, hi)]
+
+    def cell_count(self, i: int) -> int:
+        return self.count(i, i + 1)
+
+    def cell_offset(self, i: int) -> int:
+        clo, chi, off = 0, self.units, 0
+        while chi - clo > 1:
+            mid = (clo + chi) // 2
+            left, _ = self._children(clo, chi)
+            if i < mid:
+                chi = mid
+            else:
+                off += left
+                clo = mid
+        return off
+
+
+@dataclass
+class _Annulus:
+    idx: int
+    lo: float
+    hi: float
+    count: int
+    cells: int          # U_b, a multiple of P
+    counter: RangeCounter
+    gid0: int           # global id offset of this annulus
+
+    @property
+    def cell_width(self) -> float:
+        return 2.0 * math.pi / self.cells
+
+
+class RHGPlan:
+    """Shared deterministic plan: every PE derives the identical one."""
+
+    def __init__(self, params: RHGParams, P: int):
+        self.params, self.P = params, P
+        self.n_core, ann_counts, self.bounds = region_counts(params)
+        self.annuli: List[_Annulus] = []
+        gid = self.n_core
+        for b, cnt in enumerate(ann_counts):
+            cells = P * max(1, int(cnt) // (_CELL_OCC * P))
+            ctr = RangeCounter(params.seed, _TAG_CELLS, b, cells, int(cnt))
+            self.annuli.append(
+                _Annulus(b, float(self.bounds[b]), float(self.bounds[b + 1]),
+                         int(cnt), cells, ctr, gid)
+            )
+            gid += int(cnt)
+
+    def core_vertices(self) -> Tuple[np.ndarray, np.ndarray]:
+        rng = host_rng(self.params.seed, _TAG_V, -1, 0)
+        u = rng.random(self.n_core)
+        theta = rng.random(self.n_core) * 2.0 * math.pi
+        r = _inv_cdf_interval(self.params, 0.0, self.params.R / 2.0, u)
+        return r, theta
+
+    def cell_vertices(self, b: int, cell: int) -> Tuple[np.ndarray, np.ndarray, int]:
+        """(radii, angles, gid0) of one cell, identical from any PE."""
+        ann = self.annuli[b]
+        cnt = ann.counter.cell_count(cell)
+        rng = host_rng(self.params.seed, _TAG_V, b, cell)
+        u = rng.random(cnt)
+        theta = (cell + rng.random(cnt)) * ann.cell_width
+        r = _inv_cdf_interval(self.params, ann.lo, ann.hi, u)
+        return r, theta, ann.gid0 + ann.counter.cell_offset(cell)
+
+
+def _adjacency(q_feat: np.ndarray, c_feat: np.ndarray, cosh_r: float,
+               device: torch.device) -> np.ndarray:
+    """bool ``[len(q_feat), len(c_feat)]`` edge mask: both feature sets
+    padded to 128-row blocks and tested by the ``hyp`` tile of
+    ``pair_mask`` on ``device`` (the kernel on the card, its plain
+    version on the CPU), the mask read back to the host."""
+    qp = torch.from_numpy(pad_features(q_feat)).to(device)
+    cp = torch.from_numpy(pad_features(c_feat)).to(device)
+    mask = pair_mask(qp, cp, cosh_r, tile="hyp").cpu().numpy()
+    return mask[: len(q_feat), : len(c_feat)].astype(bool)
+
+
+def rhg_pe(params: RHGParams, P: int, pe: int, batch: int = 512, device=None
+           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """All edges incident to PE ``pe``'s vertices, communication-free
+    (``repro.core.rhg.rhg_pe``): (edges [k, 2] with u > v, sorted and
+    unique; local gids, radii, angles).  The adjacency tests run on
+    ``device`` (CUDA unless the caller passes ``"cpu"``)."""
+    dev = resolve_device(device)
+    plan = RHGPlan(params, P)
+    R, coshR = params.R, cosh_threshold(params.R)
+    chunk_lo, chunk_hi = pe * 2 * math.pi / P, (pe + 1) * 2 * math.pi / P
+
+    # ---- core (recomputed redundantly on every PE, paper §7.1) ----------
+    core_r, core_theta = plan.core_vertices()
+    core_feat = precompute_features(core_r, core_theta)
+    core_gids = np.arange(plan.n_core)
+    core_local = (core_theta >= chunk_lo) & (core_theta < chunk_hi)
+
+    # ---- local vertices per annulus -------------------------------------
+    local: Dict[int, Tuple[np.ndarray, ...]] = {}
+    for ann in plan.annuli:
+        cpc = ann.cells // P
+        rs, ts, gs = [], [], []
+        for cell in range(pe * cpc, (pe + 1) * cpc):
+            r, t, g0 = plan.cell_vertices(ann.idx, cell)
+            rs.append(r), ts.append(t), gs.append(g0 + np.arange(len(r)))
+        r = np.concatenate(rs) if rs else np.zeros(0)
+        t = np.concatenate(ts) if ts else np.zeros(0)
+        g = np.concatenate(gs) if gs else np.zeros(0, np.int64)
+        local[ann.idx] = (r, t, g)
+
+    edges_u: List[np.ndarray] = []
+    edges_v: List[np.ndarray] = []
+
+    def emit(mask: np.ndarray, qg: np.ndarray, cg: np.ndarray):
+        ii, jj = np.nonzero(mask)
+        if len(ii):
+            u, v = qg[ii], cg[jj]
+            keep = u != v
+            edges_u.append(u[keep])
+            edges_v.append(v[keep])
+
+    # ---- core-core: a clique by the triangle inequality, checked through
+    # the same Eq. 9 path so float rounding never disagrees across PEs
+    if plan.n_core > 1 and core_local.any():
+        m = _adjacency(core_feat[core_local], core_feat, coshR, dev)
+        emit(m, core_gids[core_local], core_gids)
+
+    # ---- queries: local vertices (incl. owned core) vs every region ----
+    query_sets = [(core_r[core_local], core_theta[core_local], core_gids[core_local])]
+    query_sets += [local[a] for a in local]
+
+    # cache of regenerated remote cells per annulus
+    cell_cache: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray, int]] = {}
+
+    def get_cell(b: int, cell: int):
+        key = (b, cell)
+        if key not in cell_cache:
+            cell_cache[key] = plan.cell_vertices(b, cell)
+        return cell_cache[key]
+
+    for (qr, qt, qg) in query_sets:
+        if len(qr) == 0:
+            continue
+        q_feat_all = precompute_features(qr, qt)
+
+        # vs core candidates (inward query; no window needed: the core is tiny)
+        if plan.n_core > 0:
+            for s in range(0, len(qr), batch):
+                sl = slice(s, s + batch)
+                emit(_adjacency(q_feat_all[sl], core_feat, coshR, dev), qg[sl], core_gids)
+
+        # vs each annulus (inward + outward unified)
+        for ann in plan.annuli:
+            if ann.count == 0:
+                continue
+            dth = delta_theta(qr, ann.lo, R)
+            w = ann.cell_width
+            lo_cell = np.floor((qt - dth) / w).astype(np.int64)
+            hi_cell = np.floor((qt + dth) / w).astype(np.int64)
+            span = np.minimum(hi_cell - lo_cell + 1, ann.cells)
+            for s in range(0, len(qr), batch):
+                sl = slice(s, s + batch)
+                cand_feats, cand_gids = [], []
+                # candidate cells of this batch, each once, in first-seen order
+                needed = {}
+                for qi in range(*sl.indices(len(qr))):
+                    for j in range(int(span[qi])):
+                        needed[(lo_cell[qi] + j) % ann.cells] = True
+                for c in needed:
+                    r, t, g0 = get_cell(ann.idx, int(c))
+                    if len(r):
+                        cand_feats.append(precompute_features(r, t))
+                        cand_gids.append(g0 + np.arange(len(r)))
+                if not cand_feats:
+                    continue
+                emit(_adjacency(q_feat_all[sl], np.concatenate(cand_feats), coshR, dev),
+                     qg[sl], np.concatenate(cand_gids))
+
+    if edges_u:
+        e = np.stack([np.concatenate(edges_u), np.concatenate(edges_v)], axis=1)
+        u = np.maximum(e[:, 0], e[:, 1])
+        v = np.minimum(e[:, 0], e[:, 1])
+        e = np.unique(np.stack([u, v], axis=1), axis=0)  # repro: allow(no-numpy-unique) per-PE union, as the reference's rhg_pe
+    else:
+        e = np.zeros((0, 2), dtype=np.int64)
+
+    lg = [core_gids[core_local]] + [local[a][2] for a in local]
+    lr = [core_r[core_local]] + [local[a][0] for a in local]
+    lt = [core_theta[core_local]] + [local[a][1] for a in local]
+    return e, np.concatenate(lg), np.concatenate(lr), np.concatenate(lt)

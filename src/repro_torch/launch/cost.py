@@ -106,6 +106,13 @@ def pair_mask(a_elems: int, b_elems: int, out_elems: int) -> Cost:
     return Cost((a_elems + b_elems) * 4 + out_elems, out_elems * 6, "fp32")
 
 
+def pair_mask_hyp(a_elems: int, b_elems: int, out_elems: int) -> Cost:
+    """The hyp tile over ``[B, M, N]``: the float64 feature rows read
+    once, an int8 mask written; 6 float64 operations a pair (two
+    products, three FMAs, the compare)."""
+    return Cost((a_elems + b_elems) * 8 + out_elems, out_elems * 6, "fp64")
+
+
 def pair_edges(in_bytes: int, rows: int, capacity: int,
                points: Optional[int] = None) -> Cost:
     """Candidate-pair rows: the row tables read once (``in_bytes``), an
@@ -176,6 +183,57 @@ def close_wedges_pr16(mask_bytes: int, valid: int, samples: int, width: int,
     steps = math.ceil(math.log2(width + 1)) + 1
     return Cost(mask_bytes + valid * 16 + samples * width * 8 + samples * 8,
                 live * valid * 2 * steps * 4)
+
+
+# --------------------------------------------------------------------------
+# the LM
+# --------------------------------------------------------------------------
+
+def lm_matmul_params(cfg) -> int:
+    """Parameters a token multiplies through in the layers: the active
+    parameters (``ArchConfig.active_param_count``) less the embedding
+    table (a lookup), the head (counted apart: prefill takes logits at
+    the last position only) and the norm scales (two a layer)."""
+    return cfg.active_param_count() - 2 * cfg.vocab * cfg.d_model \
+        - 2 * cfg.d_model * cfg.n_layers
+
+
+_BF16 = 2  # bytes of a bfloat16 element: the LM's costs count bf16 weights and operations
+
+
+def _attn_layers(cfg) -> int:
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+def lm_prefill(cfg, batch: int, seq: int) -> Cost:
+    """A prefill of ``batch`` prompts of ``seq`` tokens: 2 flops a matmul
+    parameter a token, the head at each prompt's last position, and per
+    attention layer the scores and the weighted values,
+    ``4 B S^2 H hd`` halved by the causal mask; bytes: the bf16 weights
+    and the prompts' embeddings read once, the KV cache written once.
+    bfloat16 operations."""
+    T = batch * seq
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    flops = (2 * lm_matmul_params(cfg) * T + 2 * cfg.d_model * cfg.vocab * batch
+             + _attn_layers(cfg) * 2 * batch * seq * seq * H * hd)
+    weights = (lm_matmul_params(cfg) + cfg.d_model * cfg.vocab) * _BF16
+    kv = _attn_layers(cfg) * 2 * T * KV * hd * _BF16
+    return Cost(weights + kv + T * cfg.d_model * _BF16, flops, "bf16")
+
+
+def lm_decode(cfg, batch: int, context: int) -> Cost:
+    """One greedy decode step of ``batch`` sequences whose new token
+    attends to ``context`` positions: bytes, the bf16 weights (the
+    layers' and the head) and the KV cache read once a step
+    (``2 B context KV hd`` elements an attention layer); flops, 2 a
+    matmul parameter and ``4 context H hd`` a layer, a sequence.
+    bfloat16 operations."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    weights = (lm_matmul_params(cfg) + cfg.d_model * cfg.vocab) * _BF16
+    kv = _attn_layers(cfg) * 2 * batch * context * KV * hd * _BF16
+    flops = batch * (2 * lm_matmul_params(cfg) + 2 * cfg.d_model * cfg.vocab
+                     + _attn_layers(cfg) * 4 * context * H * hd)
+    return Cost(weights + kv, flops, "bf16")
 
 
 # --------------------------------------------------------------------------

@@ -12,7 +12,8 @@ The reference's peaks are per-backend calibration knobs; the port's are
 the H100 SXM's published rates (:data:`H100`), the ones ``chip_smoke.py``
 states its bounds against.  The kernels' operations are integer
 (Threefry), float32 (the pairmask tile) or float64 (the Delaunay
-predicates), each against its own peak.
+predicates), each against its own peak; the LM's matmuls are bfloat16,
+against the tensor cores' dense rate.
 
 The reference's dry-run table CLI aggregates the LM's dry runs and is
 not ported with it.
@@ -36,12 +37,13 @@ class Peaks:
     bytes_per_s: float
     int32_ops_per_s: Optional[float] = None
     fp64_flops_per_s: Optional[float] = None
+    bf16_flops_per_s: Optional[float] = None
 
     def ops_per_s(self, kind: str = "fp32") -> float:
-        """The peak rate of operations of ``kind``: ``"int32"``, ``"fp32"``
-        or ``"fp64"``."""
+        """The peak rate of operations of ``kind``: ``"int32"``, ``"fp32"``,
+        ``"fp64"`` or ``"bf16"`` (dense tensor-core matmuls)."""
         rate = {"fp32": self.flops_per_s, "int32": self.int32_ops_per_s,
-                "fp64": self.fp64_flops_per_s}[kind]
+                "fp64": self.fp64_flops_per_s, "bf16": self.bf16_flops_per_s}[kind]
         return self.flops_per_s if rate is None else rate
 
 
@@ -52,10 +54,12 @@ class Peaks:
 # Threefry blocks at 1.2x the 64-lane rate on the card); float32 outside
 # the tensor cores; float64 = 132 SMs x 64 FP64 lanes x 2 (an FMA) x
 # 1.98 GHz (the Delaunay predicates are scalar float64 FMA chains whose
-# rounding the tensor cores do not reproduce)
+# rounding the tensor cores do not reproduce); bfloat16 = the dense
+# (no sparsity) tensor-core rate, the LM's matmuls
 H100 = Peaks(flops_per_s=67e12, bytes_per_s=3.35e12,
              int32_ops_per_s=132 * 128 * 1.98e9,
-             fp64_flops_per_s=132 * 64 * 2 * 1.98e9)
+             fp64_flops_per_s=132 * 64 * 2 * 1.98e9,
+             bf16_flops_per_s=989e12)
 
 
 def default_peaks() -> Peaks:

@@ -5,6 +5,8 @@ skips when there is none (CUDA kernels have no CPU mode).  Every
 comparison is exact (``torch.equal``).  Run on a machine with an H100 and
 ``nvcc``: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -788,3 +790,78 @@ def test_serve_fault_reissue_and_overlap_on_the_card(cuda):
     want = list(api.iter_edge_chunks(sbm, 8, device=cuda))
     assert [c.pe for c in got] == [c.pe for c in want]
     assert all(torch.equal(a.edges(), b.edges()) for a, b in zip(got, want))
+
+
+# ------------------------------------------------------------ the LM stack
+
+def test_rhg_pe_pair_mask_launches_match_plain(cuda, monkeypatch):
+    """``rhg_pe`` on the card (the data pipeline's graph): every
+    ``pair_mask`` launch, at its own shapes (128-row blocks of hyp
+    features), equals the plain version, and the edges equal the CPU's."""
+    from repro_torch.core import rhg
+
+    real, seen = rhg.pair_mask, []
+
+    def held(q, c, cosh_r, *, tile):
+        out = real(q, c, cosh_r, tile=tile)
+        assert torch.equal(out.cpu(), pair_mask_ref(q.cpu(), c.cpu(), cosh_r, tile=tile))
+        seen.append(tuple(q.shape) + tuple(c.shape))
+        return out
+
+    monkeypatch.setattr(rhg, "pair_mask", held)
+    params = rhg.RHGParams(4096, 16.0, 2.6, 11)
+    before = build.LAUNCHES["pair_mask"]
+    got = rhg.rhg_pe(params, 4, 1, device=cuda)
+    assert build.LAUNCHES["pair_mask"] - before == len(seen) > 0
+    monkeypatch.setattr(rhg, "pair_mask", real)
+    want = rhg.rhg_pe(params, 4, 1, device="cpu")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_pipeline_batches_on_the_card_equal_cpu(cuda):
+    from repro_torch.data import pipeline
+
+    for kind in ("rhg_walk", "er_walk"):
+        cfg = pipeline.DataConfig(kind=kind, n_vertices=4096, seq_len=128, num_shards=2, seed=4)
+        a = pipeline.make_global_batch(cfg, 1, device=cuda)
+        b = pipeline.make_global_batch(cfg, 1, device="cpu")
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0p6b", "mixtral_8x7b", "deepseek_v2_lite_16b",
+                                  "jamba_v0_1_52b", "gemma3_27b"])
+def test_smoke_models_on_the_card_match_cpu(cuda, arch):
+    """float32 on the card against the CPU on the same weights: logits
+    within 1e-4 x max |logit| (cuBLAS and ATen's CPU matmuls sum in
+    different orders; TF32 is off), the loss within 1e-4, and the first
+    greedy token equal (its top-2 gap on the CPU is asserted to exceed
+    1e-3 x max |logit|)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    cpu = T.model_init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks), "positions": torch.arange(24).repeat(2, 1),
+             "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
+    with torch.no_grad():
+        h, _, _ = T.forward(cpu, cfg, batch)
+        hc, _, _ = T.forward(card, cfg, {k: v.to(cuda) for k, v in batch.items()})
+        loss = float(T.lm_loss(cpu, cfg, batch)[0])
+        loss_c = float(T.lm_loss(card, cfg, {k: v.to(cuda) for k, v in batch.items()})[0])
+    scale = float(h.abs().max())
+    assert float((hc.cpu() - h).abs().max()) <= 1e-4 * scale
+    assert abs(loss - loss_c) <= 1e-4
+    with torch.no_grad():
+        caches, first = serve.prefill(cpu, cfg, torch.from_numpy(toks[:, :8]), 8)
+    top = torch.topk(first, 2, dim=-1).values
+    assert float((top[:, 0] - top[:, 1]).min()) > 1e-3 * float(first.abs().max())
+    np.testing.assert_array_equal(serve.generate(card, cfg, toks[:, :8], 1),
+                                  serve.generate(cpu, cfg, toks[:, :8], 1))
+

@@ -7,7 +7,8 @@ digests, ``iter_points`` digests and a sample of RHG features;
 ``rdg.json`` the RDG edge, plan-table and point digests and each spec's
 planning path; ``families.json`` the BA, R-MAT and SBM edge digests and
 two sampled clustering reports; ``stats.json`` six ``validate`` reports
-(floats as hex, compared exactly).  The JAX
+(floats as hex, compared exactly); ``data.json`` the LM data pipeline's
+batch digests (tokens, labels, positions).  The JAX
 package must still reproduce every entry except the mid-size ones (the
 command is in the files), and the port on the CPU must reproduce the
 small ones.  Digests, integers and the port's RHG features are compared
@@ -224,3 +225,36 @@ def test_reference_and_port_reproduce_validate_report(entry):
     got = {"params": entry["params"], "kwargs": entry["kwargs"], "size": "small",
            **torch_golden.report_entry(rep)}
     assert got == entry
+
+
+DATA = json.loads(torch_golden.DATA.read_text())
+
+
+def _data_id(e):
+    p = e["params"]
+    return f"{p['kind']}-shards{p['num_shards']}-step{e['step']}"
+
+
+def test_the_data_file_names_its_command_and_entries():
+    assert DATA["command"] == torch_golden.COMMAND
+    assert [(e["params"], e["step"]) for e in DATA["batches"]] == [
+        (p, s) for p, steps in torch_golden.DATA_CONFIGS for s in steps]
+    for e in DATA["batches"]:
+        p = e["params"]
+        assert e["shape"] == [p["batch_per_shard"] * p["num_shards"], p["seq_len"]]
+
+
+@pytest.mark.parametrize("entry", DATA["batches"], ids=_data_id)
+def test_reference_reproduces_data_digest(entry):
+    assert torch_golden.data_entry(entry["params"], entry["step"]) == entry
+
+
+@pytest.mark.parametrize("entry", DATA["batches"], ids=_data_id)
+def test_port_reproduces_data_digest_on_cpu(entry):
+    from repro_torch.data import pipeline
+
+    batch = pipeline.make_global_batch(pipeline.DataConfig(**entry["params"]), entry["step"],
+                                       device="cpu")
+    assert list(batch["tokens"].shape) == entry["shape"]
+    assert torch_golden.batch_digests(batch) == {k: entry[k] for k in
+                                                 ("tokens", "labels", "positions")}

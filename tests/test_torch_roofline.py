@@ -128,3 +128,41 @@ def test_launch_cost_of_a_traced_program():
     assert got == cost.chunk_rmat(R, plan.capacity, 6)
     with pytest.raises(KeyError):
         cost.launch_cost("no_such_kernel", (torch.zeros(1),), {})
+
+
+def test_lm_costs_against_hand_counts():
+    """Prefill and decode of qwen3-0.6b's smoke config (4 layers, d 64,
+    4 heads of 16, 2 KV heads, d_ff 128, vocab 256) counted by hand."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config("qwen3_0p6b")
+    per_layer = 64 * 64 + 2 * 64 * 32 + 64 * 64 + 3 * 64 * 128
+    mm = sum(p.numel() for p in T.param_shapes(cfg)["layers"].parameters() if p.dim() >= 2)
+    assert cost.lm_matmul_params(cfg) == mm == 4 * per_layer
+    B, S = 2, 8
+    c = cost.lm_prefill(cfg, B, S)
+    # 2 flops a weight a token, the head at the last positions, and per
+    # layer Q K^T and P V (2 B S^2 H hd each) halved by the causal mask
+    assert c.ops == 2 * mm * B * S + 2 * 64 * 256 * B + 4 * (4 * B * S * S * 4 * 16) // 2
+    # bf16 weights (layers and head), the K and V caches, the embeddings
+    assert c.bytes == (mm + 64 * 256) * 2 + 4 * 2 * B * S * 2 * 16 * 2 + B * S * 64 * 2
+    assert c.op_kind == "bf16"
+    assert c.seconds()[1] == c.ops / 989e12 == c.ops / roofline.H100.ops_per_s("bf16")
+    T_ctx = 12
+    d = cost.lm_decode(cfg, B, T_ctx)
+    assert d.ops == B * (2 * mm + 2 * 64 * 256 + 4 * 4 * T_ctx * 4 * 16)
+    assert d.bytes == (mm + 64 * 256) * 2 + 4 * 2 * B * T_ctx * 2 * 16 * 2
+    assert d.bound_by() == "bytes"
+    # Qwen3-0.6B at full width: the layers' weights are its parameters less
+    # the embedding table, the head and the norm scales
+    from repro_torch.configs import get_config
+
+    full = get_config("qwen3_0p6b")
+    assert cost.lm_matmul_params(full) == full.param_count() - 2 * 151936 * 1024 - 2 * 1024 * 28
+
+
+def test_pair_mask_hyp_cost():
+    c = cost.pair_mask_hyp(512 * 8, 2048 * 8, 512 * 2048)
+    assert (c.bytes, c.ops, c.op_kind) == ((512 + 2048) * 64 + 512 * 2048, 512 * 2048 * 6,
+                                           "fp64")

@@ -29,6 +29,13 @@ and, into ``src/repro_torch/golden/families.json``:
   one mid-size spec of each at P = 1;
 * the sampled clustering reports of ``collect(..., metrics=("degree",
   "clustering"))`` for a G(n, p) and a small RHG;
+and, into ``src/repro_torch/golden/data.json``:
+* SHA-256 digests of the LM data pipeline's batches
+  (``repro.data.pipeline.make_global_batch``: tokens, labels and
+  positions as little-endian int32) at the data config of
+  ``repro.launch.train`` (``rhg_walk``, n = 4096, sequences of 256,
+  four a shard, seed 11, Qwen3-0.6B's vocabulary) with 1 and 4 shards,
+  steps 0 to 3, and of one ``er_walk`` batch;
 and, into ``src/repro_torch/golden/stats.json``:
 * the ``repro.stats.validate`` reports of the reference's two acceptance
   gates (G(n, p) and RHG at n = 2^18, P = 8; mid-size) and of its four
@@ -56,6 +63,7 @@ GEOM = GOLDEN.with_name("geom.json")
 RDG = GOLDEN.with_name("rdg.json")
 FAMILIES = GOLDEN.with_name("families.json")
 STATS = GOLDEN.with_name("stats.json")
+DATA = GOLDEN.with_name("data.json")
 COMMAND = "PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py"
 
 SMALL = [
@@ -107,6 +115,12 @@ VALIDATE = [
     ("SBM", dict(n=1500, blocks=5, p_in=0.03, p_out=0.003, seed=3), 4, {}, "small"),
     ("RMAT", dict(log_n=11, m=16000, seed=1), 4, {}, "small"),
 ]
+# launch/train.py's DataConfig at qwen3_0p6b's vocabulary: (params, steps)
+DATA_BASE = dict(kind="rhg_walk", n_vertices=4096, vocab=151936, seq_len=256,
+                 batch_per_shard=4, seed=11)
+DATA_CONFIGS = [(dict(DATA_BASE, num_shards=1), (0, 1, 2, 3)),
+                (dict(DATA_BASE, num_shards=4), (0, 1, 2, 3)),
+                (dict(DATA_BASE, kind="er_walk", num_shards=4), (0,))]
 POINTS_P = 3
 FEATURE_ROWS = 16     # RHG candidate-pair rows whose side-a features are kept
 
@@ -318,6 +332,27 @@ def stats_doc() -> dict:
             "validate": [validate_entry(*v) for v in VALIDATE]}
 
 
+def batch_digests(batch: dict) -> dict:
+    """SHA-256 of each array of a batch as little-endian int32, C order."""
+    return {k: hashlib.sha256(np.ascontiguousarray(batch[k], "<i4").tobytes()).hexdigest()
+            for k in ("tokens", "labels", "positions")}
+
+
+def data_entry(params: dict, step: int) -> dict:
+    from repro.data import pipeline
+
+    batch = pipeline.make_global_batch(pipeline.DataConfig(**params), step)
+    return {"params": params, "step": step, "shape": list(batch["tokens"].shape),
+            **batch_digests(batch)}
+
+
+def data_doc() -> dict:
+    return {"command": COMMAND,
+            "digest": "sha256 of tokens, labels, positions as little-endian int32 [B, S], "
+                      "C order",
+            "batches": [data_entry(p, s) for p, steps in DATA_CONFIGS for s in steps]}
+
+
 def main() -> None:
     entries = [generate_entry(f, p, P, "small") for f, p in SMALL for P in SMALL_PES]
     entries.append(generate_entry(*MID, 1, "mid"))
@@ -335,6 +370,8 @@ def main() -> None:
     print(f"wrote {FAMILIES}")
     STATS.write_text(json.dumps(stats_doc(), indent=1) + "\n")
     print(f"wrote {STATS}")
+    DATA.write_text(json.dumps(data_doc(), indent=1) + "\n")
+    print(f"wrote {DATA}")
 
 
 if __name__ == "__main__":
