@@ -67,10 +67,12 @@ or of the JAX package.  Phases, each printed with its seconds:
       at P=1 through ``hist``'s chi-square, GNM(2^24, 2^28), RHG(2^20) at
       P=16 by the Hill fit, RDG(2^20, 2-D) at P=1, BA(2^25, 8), RMAT(26,
       2^30) and the SBM at P=16), each report printed in full with its
-      collect and gate seconds, every gate required; then the SBM and a
-      cold RDG(2^20, 2-D, seed 16) streamed at P=16 with overlap 0, 4, 4,
-      0 in turns (time to the first chunk, wall, the consumer's wait on
-      the planner), every run with the same checksum and per-PE digests,
+      collect and gate seconds, every gate required; then the SBM
+      streamed at P=16 with overlap 0, 4, 4, 0 in turns and a cold
+      RDG(2^20, 2-D, seed 16) with overlap 0 then 4 (time to the first
+      chunk, wall, the consumer's wait on the planner; the RDG's second
+      pair of turns was cut in PR 23 for the training path's time),
+      every run with the same checksum and per-PE digests,
       the overlapped RDG runs triangulating on the planner thread; the
       planner wait is the sum of the ``plan/overlap/wait`` spans of a run
       traced by ``repro_torch.obs``;
@@ -121,11 +123,30 @@ or of the JAX package.  Phases, each printed with its seconds:
       census under sync-debug "error", the device's idle share under the
       profiler), then float32 teacher-forced decode against the full
       forward at full width;
+   i. training (``repro_torch.train``, ``launch/train.py``): the ten
+      architectures at smoke size in float32, a ``make_train_step`` step
+      with ``accum=1`` then one with ``accum=2`` on the card against the
+      CPU from the same weights, held by the CPU tests' tolerances
+      (``tests/torch_train_tol.py``); Qwen3-0.6B at full width in bf16:
+      ``launch/train.py``'s ``main`` for 20 steps at its data config (the
+      graph cold, every ``pair_mask`` launch of the first batch held
+      against its plain version), checkpointed in the background at step
+      12 and at the end, each step timed (median, min–max after the
+      first, tokens/s, the share of the bf16 dense peak, ``launch/cost.py``'s
+      ``lm_train`` bound, peak memory); ``opt_update`` alone and three
+      steps under the profiler (device ms by group, idle share); 30 steps
+      overfitting one batch (the last loss below 0.7 x the first); the
+      trained 9.0 GB state saved at 4 shards in the background while 3
+      steps run on, restored in a fresh process (spawned; the state at
+      the save shared with it by CUDA IPC) bit for bit, the same 3 steps
+      run there twice (is the card's step deterministic?) and against
+      the uninterrupted run; a float32 step with ``accum=2`` against
+      ``accum=1`` within a quarter of its learning rate;
    each checked on the device; each ``collect`` must launch ``hist`` once
    per non-empty chunk of its first pass plus once per section histogram.  The generator
    paths run ``pair_mask``'s tiles inside ``pair_edges``, as the
    reference's engine does; ``pair_mask`` itself is launched by ``rhg_pe``
-   on path h and by the registry's kernel case (path g).
+   on paths h and i and by the registry's kernel case (path g).
 4. each kernel timed at its main-path shape beside its plain version,
    the library call computing the same function (where there is one)
    and its bound (``pair_mask`` at its own contract's shape, the
@@ -153,13 +174,15 @@ or of the JAX package.  Phases, each printed with its seconds:
    their reps one at a time, and each ``kernels`` entry carries that
    median as ``median_ms`` beside the back-to-back mean ``ms``.  Path h
    adds a second ``pair_mask`` row: the hyp tile at ``rhg_pe``'s largest
-   call.
+   call, with its device time by a replayed CUDA graph and by the profiler.
+   Path i adds no row: its step runs cuBLAS and ATen, its ``pair_mask``
+   launches join the kernel's count.
 
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
 
 ``--only PATH`` (``er``, ``geom``, ``rdg``, ``families``, ``stats``, ``serve``, ``analyze``,
-``lm``; repeatable)
+``lm``, ``train``; repeatable)
 builds and runs
 only that main path and its phase 4 timing, and ``--no-timing`` stops
 after the path: run the same script in two checkouts in turns to
@@ -169,6 +192,8 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -2218,8 +2243,8 @@ def timed_stream(spec, P: int, dev, overlap: int, batch: int):
     return total, chunks, c, tuple(zip(per_n, per_h)), first, time.perf_counter() - t0
 
 
-def overlap_turns(spec, P: int, dev, batch: int, cold) -> list:
-    """The stream of ``spec`` with overlap 0, 4, 4, 0 in turns, each under
+def overlap_turns(spec, P: int, dev, batch: int, cold, turns=(0, 4, 4, 0)) -> list:
+    """The stream of ``spec`` with the overlaps of ``turns`` in turns, each under
     the profiler and traced by ``obs`` (the consumer's wait on the planner
     is the sum of its ``plan/overlap/wait`` spans; tracing ends each wave
     in a synchronize); ``cold()`` runs before each.  Requires every run to
@@ -2228,7 +2253,7 @@ def overlap_turns(spec, P: int, dev, batch: int, cold) -> list:
     from repro_torch import obs
 
     runs = []
-    for overlap in (0, 4, 4, 0):
+    for overlap in turns:
         cold()
         with obs.capture() as tr:
             out, groups, wall = profiled(lambda: timed_stream(spec, P, dev, overlap, batch))
@@ -2318,7 +2343,7 @@ def phase_stats(dev, sizes: dict) -> dict:
     rdg_spec = api.RDG(n=sizes["rdg2_n"], dim=2, seed=16)
     rdg.batched_delaunay = traced_dt
     try:
-        rdg_runs = overlap_turns(rdg_spec, 16, dev, sizes["batch"], cold)
+        rdg_runs = overlap_turns(rdg_spec, 16, dev, sizes["batch"], cold, turns=(0, 4))
     finally:
         rdg.batched_delaunay = real_dt
         rdg.rdg_structure.cache_clear()
@@ -3219,17 +3244,522 @@ def lm_timing(dev, out: dict, errs: Errors) -> list:
     ref, plain_ms = sync_time(lambda: pair_mask_ref(q, c, cosh_r, tile="hyp"), reps=5)
     errs.same("pair_mask", res, ref, "pair_mask hyp at rhg_pe's largest call")
     dev_ms = graph_ms_per_call(lambda: pair_mask(q, c, cosh_r, tile="hyp"), 50)
+    prof_ms = device_ms_per_call(lambda: pair_mask(q, c, cosh_r, tile="hyp"), 50)
     bytes_s, ops_s = bound_terms(cost().pair_mask_hyp(q.numel(), c.numel(), res.numel()))
     bound = max(bytes_s, ops_s) * 1e3
     print(f"  pair_mask shape: hyp [{q.shape[0]}, 8] x [{c.shape[0]}, 8] float64 (rhg_pe's "
           f"largest of {out['pair_mask_calls']} calls); median {med:.6f} ms (mean {ms:.6f}; "
-          f"device {dev_ms:.6f} ms a call, graph replay), plain {plain_ms:.6f} ms, bound "
+          f"device {dev_ms:.6f} ms a call by graph replay, {fmt_ms(prof_ms)} by the profiler), "
+          f"plain {plain_ms:.6f} ms, bound "
           f"{bound:.6f} ms ({'bytes' if bytes_s >= ops_s else 'operations'}): "
           f"{dev_ms / bound:.2f}x the bound by device time")
     return [("pair_mask", "src/repro_torch/kernels/pairmask/csrc/pairmask.cu",
              "src/repro/kernels/pairmask/pairmask.py:56", ms, med, plain_ms, bytes_s, ops_s,
              None, f"hyp tile at rhg_pe's largest call on path 3h, [{q.shape[0]}, 8] x "
                    f"[{c.shape[0]}, 8] float64")]
+
+
+# optimizer of path 3i: the reference test's (lr 1e-3, warmup 5)
+TRAIN_OPT = dict(lr=1e-3, warmup=5, total_steps=200)
+
+
+def train_groups(key: str) -> str:
+    """The training step's breakdown groups: the optimizer's multi-tensor
+    kernels (``torch._foreach_*``) apart from :func:`lm_groups`' groups."""
+    k = key.lower()
+    if "multi_tensor" in k or "foreach" in k:
+        return "optimizer elementwise"
+    group = lm_groups(key)
+    return "other" if group == "elementwise/other" else group
+
+
+def train_smoke_archs(dev) -> None:
+    """3i, part 1: the ten architectures at smoke size in float32, the
+    same weights and batches on the card and on the CPU: one
+    ``make_train_step`` step with ``accum=1``, then one with ``accum=2``,
+    each held by the CPU tests' tolerances (``tests/torch_train_tol.py``:
+    the loss, the grad norm, every updated master and ``m``)."""
+    import copy
+    import numpy as np
+    import torch
+    from torch_train_tol import GRAD_NORM_REL, LOSS_ABS, MOMENT_REL, PARAM_LR, step_errors
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"  ten architectures at smoke size, float32, a train step with accum 1 then 2 on the "
+          f"card against the CPU (bounds: loss {LOSS_ABS}, grad norm {GRAD_NORM_REL} of it, "
+          f"masters {PARAM_LR} x lr, m {MOMENT_REL} of each leaf's max; errors below as shares "
+          f"of them; {card_line()}):")
+    opt_cfg = O.OptConfig(**TRAIN_OPT)
+    for arch in ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_smoke_config(arch)
+        cpu = T.model_init(cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+        states = {"cpu": (cpu, O.opt_init(cpu))}
+        card = copy.deepcopy(cpu).to(dev)
+        states["card"] = (card, O.opt_init(card))
+        rng = np.random.default_rng(1)
+        line = f"  {arch:<22}"
+        for accum in (1, 2):
+            toks = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+            batch = {"positions": np.tile(np.arange(32, dtype=np.int32), (4, 1)),
+                     "labels": rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)}
+            if cfg.frontend != "none":
+                batch["embeds"] = (rng.standard_normal((4, 32, cfg.d_model)) * 0.02
+                                   ).astype(np.float32)
+            else:
+                batch["tokens"] = toks
+            step = make_train_step(cfg, opt_cfg, accum=accum)
+            out = {k: step(p, o, batch) for k, (p, o) in states.items()}
+            states = {k: v[:2] for k, v in out.items()}
+            (pc, oc, mc), (pg, og, mg) = out["cpu"], out["card"]
+            try:
+                e = step_errors(dict(pg.named_parameters()), og["m"], mg,
+                                dict(pc.named_parameters()), oc["m"], mc)
+            except AssertionError as err:
+                raise AssertionError(f"chip_smoke: {arch} accum {accum}: the card's train step "
+                                     f"differs from the CPU's: {err}") from None
+            line += (f" accum {accum}: loss {float(mg['loss']):.6f} (cpu {float(mc['loss']):.6f})"
+                     f" errors " + ", ".join(f"{k} {v:.3f}" for k, v in e.items()) + ";")
+        print(line + f" ({time.perf_counter() - t0:.3f}s)")
+
+
+def train_main(dev, sizes: dict, errs: Errors) -> dict:
+    """3i, part 2: ``repro_torch.launch.train.main`` for Qwen3-0.6B at full
+    width in bf16 (its data config: ``rhg_walk``, 4 x 256 a step, seed 11,
+    the graph cold) for ``train_steps`` steps, checkpointed every
+    ``train_ckpt_every`` in the background and at the end; each step timed
+    on the host clock between ``synchronize`` calls, every ``pair_mask``
+    launch of the first batch's graph held against its plain version."""
+    import shutil
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch import cost as C
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.roofline import H100
+
+    cfg = get_config(LM_ARCH)
+    N, every = sizes["train_steps"], sizes["train_ckpt_every"]
+    rec = {"step_s": [], "loss": [], "state": None}
+    real = launch_train.make_train_step
+
+    def timed_factory(arch_cfg, opt_cfg, **kw):
+        step = real(arch_cfg, opt_cfg, **kw)
+
+        def timed_step(params, opt, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt, batch)
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t0)
+            rec["loss"].append(out[2]["loss"])
+            rec["state"] = out[:2]
+            return out
+        return timed_step
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    need = 2 * 12 * cfg.param_count()           # two checkpoints of masters, m and v
+    require(shutil.disk_usage(ckpt).free > need, f"{shutil.disk_usage(ckpt).free / 1e9:.1f} "
+            f"GB free under {ckpt}, main's checkpoints need {need / 1e9:.1f}")
+    pipeline._local_graph.cache_clear()
+    before = build.LAUNCHES["pair_mask"]
+    launch_train.make_train_step = timed_factory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        with held_lm_kernels(errs) as held:
+            code = launch_train.main(["--arch", LM_ARCH, "--steps", str(N), "--ckpt-every",
+                                      str(every), "--ckpt-dir", ckpt, "--device", str(dev)])
+        wall = time.perf_counter() - t0
+        saved = sorted(os.listdir(ckpt))
+    finally:
+        launch_train.make_train_step = real
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    require(code == 0, f"launch/train.py main returned {code}")
+    losses = [float(x) for x in rec["loss"]]
+    require(len(losses) == N and all(math.isfinite(x) for x in losses),
+            f"main ran {len(losses)} steps, losses {losses}")
+    want = [f"step_{s:08d}" for s in sorted({s for s in range(every, N + 1, every)} | {N})]
+    require(saved == want[-3:], f"checkpoints {saved}, expected {want[-3:]}")
+    launches = build.LAUNCHES["pair_mask"] - before
+    require(held.seen.get("pair_mask", 0) == launches > 0,
+            f"pair_mask: {launches} launches, {held.seen} held")
+    steady = rec["step_s"][1:]
+    med = statistics.median(steady)
+    B, S = 4, 256
+    tc = C.lm_train(cfg, B, S)
+    bytes_s, ops_s = tc.seconds(H100)
+    print(f"  launch/train.py main --arch {LM_ARCH} --steps {N} --ckpt-every {every} "
+          f"({card_line()}): {wall:.3f}s wall, exit {code}; first batch's graph: {launches} "
+          f"pair_mask launches, each == pair_mask_ref (max |err| {errs.max['pair_mask']}); "
+          f"checkpoints {saved}")
+    print(f"  train step, {cfg.dtype} over float32 masters, {B} x {S} tokens: first "
+          f"{rec['step_s'][0] * 1e3:.3f} ms; after it median {med * 1e3:.3f} ms (min "
+          f"{min(steady) * 1e3:.3f}, max {max(steady) * 1e3:.3f}; {len(steady)} steps, those "
+          f"after step {every} beside the checkpoint's writing thread); {B * S / med:.1f} "
+          f"tokens/s; {tc.ops / med / 1e12:.3f} TFLOP/s of model flops, "
+          f"{100 * tc.ops / H100.ops_per_s('bf16') / med:.3f} % of the bf16 dense peak; "
+          f"lm_train's bound {max(bytes_s, ops_s) * 1e3:.6f} ms by "
+          f"{tc.bound_by(H100)} (bytes {bytes_s * 1e3:.6f} ms, bf16 operations "
+          f"{ops_s * 1e3:.6f} ms): {med / max(bytes_s, ops_s):.1f}x it; peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB; losses {', '.join(f'{x:.4f}' for x in losses[::5])}")
+    return {"state": rec["state"], "step_ms": med * 1e3, "first_ms": rec["step_s"][0] * 1e3,
+            "peak_gib": peak / 2 ** 30, "pair_mask_launches": launches}
+
+
+def train_profile(dev, state, sizes: dict) -> None:
+    """3i, part 3: on the trained state, the optimizer alone (``opt_update``
+    on one step's gradients, CUDA events) and a few train steps under the
+    profiler: device ms by group and the device's idle share."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = get_config(LM_ARCH)
+    params, opt = state
+    dc = launch_train.data_config(cfg)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipeline.make_global_batch(dc, 0, device=dev).items()}
+    loss, _ = T.lm_loss(params, cfg, batch)
+    names, leaves = zip(*params.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    del loss
+    opt_cfg = O.OptConfig(**TRAIN_OPT)
+    decay = O.weight_decay_names(cfg, params)
+    n = sum(p.numel() for p in leaves)
+    _, ms, med = timed(lambda: O.opt_update(opt_cfg, params, grads, opt, decay), reps=5,
+                       label=f"opt_update at full width ({n:,} masters)")
+    print(f"  optimizer alone: median {med:.6f} ms (mean {ms:.6f}); its seven float32 passes "
+          f"over {n:,} masters {7 * 4 * n / 1e9:.3f} GB, bound "
+          f"{7 * 4 * n / 3.35e12 * 1e3:.6f} ms at 3.35 TB/s ({card_line()})")
+    del grads
+    step = make_train_step(cfg, opt_cfg)
+    k = sizes["train_profiled_steps"]
+
+    def run():
+        for _ in range(k):
+            step(params, opt, batch)
+
+    t0 = time.perf_counter()
+    _, groups, wall = profiled(run, by=train_groups, cpu=False)
+    print_breakdown(f"{k} train steps ({card_line()})", groups, wall)
+    print(f"  [profiled steps and their reading {time.perf_counter() - t0:.3f}s]")
+
+
+def train_overfit(dev, sizes: dict):
+    """3i, part 4: Qwen3-0.6B at full width in bf16 from a seeded init,
+    ``train_overfit_steps`` steps on one batch at lr 1e-3, warmup 5: the
+    last loss below 0.7 x the first, every loss finite (the reference's
+    ``test_loss_decreases_overfit``).  Returns ``[(params, opt)]``, the
+    trained state in a list its taker empties, so that no frame holds it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = get_config(LM_ARCH)
+    dc = launch_train.data_config(cfg)
+    batch = pipeline.make_global_batch(dc, 0, device=dev)
+    params = T.model_init(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = O.opt_init(params)
+    step = make_train_step(cfg, O.OptConfig(**TRAIN_OPT))
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(sizes["train_overfit_steps"]):
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    wall = time.perf_counter() - t0
+    require(all(math.isfinite(x) for x in losses), f"overfit losses not finite: {losses}")
+    require(losses[-1] < 0.7 * losses[0], f"overfit: last loss {losses[-1]} not below 0.7 x "
+            f"the first {losses[0]}")
+    print(f"  overfit one batch, {len(losses)} steps at lr 1e-3, warmup 5, {cfg.dtype} "
+          f"({wall:.3f}s): losses {', '.join(f'{x:.4f}' for x in losses[::5])}, last "
+          f"{losses[-1]:.4f} = {losses[-1] / losses[0]:.4f} x the first (must be < 0.7)")
+    return [(params, opt)]
+
+
+def train_accum(dev) -> None:
+    """3i, part 5: float32 at full width from one seeded init: a step with
+    ``accum=2`` against one with ``accum=1`` on the same batch, the masters
+    within ``PARAM_LR`` x the step's learning rate (``tests/torch_train_tol.py``:
+    the reference's own bound, 2e-5 at its first step's 2e-4, is 0.1 of
+    it, set on a smoke model's 180 k masters; among 751.6 M, Adam turns
+    the rounding of gradients near ``eps`` into up to 8 % of a step)."""
+    import copy
+    import torch
+    from torch_train_tol import PARAM_LR
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(LM_ARCH).replace(dtype="float32")
+    dc = launch_train.data_config(cfg)
+    batch = pipeline.make_global_batch(dc, 1, device=dev)
+    t0 = time.perf_counter()
+    p1 = T.model_init(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    p2 = copy.deepcopy(p1)
+    p1, _, m1 = make_train_step(cfg, O.OptConfig(**TRAIN_OPT), accum=1)(p1, O.opt_init(p1), batch)
+    p2, _, m2 = make_train_step(cfg, O.OptConfig(**TRAIN_OPT), accum=2)(p2, O.opt_init(p2), batch)
+    with torch.no_grad():
+        d = max(float((a - b).abs().max()) for a, b in zip(p1.parameters(), p2.parameters()))
+    dl = abs(float(m1["loss"]) - float(m2["loss"]))
+    dg = abs(float(m1["grad_norm"]) - float(m2["grad_norm"])) / float(m1["grad_norm"])
+    bound = PARAM_LR * float(m1["lr"])
+    require(d <= bound, f"accum=2 differs from accum=1 by {d} (bound {bound})")
+    print(f"  float32 at full width, accum=2 against accum=1 on one batch ({card_line()}; "
+          f"{time.perf_counter() - t0:.3f}s): masters max |diff| {d:.3e} = "
+          f"{d / float(m1['lr']):.3e} x lr {float(m1['lr']):.3e} (bound {PARAM_LR} x lr, "
+          f"{bound:.3e}), loss {float(m1['loss']):.6f} against "
+          f"{float(m2['loss']):.6f} (|diff| {dl:.3e}), grad norm rel diff {dg:.3e}")
+    del p1, p2
+    torch.cuda.empty_cache()
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].detach() - b[k].detach()).abs().max()) for k in a)
+
+
+def pack_leaves(tree) -> tuple:
+    """A copy of every leaf of ``tree`` in one byte buffer on their device
+    and its index ``[(name, offset, bytes, dtype, shape)]``: one CUDA IPC
+    handle for a spawned process instead of one a leaf."""
+    import torch
+    from repro_torch.train import checkpoint as CK
+
+    leaves = [(n, t.detach()) for n, t in CK.named_leaves(tree)]
+    buf = torch.empty(sum(t.numel() * t.element_size() for _, t in leaves), dtype=torch.uint8,
+                      device=leaves[0][1].device)
+    index, off = [], 0
+    for n, t in leaves:
+        nb = t.numel() * t.element_size()
+        buf[off:off + nb].view(t.dtype).copy_(t.reshape(-1))
+        index.append((n, off, nb, str(t.dtype).split(".")[-1], tuple(t.shape)))
+        off += nb
+    return buf, index
+
+
+def unpack_leaves(buf, index) -> dict:
+    """``{name: view}`` of a :func:`pack_leaves` buffer."""
+    import torch
+    return {n: buf[off:off + nb].view(getattr(torch, dt)).view(shape)
+            for n, off, nb, dt, shape in index}
+
+
+def resume_child(cfg, dev_type: str, conn) -> None:
+    """3i, part 6, in a fresh process (spawned): make a model and state of
+    another seed on the card while the parent saves, and warm its step up
+    on a batch of zeros (the restore replaces every leaf), then take ``(ckpt,
+    saved, after, batches)`` from ``conn``; restore the checkpoint and hold
+    it against ``saved`` (the parent's state at the save, packed, shared
+    by CUDA IPC) bit for bit; run ``batches`` from it twice, from the
+    restored state and from a copy of it, to measure the spread of
+    repeating the steps; send the restore's seconds, the equality, that
+    spread and the largest |difference| from ``after`` (the parent's
+    uninterrupted run, packed)."""
+    import copy
+    import traceback
+    try:
+        import numpy as np
+        import torch
+        from repro_torch.models import transformer as T
+        from repro_torch.train import checkpoint as CK
+        from repro_torch.train import optimizer as O
+        from repro_torch.train.train_loop import make_train_step
+
+        dev = torch.device(dev_type)
+        cuda = dev.type == "cuda"
+        fresh = T.model_init(cfg, generator=torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+        like = {"params": fresh, "opt": O.opt_init(fresh)}
+        step = make_train_step(cfg, O.OptConfig(**TRAIN_OPT))
+        zeros = np.zeros((4, 256), np.int32)
+        step(like["params"], like["opt"], {"tokens": zeros, "labels": zeros,
+                                           "positions": zeros + np.arange(256, dtype=np.int32)})
+        ready_at = time.perf_counter()      # CLOCK_MONOTONIC: the parent's clock too
+        ckpt, saved, after, batches = conn.recv()
+        saved, after = unpack_leaves(*saved), unpack_leaves(*after)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CK.restore(ckpt, like)
+        if cuda:
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = dict(CK.named_leaves(like))
+        equal = set(got) == set(saved) and all(torch.equal(got[n], saved[n]) for n in saved)
+        t0 = time.perf_counter()
+        runs = []
+        for params, opt in ((like["params"], like["opt"]),
+                            (copy.deepcopy(like["params"]), copy.deepcopy(like["opt"]))):
+            for b in batches:
+                params, opt, _ = step(params, opt, b)
+            runs.append(dict(CK.named_leaves({"params": params, "opt": opt})))
+        res = {"restore_s": restore_s, "equal": equal, "leaves": len(got),
+               "spread": _max_diff(runs[1], runs[0]), "resumed": _max_diff(runs[0], after),
+               "ready_at": ready_at, "steps_s": time.perf_counter() - t0}
+        del saved, after                            # release the parent's buffers first
+        conn.send(res)
+    except BaseException:
+        conn.send({"error": traceback.format_exc()})
+        raise
+    finally:
+        conn.close()
+
+
+def train_checkpoint(dev, trained: list, sizes: dict) -> None:
+    """3i, part 6: the trained state (9.0 GB: masters, ``m``, ``v``) saved
+    with ``num_shards=4, background=True`` while 3 more steps run on it
+    (the uninterrupted run); in a fresh process (:func:`resume_child`,
+    spawned before the save), restored bit for bit equal to the state at
+    the save, and the same 3 steps run from it twice: whether the card's
+    step is deterministic, and the resumed run against the uninterrupted
+    one, equal if it is, else within the spread of the two.  ``trained``
+    holds the state (:func:`train_overfit`); it is taken out, so that the
+    state's memory is free before the child's work."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = get_config(LM_ARCH)
+    dc = launch_train.data_config(cfg)
+    k = sizes["train_resume_steps"]
+    batches = [pipeline.make_global_batch(dc, 100 + s, device=dev) for s in range(k)]
+    step = make_train_step(cfg, O.OptConfig(**TRAIN_OPT))
+    params, opt = trained.pop()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ctx = mp.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    child = ctx.Process(target=resume_child, args=(cfg, dev.type, child_conn))
+    t_child = time.perf_counter()
+    child.start()                                   # its start-up overlaps the save
+    child_conn.close()
+    try:
+        saved = pack_leaves({"params": params, "opt": opt})
+        nbytes = saved[0].numel()
+        free = shutil.disk_usage(ckpt).free
+        require(free > 2 * nbytes, f"{free / 1e9:.1f} GB free under {ckpt}, the checkpoint "
+                f"needs {nbytes / 1e9:.1f}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        th = CK.save(ckpt, 1, {"params": params, "opt": opt}, num_shards=4, background=True)
+        snap_s = time.perf_counter() - t0
+        for b in batches:                           # the uninterrupted run goes on
+            params, opt, _ = step(params, opt, b)
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0 - snap_s
+        th.join()
+        save_s = time.perf_counter() - t0
+        live = pack_leaves({"params": params, "opt": opt})
+        del params, opt, th
+        torch.cuda.empty_cache()                    # room for the child's two states
+        conn.send((ckpt, saved, live, batches))
+        t_sent = time.perf_counter()
+        try:
+            res = conn.recv() if conn.poll(600) else {"error": "no answer in 600 s"}
+        except EOFError:
+            res = {"error": "the child closed its pipe without an answer"}
+        answer_s = time.perf_counter() - t_sent
+    finally:
+        conn.close()                                # a child still waiting sees EOF
+        child.join(60)
+        if child.is_alive():
+            child.kill()
+            child.join()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    child_s = time.perf_counter() - t_child
+    require("error" not in res and child.exitcode == 0,
+            f"the resume in a fresh process failed (exit {child.exitcode}): {res.get('error')}")
+    require(res["equal"], "the state restored in a fresh process differs from the state at "
+            "the save")
+    restore_s, spread, resumed = res["restore_s"], res["spread"], res["resumed"]
+    print(f"  checkpoint of the trained state ({nbytes / 1e9:.3f} GB, 4 shards, in the "
+          f"background; {card_line()}): host copy {snap_s:.3f}s, then {k} steps in "
+          f"{steps_s:.3f}s while it wrote, written in {save_s:.3f}s ({nbytes / save_s / 1e9:.3f} "
+          f"GB/s); in a fresh process (ready {res['ready_at'] - t_child:.3f}s after its spawn, "
+          f"beside the save; answered {answer_s:.3f}s after the save; {child_s:.3f}s from spawn to exit), "
+          f"restored into a model and state of another seed in {restore_s:.3f}s "
+          f"({nbytes / restore_s / 1e9:.3f} GB/s, the files read warm from the page cache): "
+          f"bit for bit the state at the save ({res['leaves']} leaves); its {2 * k} steps and "
+          f"comparisons {res['steps_s']:.3f}s")
+    if spread == 0:
+        require(resumed == 0, f"the card's step is deterministic, but the resumed run differs "
+                f"from the uninterrupted one by {resumed}")
+    else:
+        require(resumed <= spread, f"the resumed run differs from the uninterrupted one by "
+                f"{resumed}, past the spread of repeating the steps, {spread}")
+    print(f"  {k} steps twice from the restored state: max |diff| {spread:.3e} "
+          f"({'deterministic' if spread == 0 else 'not deterministic'}); against the "
+          f"uninterrupted run: max |diff| {resumed:.3e}"
+          f"{' (equal, as required)' if spread == 0 else ''}")
+    del saved, live
+    torch.cuda.empty_cache()
+
+
+def phase_train(dev, sizes: dict) -> dict:
+    """Phase 3i: training (``--only train``): the ten architectures' train
+    step on the card against the CPU, then Qwen3-0.6B at full width:
+    ``launch/train.py``'s main timed, the optimizer and a profiled step,
+    overfitting one batch, accumulation in float32, a checkpoint's round
+    trip and resume."""
+    import torch
+
+    errs = Errors()
+    t0 = time.perf_counter()
+    train_smoke_archs(dev)
+    print(f"  [3i smoke architectures {time.perf_counter() - t0:.3f}s]", flush=True)
+    t1 = time.perf_counter()
+    out = train_main(dev, sizes, errs)
+    print(f"  [3i main {time.perf_counter() - t1:.3f}s]", flush=True)
+    t1 = time.perf_counter()
+    train_profile(dev, out.pop("state"), sizes)
+    torch.cuda.empty_cache()
+    print(f"  [3i optimizer and profile {time.perf_counter() - t1:.3f}s]", flush=True)
+    t1 = time.perf_counter()
+    trained = train_overfit(dev, sizes)
+    print(f"  [3i overfit {time.perf_counter() - t1:.3f}s]", flush=True)
+    t1 = time.perf_counter()
+    train_checkpoint(dev, trained, sizes)
+    print(f"  [3i checkpoint {time.perf_counter() - t1:.3f}s]", flush=True)
+    t1 = time.perf_counter()
+    train_accum(dev)
+    print(f"  [3i accumulation {time.perf_counter() - t1:.3f}s]", flush=True)
+    out["errs"] = errs
+    return out
+
+
+def train_timing(dev, out: dict, errs: Errors) -> list:
+    """Phase 4 of 3i: no kernel of its own (the step is cuBLAS and ATen);
+    its ``pair_mask`` launches join the kernel's row of path 3h."""
+    errs.max["pair_mask"] = max(errs.max["pair_mask"], out["errs"].max["pair_mask"])
+    return []
 
 
 OFF_PATH = {"pair_mask": "euclid tile at its own contract's shape (the oracles' 128-row cell "
@@ -3263,7 +3793,9 @@ FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 
         "serve_n": 1 << 22, "serve_m": 1 << 26, "serve_rhg_n": 1 << 20, "serve_rdg_n": 1 << 18,
         "serve_slab_bytes": 1 << 30,
         "lm_batch": 8, "lm_prompt": 256, "lm_steps": 64, "lm_check_steps": 16,
-        "lm_profiled_steps": 16}
+        "lm_profiled_steps": 16,
+        "train_steps": 20, "train_ckpt_every": 12, "train_profiled_steps": 3,
+        "train_overfit_steps": 30, "train_resume_steps": 3}
 ER_KERNELS = ("chunk_sample", "chunk_decode", "hist")
 GEOM_KERNELS = ("pair_edges", "cell_points", "hist")
 RDG_KERNELS = ("triangulate", "circumspheres", "pair_edges", "cell_points")
@@ -3274,6 +3806,8 @@ SERVE_KERNELS = ("hist", "chunk_sample", "chunk_decode", "chunk_ba", "chunk_rmat
                  "triangulate")
 # rhg_pe tests adjacency with pair_mask, gnm_undirected_pe samples and decodes
 LM_KERNELS = ("pair_mask", "chunk_sample", "chunk_decode")
+# the training path's batches come from rhg_pe, whose adjacency is pair_mask
+TRAIN_KERNELS = ("pair_mask",)
 # the kernels the registry launches on the card (RDG's planning and the
 # kernel cases among them)
 ANALYZE_KERNELS = ("chunk_sample", "chunk_decode", "chunk_ba", "chunk_rmat", "pair_edges",
@@ -3287,7 +3821,8 @@ PATHS = {"er": ("3a Erdős–Rényi", phase_main, ER_KERNELS, phase_timing),
          "stats": ("3e validation and overlap", phase_stats, STATS_KERNELS, stats_timing),
          "serve": ("3f serve", phase_serve, SERVE_KERNELS, serve_timing),
          "analyze": ("3g contract checking", phase_analyze, ANALYZE_KERNELS, analyze_timing),
-         "lm": ("3h LM serving", phase_lm, LM_KERNELS, lm_timing)}
+         "lm": ("3h LM serving", phase_lm, LM_KERNELS, lm_timing),
+         "train": ("3i training", phase_train, TRAIN_KERNELS, train_timing)}
 
 
 def main(argv=None) -> int:

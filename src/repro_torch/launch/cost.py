@@ -236,6 +236,25 @@ def lm_decode(cfg, batch: int, context: int) -> Cost:
     return Cost(weights + kv, flops, "bf16")
 
 
+def lm_train(cfg, batch: int, seq: int) -> Cost:
+    """One training step on ``batch`` sequences of ``seq`` tokens, a floor
+    that leaves the activations out.  Model flops (no recompute): 6 a
+    matmul parameter a token, the head's at every position, and per
+    attention layer ``12 seq H hd`` a token (scores and weighted values,
+    forward and backward, the causal mask not halving them).  Bytes: the
+    optimizer's seven float32 passes over every master (read ``p, g, m,
+    v``; write ``p, m, v``), and the casts of the masters to bf16 (read 4,
+    write 2 bytes): the layers' twice (forward and the remat recompute),
+    the head's once.  bfloat16 operations."""
+    T = batch * seq
+    V, d = cfg.vocab, cfg.d_model
+    flops = (6 * (lm_matmul_params(cfg) + d * V) * T
+             + 12 * _attn_layers(cfg) * seq * cfg.n_heads * cfg.hd * T)
+    layer_matrices = cfg.param_count() - 2 * V * d - 2 * d * cfg.n_layers
+    casts = (2 * layer_matrices + d * V) * (4 + _BF16)
+    return Cost(7 * 4 * cfg.param_count() + casts, flops, "bf16")
+
+
 # --------------------------------------------------------------------------
 # a traced program's launches
 # --------------------------------------------------------------------------

@@ -7,7 +7,9 @@ leaf, the ``reps`` layers ``prefix + r * period + j`` stacked on a
 leading axis, and ``remainder[j]`` is layer ``prefix + reps * period +
 j``.  :func:`from_reference` unstacks that tree, given as numpy arrays,
 into the port's one-entry-a-layer :class:`~.transformer.ParamTree`, so
-both packages can run on the same weights.
+both packages can run on the same weights; :func:`opt_state_from_reference`
+does the same for the optimizer's moments, so both can train on from the
+same state.
 """
 from __future__ import annotations
 
@@ -52,3 +54,19 @@ def from_reference(ref: Dict[str, Any], cfg: ArchConfig, device=None) -> ParamTr
     tree = {"embed": ref["embed"], "final_norm": ref["final_norm"],
             "layers": unstack_layers(ref, cfg)}
     return ParamTree(_map(tree, lambda a: torch.from_numpy(np.array(a)).to(device)))
+
+
+def opt_state_from_reference(ref_state: Dict[str, Any], cfg: ArchConfig, device=None) -> dict:
+    """The port's optimizer state (``repro_torch.train.optimizer``) holding
+    the reference's ``{"m", "v", "step"}`` (numpy arrays, ``m`` and ``v``
+    in the reference's parameter layout): the moments unstacked and keyed
+    by the port's parameter names, the step as an int32 scalar, on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+
+    def moments(tree):
+        return {k: p.detach() for k, p in from_reference(tree, cfg, device).named_parameters()}
+
+    return {"m": moments(ref_state["m"]), "v": moments(ref_state["v"]),
+            "step": torch.tensor(int(np.asarray(ref_state["step"])), dtype=torch.int32,
+                                 device=device)}

@@ -5,7 +5,10 @@ Heterogeneous layer stacks (gemma3's 5 local : 1 global, jamba's 7 ssm :
 per-layer signatures.  The reference compiles them as an unrolled prefix,
 a scanned superblock of ``period`` layers and an unrolled remainder
 (:func:`detect_layout`); the port runs a plain loop over the layers, and
-its parameters are one entry per layer (``layers[i]``).
+its parameters are one entry per layer (``layers[i]``).  Under autograd
+without caches, each superblock (the reference's scan body) and each loss
+chunk is checkpointed (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint``: their activations are recomputed in backward.
 :mod:`repro_torch.models.convert` maps the reference's stacked layout
 onto it.
 
@@ -19,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from ..kernels.build import resolve_device
@@ -215,19 +219,44 @@ def _embed_tokens(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     return p["embed"]["tok"][batch["tokens"].long()].to(dt)
 
 
+def _layers(p: Params, cfg: ArchConfig, lo: int, hi: int, x, pos, aux):
+    """Layers ``lo .. hi - 1`` without caches; returns (x, aux)."""
+    for i in range(lo, hi):
+        x, a, _ = block_apply(p["layers"][i], cfg, i, x, pos)
+        aux = aux + a
+    return x, aux
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in backward (the
+    forward draws no random numbers, so no generator state is kept)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def forward(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             caches: Optional[List[dict]] = None):
     """Hidden states [B, S, D]; returns (h, total_aux, new_caches).
-    ``caches`` is one cache dict per layer (:func:`caches_init`)."""
+    ``caches`` is one cache dict per layer (:func:`caches_init`).  Under
+    autograd without caches, each of the ``reps`` superblocks of
+    :func:`detect_layout` (layers ``prefix + r * period + j``) is
+    checkpointed when ``reps >= 2``; the prefix and the remainder are not."""
     x = _embed_tokens(p, cfg, batch)
     pos = batch["positions"]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[dict] = []
-    for i in range(cfg.n_layers):
+    prefix, period, reps, _ = detect_layout(cfg)
+    remat = caches is None and reps >= 2 and torch.is_grad_enabled()
+    i = 0
+    while i < cfg.n_layers:
+        if remat and prefix <= i < prefix + reps * period:
+            x, aux_total = _remat(_layers, p, cfg, i, i + period, x, pos, aux_total)
+            i += period
+            continue
         c = caches[i] if caches is not None else None
         x, aux, nc = block_apply(p["layers"][i], cfg, i, x, pos, c)
         aux_total = aux_total + aux
         new_caches.append(nc)
+        i += 1
     x = L.rmsnorm(p["final_norm"], x)
     return x, aux_total, (new_caches if caches is not None else None)
 
@@ -240,24 +269,33 @@ def caches_init(cfg: ArchConfig, batch: int, s_max: int, dtype, device=None) -> 
 
 # ------------------------------------------------------------- loss
 
+def _chunk_ce(h, head, labels):
+    """Summed cross-entropy of one chunk: h [B, ck, D], labels [B, ck]."""
+    logits = (h @ head).to(torch.float32)                            # [B, ck, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum(lse - tgt)
+
+
 def lm_loss(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             loss_chunk: int = 512) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Chunked cross-entropy: logits are materialized ``loss_chunk``
-    tokens at a time so the [tokens, vocab] tensor never exists in full."""
+    tokens at a time so the [tokens, vocab] tensor never exists in full;
+    under autograd each chunk's logits are recomputed in backward."""
     h, aux, _ = forward(p, cfg, batch)
     B, S, D = h.shape
     labels = batch["labels"].long()
     head = p["embed"]["head"].to(h.dtype)
+    ce = _chunk_ce
+    if torch.is_grad_enabled():
+        ce = lambda *args: _remat(_chunk_ce, *args)
 
     ck = min(loss_chunk, S)
     while S % ck:
         ck -= 1
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for s in range(0, S, ck):
-        logits = (h[:, s:s + ck] @ head).to(torch.float32)           # [B, ck, V]
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, labels[:, s:s + ck, None])[..., 0]
-        total = total + torch.sum(lse - tgt)
+        total = total + ce(h[:, s:s + ck], head, labels[:, s:s + ck])
     loss = total / (B * S)
     metrics = {"ce": loss, "aux": aux}
     return loss + 0.01 * aux, metrics

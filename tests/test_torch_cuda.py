@@ -865,3 +865,39 @@ def test_smoke_models_on_the_card_match_cpu(cuda, arch):
     np.testing.assert_array_equal(serve.generate(card, cfg, toks[:, :8], 1),
                                   serve.generate(cpu, cfg, toks[:, :8], 1))
 
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0p6b", "deepseek_v2_lite_16b", "jamba_v0_1_52b",
+                                  "gemma3_27b", "hubert_xlarge"])
+def test_smoke_train_steps_on_the_card_match_cpu(cuda, arch):
+    """``make_train_step`` in float32 on the card against the CPU from the
+    same weights: a step with ``accum=1``, then one with ``accum=2``, each
+    held by the CPU tests' tolerances (``tests/torch_train_tol.py``)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+    from torch_train_tol import step_errors
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    cpu = T.model_init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    states = {"cpu": (cpu, O.opt_init(cpu)), "card": (card, O.opt_init(card))}
+    rng = np.random.default_rng(0)
+    opt_cfg = O.OptConfig(lr=1e-3, warmup=5, total_steps=200)
+    for accum in (1, 2):
+        toks = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+        batch = {"positions": np.tile(np.arange(32, dtype=np.int32), (4, 1)),
+                 "labels": np.roll(toks, -1, axis=1)}
+        if cfg.frontend != "none":
+            batch["embeds"] = (rng.standard_normal((4, 32, cfg.d_model)) * 0.02).astype(np.float32)
+        else:
+            batch["tokens"] = toks
+        step = make_train_step(cfg, opt_cfg, accum=accum)
+        out = {k: step(p, o, batch) for k, (p, o) in states.items()}
+        states = {k: v[:2] for k, v in out.items()}
+        (pc, oc, mc), (pg, og, mg) = out["cpu"], out["card"]
+        assert int(og["step"]) == accum
+        step_errors(dict(pg.named_parameters()), og["m"], mg,
+                    dict(pc.named_parameters()), oc["m"], mc)

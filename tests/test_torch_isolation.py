@@ -61,7 +61,9 @@ def test_importing_the_port_does_not_load_jax():
             "repro_torch.core.rgg, repro_torch.core.rhg, repro_torch.core.rdg, "
             "repro_torch.obs, repro_torch.serve, repro_torch.distrib.fault, "
             "repro_torch.analyze, repro_torch.analyze.programs, repro_torch.analyze.__main__, "
-            "repro_torch.launch.roofline, repro_torch.launch.cost\n"
+            "repro_torch.launch.roofline, repro_torch.launch.cost, repro_torch.launch.train, "
+            "repro_torch.train.optimizer, repro_torch.train.train_loop, "
+            "repro_torch.train.checkpoint, repro_torch.models.convert\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\nprint('clean')")
     r = _run(["-c", code], ROOT, {"PYTHONPATH": str(ROOT / "src")})
