@@ -142,6 +142,19 @@ or of the JAX package.  Phases, each printed with its seconds:
       run there twice (is the card's step deterministic?) and against
       the uninterrupted run; a float32 step with ``accum=2`` against
       ``accum=1`` within a quarter of its learning rate;
+   j. meshes and dry run (``repro_torch.launch.dryrun``, ``mesh``,
+      ``models.shardings``, ``pmesh``): the dry runs of Qwen3-0.6B at
+      ``train_4k`` and ``decode_32k`` on the fake 16 x 16 process group
+      (two host processes, while the rest runs), each record's peak,
+      per-device counts and roofline at the H100's data-sheet rates;
+      the dry run of path 3i's step on a (1, 1) mesh against that step
+      run on the card: the predicted peak within 3 % of the step's own
+      ``max_memory_allocated`` and its matmul flops equal to
+      ``FlopCounterMode``'s; the generator cell (``GNM(2^30, 2^34)``
+      planned at 256 and 512 ranks, PE 0's program on the card under
+      the op scan, no collective, its plan's edge count, each
+      ``chunk_sample`` and ``chunk_decode`` launch equal to its plain
+      version on the same inputs);
    each checked on the device; each ``collect`` must launch ``hist`` once
    per non-empty chunk of its first pass plus once per section histogram.  The generator
    paths run ``pair_mask``'s tiles inside ``pair_edges``, as the
@@ -176,13 +189,14 @@ or of the JAX package.  Phases, each printed with its seconds:
    adds a second ``pair_mask`` row: the hyp tile at ``rhg_pe``'s largest
    call, with its device time by a replayed CUDA graph and by the profiler.
    Path i adds no row: its step runs cuBLAS and ATen, its ``pair_mask``
-   launches join the kernel's count.
+   launches join the kernel's count; path j neither, its ``chunk_sample``
+   and ``chunk_decode`` launches join theirs.
 
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
 
 ``--only PATH`` (``er``, ``geom``, ``rdg``, ``families``, ``stats``, ``serve``, ``analyze``,
-``lm``, ``train``; repeatable)
+``lm``, ``train``, ``mesh``; repeatable)
 builds and runs
 only that main path and its phase 4 timing, and ``--no-timing`` stops
 after the path: run the same script in two checkouts in turns to
@@ -3762,6 +3776,181 @@ def train_timing(dev, out: dict, errs: Errors) -> list:
     return []
 
 
+MESH_DRYRUNS = (("train_4k", False), ("decode_32k", False))
+# the calibration step: path 3i's, 4 x 256 tokens in bf16 over float32 masters
+MESH_CALIBRATION = {"batch": 4, "seq": 256}
+# the dry run's peak against the step's own allocations on the card: on an
+# H100 80GB HBM3 the sound model read -0.41 %, and a dry run that lost the
+# 2.8 GiB of float32 masters -17 %
+MESH_PEAK_REL = 0.03
+
+
+def roofline_line(rec: dict) -> str:
+    """One dry-run record as a line: peak, per-device counts and the
+    roofline terms (computed from the H100's data-sheet rates)."""
+    r, d = rec["roofline"], rec["per_device"]
+    peak = rec.get("memory", {}).get("peak_per_device")
+    colls = ", ".join(f"{k} {v['count']} x {v['bytes'] / 1e9:.3f} GB"
+                      for k, v in rec.get("collectives", {}).items()) or "none"
+    return (f"{rec['arch']} {rec['shape']} on {rec['chips']} ranks"
+            f"{' (multi-pod)' if rec['multi_pod'] else ''}: "
+            + (f"peak {peak / 1e9:.3f} GB a device, " if peak else "")
+            + f"{d['flops']:.6e} flops, {d['bytes']:.6e} bytes, {d['collective_bytes']:.6e} "
+            f"collective bytes a device ({colls}); roofline from H100 data-sheet rates: compute "
+            f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s, collective "
+            f"{r['collective_s']:.6f} s, {rec['dominant']}"
+            + (f"; useful-flops ratio {rec['useful_flops_ratio']:.4f}"
+               if rec.get("useful_flops_ratio") else ""))
+
+
+def mesh_calibration(dev) -> dict:
+    """3j, part 2: the dry run of Qwen3-0.6B on a (1, 1) mesh at path 3i's
+    step against that step run on the card: the predicted peak within
+    ``MESH_PEAK_REL`` of ``max_memory_allocated`` less what was allocated
+    before the model was made (what earlier paths left), and the matmul
+    flops equal to ``FlopCounterMode``'s."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = get_config(LM_ARCH)
+    B, S = MESH_CALIBRATION["batch"], MESH_CALIBRATION["seq"]
+    spec = ShapeSpec("train_3i", "train", S, B)
+    t0 = time.perf_counter()
+    try:
+        _, _, cost = dryrun.run_step(LM_ARCH, spec, M.make_debug_mesh(1, 1), cfg=cfg)
+    finally:
+        M.reset()
+    dry_s = time.perf_counter() - t0
+    require(not cost.collectives, f"a (1, 1) dry run issued collectives {cost.collectives}")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+             "positions": np.tile(np.arange(S, dtype=np.int32), (B, 1))}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = T.model_init(cfg, device=dev)
+    opt = O.opt_init(params)
+    step = make_train_step(cfg, O.OptConfig())
+    step(params, opt, batch)                 # cuBLAS handles and workspaces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    out = step(params, opt, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = float(out[2]["loss"])
+    del out
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt, batch)
+    flops = fc.get_total_flops()
+    del params, opt
+    torch.cuda.empty_cache()
+    pred, pred_flops = cost.peak_bytes, cost.flops_by.get("matmul", 0)
+    rel = (pred - peak) / peak
+    print(f"  calibration ({card_line()}): {LM_ARCH} at full width, path 3i's step ({B} x {S} "
+          f"tokens, {cfg.dtype} over float32 masters, remat), dry run on a (1, 1) mesh "
+          f"({dry_s:.3f}s) against the step on the card ({step_s * 1e3:.3f} ms, loss "
+          f"{loss:.4f}): peak predicted {pred} bytes ({pred / 2 ** 30:.3f} GiB), measured "
+          f"max_memory_allocated less {base} bytes left by earlier paths {peak} bytes "
+          f"({peak / 2 ** 30:.3f} GiB; {(held - base) / 2 ** 30:.3f} GiB of it held before the "
+          f"step), {100 * rel:+.2f} %; matmul flops predicted {pred_flops}, "
+          f"FlopCounterMode {flops}; all flops predicted {cost.flops:.6e} (elementwise "
+          f"{cost.flops_by.get('elementwise', 0):.6e}, reduce {cost.flops_by.get('reduce', 0):.6e}),"
+          f" bytes {cost.bytes:.6e}")
+    require(math.isfinite(loss), f"the calibration step's loss is {loss}")
+    require(abs(rel) <= MESH_PEAK_REL, f"the dry run's peak {pred} is {100 * rel:+.2f} % off "
+            f"the card's {peak}, past {100 * MESH_PEAK_REL:.0f} %")
+    require(pred_flops == flops, f"the dry run's matmul flops {pred_flops} != the card's {flops}")
+    return {"pred_peak": pred, "peak": peak, "flops": flops}
+
+
+def phase_mesh(dev, sizes: dict) -> dict:
+    """Phase 3j: the LM's meshes and dry run (``--only mesh``): the dry
+    runs of Qwen3-0.6B at ``train_4k`` and ``decode_32k`` on the fake
+    16 x 16 mesh (``python -m repro_torch.launch.dryrun`` in two
+    processes, on the host, while the rest runs); the dry run at path 3i's
+    step on a (1, 1) mesh against the card's step; the generator cell
+    (``GNM(2^30, 2^34)``, PE 0's program on the card under the op scan, no
+    collective, each launch held against its plain version) at 256 and
+    512 ranks."""
+    import tempfile
+    from repro_torch.launch import dryrun
+
+    errs = Errors()
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    t0 = time.perf_counter()
+    for shape, mp in MESH_DRYRUNS:
+        out = os.path.join(outdir, f"{LM_ARCH}.{shape}.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM_ARCH,
+               "--shape", shape, "--out", out] + (["--multi-pod"] if mp else [])
+        procs.append((shape, out, subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                                                   stderr=subprocess.PIPE, text=True)))
+    try:
+        t1 = time.perf_counter()
+        cal = mesh_calibration(dev)
+        print(f"  [3j calibration {time.perf_counter() - t1:.3f}s]", flush=True)
+        gens = []
+        for mp in (False, True):
+            t1 = time.perf_counter()
+            # every launch held against its plain version at the cell's own
+            # shapes (PE 0's one row of 2^25 or 2^26 slots)
+            with held_kernels(errs, f"3j generator cell{' (multi-pod)' if mp else ''}") as held:
+                rec = dryrun.run_generator_cell(mp, n=sizes["mesh_gen_n"],
+                                                m=sizes["mesh_gen_m"], device=dev)
+            require(held.seen == rec["launches"], f"generator cell: held {held.seen} calls, "
+                    f"the op scan counted {rec['launches']} launches")
+            want = rec["edges_pe0_plan"]
+            require(rec["edges_pe0"] == want, f"generator cell: PE 0 gave {rec['edges_pe0']} "
+                    f"edges, its plan {want}")
+            print(f"  generator cell ({time.perf_counter() - t1:.3f}s, {card_line()}): "
+                  f"{roofline_line(rec)}; PE 0: {rec['edges_pe0']} edges, launches "
+                  f"{rec['launches']}, each == its plain version (max |err| chunk_sample "
+                  f"{errs.max['chunk_sample']}, chunk_decode {errs.max['chunk_decode']}), no "
+                  f"collective in its op scan", flush=True)
+            gens.append(rec)
+        recs = []
+        for shape, out, proc in procs:
+            _, err = proc.communicate(timeout=600)
+            require(proc.returncode == 0, f"dry run of {LM_ARCH} {shape} exited "
+                    f"{proc.returncode}: {err[-2000:]}")
+            with open(out) as f:
+                rec = json.load(f)
+            require(rec["status"] == "ok" and rec["memory"]["peak_per_device"] > 0
+                    and rec["per_device"]["flops"] > 0, f"dry run record {rec}")
+            print(f"  dry run ({rec['run_s']}s on the host): {roofline_line(rec)}")
+            recs.append(rec)
+        print(f"  [3j dry runs, joined at {time.perf_counter() - t0:.3f}s]", flush=True)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        import shutil
+        shutil.rmtree(outdir, ignore_errors=True)
+    return {"calibration": cal, "dryruns": recs, "generator": gens, "errs": errs}
+
+
+def mesh_timing(dev, out: dict, errs: Errors) -> list:
+    """Phase 4 of 3j: no kernel of its own; the generator cell's
+    ``chunk_sample``/``chunk_decode`` launches, each held against its plain
+    version, join those kernels' counts and errors."""
+    for k in MESH_KERNELS:
+        errs.max[k] = max(errs.max[k], out["errs"].max[k])
+    return []
+
+
 OFF_PATH = {"pair_mask": "euclid tile at its own contract's shape (the oracles' 128-row cell "
                          "blocks): the engine runs its tiles inside pair_edges; the hyp tile "
                          "is launched on path 3h by rhg_pe, the LM pipeline's graph (its row "
@@ -3795,7 +3984,8 @@ FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 
         "lm_batch": 8, "lm_prompt": 256, "lm_steps": 64, "lm_check_steps": 16,
         "lm_profiled_steps": 16,
         "train_steps": 20, "train_ckpt_every": 12, "train_profiled_steps": 3,
-        "train_overfit_steps": 30, "train_resume_steps": 3}
+        "train_overfit_steps": 30, "train_resume_steps": 3,
+        "mesh_gen_n": 1 << 30, "mesh_gen_m": 1 << 34}
 ER_KERNELS = ("chunk_sample", "chunk_decode", "hist")
 GEOM_KERNELS = ("pair_edges", "cell_points", "hist")
 RDG_KERNELS = ("triangulate", "circumspheres", "pair_edges", "cell_points")
@@ -3810,6 +4000,8 @@ LM_KERNELS = ("pair_mask", "chunk_sample", "chunk_decode")
 TRAIN_KERNELS = ("pair_mask",)
 # the kernels the registry launches on the card (RDG's planning and the
 # kernel cases among them)
+# the generator cell runs PE 0's program of GNM(2^30, 2^34)
+MESH_KERNELS = ("chunk_sample", "chunk_decode")
 ANALYZE_KERNELS = ("chunk_sample", "chunk_decode", "chunk_ba", "chunk_rmat", "pair_edges",
                    "cell_points", "pair_mask", "triangulate", "circumspheres")
 
@@ -3822,7 +4014,8 @@ PATHS = {"er": ("3a Erdős–Rényi", phase_main, ER_KERNELS, phase_timing),
          "serve": ("3f serve", phase_serve, SERVE_KERNELS, serve_timing),
          "analyze": ("3g contract checking", phase_analyze, ANALYZE_KERNELS, analyze_timing),
          "lm": ("3h LM serving", phase_lm, LM_KERNELS, lm_timing),
-         "train": ("3i training", phase_train, TRAIN_KERNELS, train_timing)}
+         "train": ("3i training", phase_train, TRAIN_KERNELS, train_timing),
+         "mesh": ("3j meshes and dry run", phase_mesh, MESH_KERNELS, mesh_timing)}
 
 
 def main(argv=None) -> int:

@@ -58,9 +58,15 @@ def get_smoke_config(arch: str) -> ArchConfig:
     return mod.get_smoke_config()
 
 
-def applicable(cfg: ArchConfig, shape: str) -> Tuple[bool, str]:
-    """Which (arch x shape) cells run, and why a cell is skipped."""
-    s = SHAPES[shape]
+def _spec(shape) -> ShapeSpec:
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def applicable(cfg: ArchConfig, shape) -> Tuple[bool, str]:
+    """Which (arch x shape) cells run, and why a cell is skipped
+    (``shape``: a name of :data:`SHAPES` or a :class:`ShapeSpec`)."""
+    s = _spec(shape)
+    shape = s.name
     if not cfg.causal and s.kind == "decode":
         return False, "encoder-only: no decode step"
     if shape == "long_500k":
@@ -74,12 +80,13 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(cfg: ArchConfig, shape: str) -> Dict[str, torch.Tensor]:
-    """Meta-tensor stand-ins for every model input (no allocation).
+def input_specs(cfg: ArchConfig, shape) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input (no allocation);
+    ``shape`` as in :func:`applicable`.
 
     [vlm]/[audio] archs receive precomputed patch/frame embeddings from
     the stub frontend instead of token ids."""
-    s = SHAPES[shape]
+    s = _spec(shape)
     i32 = torch.int32
     if s.kind == "train":
         out = {

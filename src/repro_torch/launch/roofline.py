@@ -15,11 +15,17 @@ states its bounds against.  The kernels' operations are integer
 predicates), each against its own peak; the LM's matmuls are bfloat16,
 against the tensor cores' dense rate.
 
-The reference's dry-run table CLI aggregates the LM's dry runs and is
-not ported with it.
+The dry-run table CLI (:func:`make_table`, ``python -m
+repro_torch.launch.roofline --dir DIR``) renders the records of
+:mod:`repro_torch.launch.sweep` as the reference's does, against the
+H100's 80 GB.
 """
 from __future__ import annotations
 
+import argparse
+import glob
+import json
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -123,3 +129,105 @@ def trace_summary(tr, programs: Optional[Dict[str, object]] = None,
             measured = totals.get("exec_s", 0.0)
         out["programs"][name] = program_summary(cost, measured, peaks)
     return out
+
+
+# --------------------------------------------------------------------------
+# the dry-run table CLI
+# --------------------------------------------------------------------------
+
+ARCH_ORDER = [
+    "deepseek_v2_lite_16b", "mixtral_8x7b", "qwen2_vl_72b", "smollm_360m",
+    "granite_20b", "gemma3_27b", "qwen3_0p6b", "jamba_v0_1_52b",
+    "hubert_xlarge", "mamba2_2p7b", "kagen_er_gnm",
+]
+SHAPE_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k", "gen"]
+
+HBM_PER_CHIP = 80 * 10**9  # H100 SXM: 80 GB of HBM3 (data sheet)
+
+
+def fmt_s(x):
+    if x is None:
+        return "-"
+    if x >= 1:
+        return f"{x:.2f}"
+    if x >= 1e-3:
+        return f"{x*1e3:.1f}m"
+    return f"{x*1e6:.0f}u"
+
+
+def load(dirname):
+    rows = {}
+    for f in glob.glob(os.path.join(dirname, "*.json")):
+        with open(f) as fh:
+            d = json.load(fh)
+        key = (d.get("arch"), d.get("shape"), bool(d.get("multi_pod")))
+        rows[key] = d
+    return rows
+
+
+def _gen_row(rows, multi_pod):
+    return next((d for (a, _, mp), d in sorted(rows.items(), key=str)
+                 if a == "kagen_er_gnm" and mp == multi_pod), None)
+
+
+def make_table(rows, multi_pod=False):
+    out = []
+    hdr = ("| arch | shape | compute_s | memory_s | collective_s | dominant | "
+           "peak GB/chip | fits | useful-flops ratio | bottleneck note |")
+    sep = "|" + "---|" * 10
+    out.append(hdr)
+    out.append(sep)
+    for arch in ARCH_ORDER:
+        for shape in SHAPE_ORDER:
+            d = rows.get((arch, shape, multi_pod))
+            if d is None and shape == "gen" and arch == "kagen_er_gnm":
+                d = _gen_row(rows, multi_pod)
+            if d is None:
+                continue
+            if d["status"] == "skipped":
+                out.append(f"| {arch} | {shape} | - | - | - | skipped | - | - | - | {d['reason']} |")
+                continue
+            if d["status"] != "ok":
+                note = d.get("reason") or d.get("stderr", "")[:40]
+                out.append(f"| {arch} | {shape} | - | - | - | ERROR | - | - | - | {note} |")
+                continue
+            r = d["roofline"]
+            peak = d.get("memory", {}).get("peak_per_device")
+            peak_gb = f"{peak/10**9:.1f}" if peak else "-"
+            fits = "yes" if (peak or 0) <= HBM_PER_CHIP else "NO"
+            ratio = d.get("useful_flops_ratio")
+            ratio_s = f"{ratio:.2f}" if ratio else "-"
+            note = _note(d)
+            out.append(
+                f"| {arch} | {shape} | {fmt_s(r['compute_s'])} | {fmt_s(r['memory_s'])} "
+                f"| {fmt_s(r['collective_s'])} | {d['dominant'].replace('_s','')} "
+                f"| {peak_gb} | {fits} | {ratio_s} | {note} |"
+            )
+    return "\n".join(out)
+
+
+def _note(d):
+    dom = d["dominant"]
+    colls = d.get("collectives", {})
+    if d.get("zero_collectives"):
+        return "communication-free by construction (asserted)"
+    if dom == "collective_s":
+        big = max(colls.items(), key=lambda kv: kv[1]["bytes"])[0] if colls else "?"
+        return f"dominated by {big}; cut via RS/AG + bf16 gathers"
+    if dom == "memory_s":
+        return "bytes-proxy bound; fuse/avoid materialized intermediates"
+    return "compute-bound: near roofline if overlap hides comm"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.roofline")
+    ap.add_argument("--dir", default=os.path.join("results", "torch_dryrun"))
+    ap.add_argument("--multi-pod", action="store_true")
+    args = ap.parse_args(argv)
+    rows = load(args.dir)
+    print(make_table(rows, args.multi_pod))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

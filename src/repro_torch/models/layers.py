@@ -12,9 +12,13 @@ rows into expert buffers.
 
 Caches are dicts of tensors with ``idx`` a Python int (the number of
 positions written); a cache write fills the cache tensor in place and
-the new cache dict holds the same tensors.  The reference's sharding
-hints (``pmesh.constrain``) and its masked single-token cache write act
-only under a device mesh and are left out.
+the new cache dict holds the same tensors.  Under a device mesh
+(:func:`repro_torch.models.pmesh.use_hints`) the reference's sharding
+hints redistribute DTensors at its sites, a cache write returns a new
+tensor (a masked single-token write, local on every shard of a
+sequence-sharded cache), and the MoE dispatch runs in one group a
+data-parallel rank; outside one, the hints return their input and the
+code computes what it did without them.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import pmesh
 from .config import ArchConfig
 
 Params = Dict[str, torch.Tensor]
@@ -152,9 +157,23 @@ _Q_CHUNK = 1024  # q-block size for chunked attention
 def cache_write(cache_arr: torch.Tensor, new: torch.Tensor, idx: int) -> torch.Tensor:
     """Write ``new`` [B, S, ...] into ``cache_arr`` [B, Smax, ...] at
     position ``idx``, in place; returns ``cache_arr``.  The start is
-    clamped so the update fits, as ``dynamic_update_slice`` clamps it."""
+    clamped so the update fits, as ``dynamic_update_slice`` clamps it.
+
+    Under mesh hints the write returns a new tensor.  A single token goes
+    in by a masked (one-hot) write: a slice update of a sequence-sharded
+    cache would gather the whole cache every step, while the masked write
+    is local on every shard (the owner takes ``new``, the others keep
+    their slice).  A longer write concatenates around the update."""
     S = new.shape[1]
     start = min(max(int(idx), 0), cache_arr.shape[1] - S)
+    if pmesh.current() is not None:
+        if S == 1:
+            iota = torch.arange(cache_arr.shape[1], device=cache_arr.device)
+            mask = (iota == start).reshape((1, -1) + (1,) * (cache_arr.dim() - 2))
+            return torch.where(mask, new.to(cache_arr.dtype), cache_arr)
+        parts = [cache_arr[:, :start], new.to(cache_arr.dtype),
+                 cache_arr[:, start + S:]]
+        return torch.cat([q for q in parts if q.shape[1]], dim=1)
     cache_arr[:, start:start + S] = new.to(cache_arr.dtype)
     return cache_arr
 
@@ -170,20 +189,29 @@ def _sdpa(q, k, v, hd, n_heads, *, causal, window, q_offset):
     G = n_heads // k.shape[2]
     kx = torch.repeat_interleave(k, G, dim=2)
     vx = torch.repeat_interleave(v, G, dim=2)
+    kx = pmesh.constrain(kx, "dp", None, "tp", None)
+    vx = pmesh.constrain(vx, "dp", None, "tp", None)
 
-    def attend(q_blk, offset):
-        scores = _einsum("bshd,bthd->bhst", q_blk, kx).to(torch.float32)
-        scores = scores / math.sqrt(hd)
-        mask = attn_mask(q_blk.shape[1], T, causal=causal, window=window,
-                         q_offset=offset, device=q.device)
-        scores = torch.where(mask[None, None], scores, -1e30)
-        w = torch.softmax(scores, dim=-1).to(v.dtype)
-        return _einsum("bhst,bthd->bshd", w, vx)
+    def attend_all(q, kx, vx):
+        def attend(q_blk, offset):
+            scores = _einsum("bshd,bthd->bhst", q_blk, kx).to(torch.float32)
+            scores = scores / math.sqrt(hd)
+            mask = attn_mask(q_blk.shape[1], T, causal=causal, window=window,
+                             q_offset=offset, device=q.device)
+            scores = torch.where(mask[None, None], scores, -1e30)
+            w = torch.softmax(scores, dim=-1).to(v.dtype)
+            return _einsum("bhst,bthd->bshd", w, vx)
 
-    if S <= _Q_CHUNK or S % _Q_CHUNK:
-        return attend(q, q_offset)
-    return torch.cat([attend(q[:, i:i + _Q_CHUNK], q_offset + i)
-                      for i in range(0, S, _Q_CHUNK)], dim=1)
+        if S <= _Q_CHUNK or S % _Q_CHUNK:
+            return attend(q, q_offset)
+        return torch.cat([attend(q[:, i:i + _Q_CHUNK], q_offset + i)
+                          for i in range(0, S, _Q_CHUNK)], dim=1)
+
+    # under mesh hints, with q as kx and vx (batch and heads sharded),
+    # each rank attends over its own shards
+    if pmesh.current() is not None and q.placements == kx.placements:
+        return pmesh.local(attend_all, q, kx, vx)
+    return attend_all(q, kx, vx)
 
 
 def _sdpa_decode(q, k, v, hd, n_heads, *, window, q_offset, key_pos=None):
@@ -193,6 +221,9 @@ def _sdpa_decode(q, k, v, hd, n_heads, *, window, q_offset, key_pos=None):
     B, S, H, _ = q.shape
     KV = k.shape[2]
     G = n_heads // KV
+    # under mesh hints the heads split into (KV, G) only where the kv
+    # heads take the tensor-parallel shards whole
+    q = pmesh.constrain(q, "dp", None, "tp" if pmesh.splits("tp", KV) else None, None)
     qg = q.reshape(B, S, KV, G, hd)
     scores = _einsum("bskgh,btkh->bkgst", qg, k).to(torch.float32)
     scores = scores / math.sqrt(hd)
@@ -218,15 +249,31 @@ def attention(p: Params, cfg: ArchConfig, x: torch.Tensor, pos: torch.Tensor,
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, KV, hd)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, KV, hd)
+    # under mesh hints the flat projections are placed as the heads will
+    # be (below) before they are split into heads
+    q = x @ p["wq"].to(dt)
+    if H % pmesh.tp_size():
+        q = pmesh.constrain(q, "dp", "tp", None)
+    q = q.reshape(B, S, H, hd)
+    k = pmesh.constrain(x @ p["wk"].to(dt), "dp", None, None).reshape(B, S, KV, hd)
+    v = pmesh.constrain(x @ p["wv"].to(dt), "dp", None, None).reshape(B, S, KV, hd)
     if cfg.qk_norm:
         q = _qk_normalize(q, p["q_norm"])
         k = _qk_normalize(k, p["k_norm"])
+    # GQA: kv heads rarely divide the TP axis; replicate k/v across TP
+    # (they are small) so the head expansion is a local slice
+    k = pmesh.constrain(k, "dp", None, None, None)
+    v = pmesh.constrain(v, "dp", None, None, None)
     sections = (16, 24, 24) if (cfg.mrope and hd == 128) else None
     q = apply_rope(q, pos, cfg.rope_theta, sections)
     k = apply_rope(k, pos, cfg.rope_theta, sections)
+
+    # TP strategy: head-sharded when H divides the TP axis; otherwise
+    # (ragged head counts, e.g. 15) context-parallel: shard q's seq axis
+    if H % pmesh.tp_size() == 0:
+        q = pmesh.constrain(q, "dp", None, "tp", None)
+    else:
+        q = pmesh.constrain(q, "dp", "tp", None, None)
 
     window = cfg.window if kind == "swa" else 0
     if cache is None:
@@ -264,7 +311,12 @@ def attention(p: Params, cfg: ArchConfig, x: torch.Tensor, pos: torch.Tensor,
             else:  # prefill into the cache: chunked path, no [S,T] blowup
                 out = _sdpa(q, ck, cv, hd, H, causal=True, window=window, q_offset=idx)
         new_cache = {"k": ck, "v": cv, "idx": idx + S}
+    # the heads merge where they were split: seq-sharded when H does not
+    # divide the TP axis (a constraint on the merge keeps the gradient
+    # arriving there in the same placement)
     out = out.reshape(B, S, H * hd)
+    if H % pmesh.tp_size():
+        out = pmesh.constrain(out, "dp", "tp", None)
     return out @ p["wo"].to(dt), new_cache
 
 
@@ -419,29 +471,45 @@ def moe_route(p: Params, cfg: ArchConfig, xg: torch.Tensor):
 
 
 def moe(p: Params, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token-choice top-k with capacity dispatch over one group of tokens
-    (the reference's groups ride a data-parallel mesh axis).  Dispatch
-    and combine are row scatters and gathers, one top-k slot at a time,
-    never the one-hot einsum.  Returns (out, aux_loss)."""
+    """Token-choice top-k with grouped-local capacity dispatch.
+
+    Tokens are processed in G groups aligned with the data-parallel axes
+    (G = their size under mesh hints when it divides the tokens, 1
+    otherwise): routing positions and the dispatch are computed per
+    group, so every buffer carries a leading dp-shardable group dim, and
+    each group's capacity is ``cf * Tg * K / E``.  Dispatch and combine
+    are row scatters and gathers, one top-k slot at a time, never the
+    one-hot einsum.  Returns (out, aux_loss)."""
     B, S, d = x.shape
     E, T, dt = cfg.n_experts, B * S, x.dtype
+    hints = pmesh.current()
+    G = hints.axis_size("dp") if hints and T % hints.axis_size("dp") == 0 else 1
+    Tg = T // G
     xt = x.reshape(T, d)
-    gate, _, keep, dest, C, aux = moe_route(p, cfg, xt[None])
-    gate, keep, dest = gate[0], keep[0], dest[0]
-
-    # the overflow row E * C takes every dropped choice and is cut off
-    buf = torch.zeros((E * C + 1, d), dtype=dt, device=x.device)
+    gate, _, keep, dest, C, aux = moe_route(p, cfg, xt.reshape(G, Tg, d))
+    gate, keep = gate.reshape(T, -1), keep.reshape(T, -1)
+    # group g's rows start at g * (E * C + 1); its row E * C takes every
+    # dropped choice and is cut off
+    grp = torch.arange(G, device=x.device).repeat_interleave(Tg)     # each token's group
+    dest = dest.reshape(T, -1)
+    buf = torch.zeros((G * (E * C + 1), d), dtype=dt, device=x.device)
     for kk in range(cfg.top_k):
-        buf = buf.index_add(0, dest[:, kk], xt)
-    buf = buf[:-1].reshape(E, C, d)
+        buf = buf.index_add(0, dest[:, kk] + grp * (E * C + 1), xt)
+    buf = buf.reshape(G, E * C + 1, d)[:, :-1].reshape(G, E, C, d)
+    # groups ride the dp axis; experts ride TP when they divide it (EP),
+    # otherwise the expert FFN width is sharded over TP
+    ep = E % pmesh.tp_size() == 0
+    buf = pmesh.constrain(buf, "dp", "tp" if ep else None, None, None)
 
-    h = F.silu(_einsum("ecd,edf->ecf", buf, p["w_gate"].to(dt)))
-    h = h * _einsum("ecd,edf->ecf", buf, p["w_up"].to(dt))
-    rows = _einsum("ecf,efd->ecd", h, p["w_down"].to(dt)).reshape(E * C, d)
+    h = F.silu(_einsum("gecd,edf->gecf", buf, p["w_gate"].to(dt)))
+    h = h * _einsum("gecd,edf->gecf", buf, p["w_up"].to(dt))
+    if not ep:
+        h = pmesh.constrain(h, "dp", None, None, "tp")
+    rows = _einsum("gecf,efd->gecd", h, p["w_down"].to(dt)).reshape(G * E * C, d)
 
     combined = torch.zeros((T, d), dtype=dt, device=x.device)
     for kk in range(cfg.top_k):
-        r = rows[torch.clamp(dest[:, kk], max=E * C - 1)]
+        r = rows[torch.clamp(dest[:, kk], max=E * C - 1) + grp * (E * C)]
         combined = combined + r * (gate[:, kk] * keep[:, kk]).to(dt)[:, None]
 
     if cfg.n_shared_experts:

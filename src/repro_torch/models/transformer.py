@@ -25,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from . import pmesh
 from ..kernels.build import resolve_device
 from .config import ArchConfig, torch_dtype
 
@@ -120,7 +121,10 @@ def block_apply(p: Params, cfg: ArchConfig, i: int, x, pos,
     """Returns (x, aux_loss, new_cache)."""
     sig = layer_signature(cfg, i)
     p = cast_params(p, cfg.dtype)
-    h = L.rmsnorm(p["norm1"], x)
+    # under mesh hints the sequence-sharded residual is gathered for the
+    # tensor-parallel products (Megatron-SP's all-gather, which GSPMD
+    # inserts for the reference)
+    h = pmesh.constrain(L.rmsnorm(p["norm1"], x), "dp", None, None)
     if sig[0] == "attn":
         if cfg.mla:
             mix, new_cache = L.mla_attention(p["mixer"], cfg, h, pos, cache=cache)
@@ -128,15 +132,18 @@ def block_apply(p: Params, cfg: ArchConfig, i: int, x, pos,
             mix, new_cache = L.attention(p["mixer"], cfg, h, pos, sig[1], cache=cache)
     else:
         mix, new_cache = L.mamba2(p["mixer"], cfg, h, cache=cache)
-    x = x + mix
+    # each branch meets the residual sequence-sharded (a reduce-scatter of
+    # the tensor-parallel partial sums); its gradient returns so too
+    x = x + pmesh.constrain(mix, "dp", "tp", None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
-        h2 = L.rmsnorm(p["norm2"], x)
+        h2 = pmesh.constrain(L.rmsnorm(p["norm2"], x), "dp", None, None)
         if sig[2]:
             f, aux = L.moe(p["ffn"], cfg, h2)
         else:
             f = L.mlp(p["ffn"], h2)
-        x = x + f
+        x = x + pmesh.constrain(f, "dp", "tp", None)
+    x = pmesh.constrain(x, "dp", "tp", None)
     return x, aux, new_cache
 
 
@@ -192,22 +199,29 @@ def cast_params(p, dtype) -> Params:
     """Mixed precision: every float32 tensor with two or more dimensions
     (the MoE router included) cast to the compute dtype; 1-D tensors
     (norm scales, ``A_log``, ``dt_bias``, ``D``) stay float32.  Returns
-    plain dicts; autograd flows through the casts to the masters."""
+    plain dicts; autograd flows through the casts to the masters.  Under
+    mesh hints each cast weight is also grad-pinned after its cast: its
+    gradient is moved to the parameter's placements where it is made, a
+    reduce-scatter of bf16 bytes instead of a late all-reduce."""
     dt = torch_dtype(dtype)
+    hints = pmesh.current()
 
-    def leaf(x):
+    def leaf(name, x):
         if x.dtype == torch.float32 and x.dim() >= 2:
-            return x.to(dt)
+            x = x.to(dt)
+            if hints is not None:
+                from .shardings import leaf_spec
+                x = pmesh.pin_grad(x, leaf_spec(name, tuple(x.shape), hints.mesh))
         return x
 
-    def walk(t):
+    def walk(name, t):
         if isinstance(t, (dict, ParamTree)):
-            return {k: walk(v) for k, v in t.items()}
+            return {k: walk(k, v) for k, v in t.items()}
         if isinstance(t, (list, tuple, nn.ModuleList)):
-            return [walk(v) for v in t]
-        return leaf(t)
+            return [walk(name, v) for v in t]
+        return leaf(name, t)
 
-    return walk(p)
+    return walk(None, p)
 
 
 def _embed_tokens(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
@@ -216,6 +230,12 @@ def _embed_tokens(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
         return batch["embeds"].to(dt)
     # the B x S rows first, then the cast: the same values as casting
     # the whole table, without its traffic
+    if pmesh.current() is not None:
+        # under mesh hints, as the reference: the table cast, gathered
+        # whole on every rank, and looked up for the rank's tokens (its
+        # gradient leaves reduce-scattered onto the table's shards)
+        tok = pmesh.constrain(p["embed"]["tok"].to(dt), None, None)
+        return torch.nn.functional.embedding(batch["tokens"].long(), tok)
     return p["embed"]["tok"][batch["tokens"].long()].to(dt)
 
 
@@ -241,6 +261,9 @@ def forward(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     :func:`detect_layout` (layers ``prefix + r * period + j``) is
     checkpointed when ``reps >= 2``; the prefix and the remainder are not."""
     x = _embed_tokens(p, cfg, batch)
+    # the residual stream is sequence-sharded between blocks under mesh
+    # hints (Megatron-SP)
+    x = pmesh.constrain(x, "dp", "tp", None)
     pos = batch["positions"]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[dict] = []
@@ -269,12 +292,45 @@ def caches_init(cfg: ArchConfig, batch: int, s_max: int, dtype, device=None) -> 
 
 # ------------------------------------------------------------- loss
 
+def _sum_exp(logits, m):
+    return torch.sum(torch.exp(logits - m), dim=-1)
+
+
+def _masked_target(logits, labels, iota):
+    """Each row's logit at its label among the vocabulary ``iota``
+    indexes (0 where the label is elsewhere)."""
+    return torch.sum(torch.where(iota == labels[..., None], logits, 0.0), dim=-1)
+
+
+def _gathered_target(logits, labels):
+    return torch.gather(logits, -1, labels[..., None])[..., 0]
+
+
 def _chunk_ce(h, head, labels):
     """Summed cross-entropy of one chunk: h [B, ck, D], labels [B, ck]."""
     logits = (h @ head).to(torch.float32)                            # [B, ck, V]
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return torch.sum(lse - tgt)
+    logits = pmesh.constrain(logits, "dp", None, "tp")               # vocab-sharded
+    if pmesh.splits("tp", logits.shape[-1]):
+        # vocab-parallel: the log-sum-exp from each rank's max and sum of
+        # exponentials over its vocabulary slice, the target's logit as a
+        # masked sum over it, the sums on each rank's shards; each reduced
+        # across the ranks to every rank (and its gradient given to every
+        # rank so, to split locally), so no rank holds the whole vocabulary
+        m = pmesh.constrain(torch.amax(logits, dim=-1, keepdim=True).detach(), "dp", None, None)
+        s = pmesh.constrain(pmesh.local(_sum_exp, logits, m, summed=2), "dp", None)
+        lse = m[..., 0] + torch.log(s)
+        iota = pmesh.constrain(torch.arange(logits.shape[-1], device=logits.device), "tp")
+        tgt = pmesh.constrain(pmesh.local(_masked_target, logits,
+                                          pmesh.constrain(labels, "dp", None), iota,
+                                          summed=2), "dp", None)
+    else:
+        # the gather on each rank's shards: DTensor's own gradient of it
+        # is a zero tensor of the whole batch on a mesh with a pod axis
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = pmesh.local(_gathered_target, logits, pmesh.constrain(labels, "dp", None))
+    # the tokens' losses split over the batch, and so their gradient: the
+    # sum's backward would give it to every rank whole
+    return torch.sum(pmesh.constrain(lse - tgt, "dp", None))
 
 
 def lm_loss(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -286,6 +342,15 @@ def lm_loss(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     B, S, D = h.shape
     labels = batch["labels"].long()
     head = p["embed"]["head"].to(h.dtype)
+    if pmesh.current() is not None:
+        from .shardings import leaf_spec
+        head = pmesh.pin_grad(head, leaf_spec("head", tuple(head.shape), pmesh.current().mesh))
+        # the head gathered over the data axes and split over the
+        # vocabulary (FSDP's weight gather), the sequence gathered (as
+        # before a block's products): each rank's logits are its own
+        # tokens' over its vocabulary slice, never the whole batch's
+        head = pmesh.constrain(head, None, "tp")
+        h = pmesh.constrain(h, "dp", None, None)
     ce = _chunk_ce
     if torch.is_grad_enabled():
         ce = lambda *args: _remat(_chunk_ce, *args)

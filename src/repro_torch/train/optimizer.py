@@ -56,7 +56,8 @@ def opt_init(params) -> Dict[str, Any]:
     """Zero moments for every parameter of ``params`` (a ``ParamTree``),
     on its device, and step 0."""
     named = list(params.named_parameters())
-    zeros = lambda: {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like keeps a DTensor parameter's placements (the dry run)
+    zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
                      for k, p in named}
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=named[0][1].device)}

@@ -50,7 +50,7 @@ def make_train_step(
         if accum == 1:
             loss, metrics, grads = grads_of(params, names, leaves, batch)
         else:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in leaves]
+            acc = [torch.zeros_like(p, dtype=torch.float32, requires_grad=False) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             for mb in range(accum):
                 micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[mb]

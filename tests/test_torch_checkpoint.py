@@ -236,11 +236,12 @@ def test_launch_train_resumes_from_its_checkpoint(tmp_path, capsys):
 
 
 def test_launch_train_refuses_meshes_and_needs_the_cpu_asked_for(tmp_path, capsys):
-    for flag in (["--model-mesh", "2"], ["--multihost"]):
+    # a model mesh needs torchrun's processes; one host only
+    for flag, why in ((["--model-mesh", "2"], "needs torchrun"), (["--multihost"], "one host")):
         with pytest.raises(SystemExit) as e:
             launch_train.main(flag + ["--ckpt-dir", str(tmp_path)])
         assert e.value.code == 2
-        assert "ROADMAP item 10e" in capsys.readouterr().err
+        assert why in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             launch_train.main(["--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)])

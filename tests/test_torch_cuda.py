@@ -901,3 +901,41 @@ def test_smoke_train_steps_on_the_card_match_cpu(cuda, arch):
         assert int(og["step"]) == accum
         step_errors(dict(pg.named_parameters()), og["m"], mg,
                     dict(pc.named_parameters()), oc["m"], mc)
+
+
+def test_generator_cell_on_the_card(cuda):
+    """The dry run's generator cell: PE 0's program of a GNM plan on the
+    card under the op scan, no collective, its plan's edges."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_generator_cell(False, n=1 << 20, m=1 << 24, chips=16, device=cuda)
+    assert rec["zero_collectives"] and rec["device"] == "cuda"
+    assert rec["edges_pe0"] == rec["edges_pe0_plan"] > 0
+    assert rec["launches"]["chunk_sample"] >= 1 and rec["launches"]["chunk_decode"] >= 1
+
+
+def test_dryrun_matmul_flops_equal_the_card_step(cuda):
+    """The (1, 1) dry run of qwen3's smoke train step counts the matmul
+    flops that ``FlopCounterMode`` counts of that step on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = get_smoke_config("qwen3_0p6b")
+    spec = ShapeSpec("train_smoke", "train", 64, 4)
+    try:
+        mesh.reset()
+        _, _, cost = dryrun.run_step("qwen3_0p6b", spec, mesh.make_debug_mesh(1, 1), cfg=cfg)
+    finally:
+        mesh.reset()
+    params = T.model_init(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32),
+             "positions": np.tile(np.arange(64, dtype=np.int32), (4, 1))}
+    with FlopCounterMode(display=False) as fc:
+        make_train_step(cfg, O.OptConfig())(params, O.opt_init(params), batch)
+    assert cost.flops_by["matmul"] == fc.get_total_flops() > 0
