@@ -106,10 +106,12 @@ or of the JAX package.  Phases, each printed with its seconds:
       ``train.serve``): ``make_global_batch`` at ``launch/train.py``'s
       data config (``rhg_walk``, n = 4096, sequences of 256, four a
       shard, seed 11) with 1 and 4 shards, steps 0 to 3, and one
-      ``er_walk`` batch, on the card with the graphs cold (timed), then
-      again with every ``pair_mask`` launch of ``rhg_pe`` and every
-      ``chunk_sample``/``chunk_decode`` launch of ``gnm_undirected_pe``
-      held against its plain version on the same inputs; every batch's
+      ``er_walk`` batch, on the card with the graphs cold (timed, each
+      ``rhg_pe`` call's wall printed), then again with every
+      ``hyp_edges`` launch of ``rhg_pe`` (one a graph, and no
+      ``pair_mask`` launch) and every ``chunk_sample``/``chunk_decode``
+      launch of ``gnm_undirected_pe`` held against its plain version on
+      the same inputs, the launches of a pass printed; every batch's
       digests equal
       to ``golden/data.json`` on the card and on the CPU; the ten
       architectures at smoke size in float32, the same weights on the
@@ -129,8 +131,9 @@ or of the JAX package.  Phases, each printed with its seconds:
       CPU from the same weights, held by the CPU tests' tolerances
       (``tests/torch_train_tol.py``); Qwen3-0.6B at full width in bf16:
       ``launch/train.py``'s ``main`` for 20 steps at its data config (the
-      graph cold, every ``pair_mask`` launch of the first batch held
-      against its plain version), checkpointed in the background at step
+      graph cold, the ``hyp_edges`` launch of the first batch held
+      against its plain version, no ``pair_mask`` launch), checkpointed in
+      the background at step
       12 and at the end, each step timed (median, min–max after the
       first, tokens/s, the share of the bf16 dense peak, ``launch/cost.py``'s
       ``lm_train`` bound, peak memory); ``opt_update`` alone and three
@@ -158,8 +161,9 @@ or of the JAX package.  Phases, each printed with its seconds:
    each checked on the device; each ``collect`` must launch ``hist`` once
    per non-empty chunk of its first pass plus once per section histogram.  The generator
    paths run ``pair_mask``'s tiles inside ``pair_edges``, as the
-   reference's engine does; ``pair_mask`` itself is launched by ``rhg_pe``
-   on paths h and i and by the registry's kernel case (path g).
+   reference's engine does; ``rhg_pe`` runs the hyp tile over all its
+   segments in one ``hyp_edges`` call (paths h and i), and ``pair_mask``
+   itself is launched by the registry's kernel case (path g).
 4. each kernel timed at its main-path shape beside its plain version,
    the library call computing the same function (where there is one)
    and its bound (``pair_mask`` at its own contract's shape, the
@@ -186,10 +190,15 @@ or of the JAX package.  Phases, each printed with its seconds:
    result line.  The kernel timings also print the median and min–max of
    their reps one at a time, and each ``kernels`` entry carries that
    median as ``median_ms`` beside the back-to-back mean ``ms``.  Path h
-   adds a second ``pair_mask`` row: the hyp tile at ``rhg_pe``'s largest
-   call, with its device time by a replayed CUDA graph and by the profiler.
-   Path i adds no row: its step runs cuBLAS and ATen, its ``pair_mask``
-   launches join the kernel's count; path j neither, its ``chunk_sample``
+   adds the ``hyp_edges`` row at ``rhg_pe``'s table at P = 1, with its
+   device time by a replayed CUDA graph of its passes and by the
+   profiler; the dense route it replaced (a ``pair_mask`` launch a
+   segment, the masks copied back, ``np.nonzero``) against it in turns on
+   the same segments at P = 1 and P = 4, with the same hits in the same
+   order; ``rhg_pe``'s walls, warm; and a second ``pair_mask`` row, the
+   hyp tile at the largest segment on the dense route's padded blocks.
+   Path i adds no row: its step runs cuBLAS and ATen, its ``hyp_edges``
+   launch joins the kernel's count; path j neither, its ``chunk_sample``
    and ``chunk_decode`` launches join theirs.
 
 It exits non-zero on any failure, when no CUDA device is present and
@@ -204,6 +213,7 @@ compare them on one card.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -296,7 +306,7 @@ class Errors:
 
     def __init__(self):
         self.max = {"chunk_sample": 0, "chunk_decode": 0, "hist": 0,
-                    "pair_mask": 0, "pair_edges": 0, "cell_points": 0,
+                    "pair_mask": 0, "hyp_edges": 0, "pair_edges": 0, "cell_points": 0,
                     "triangulate": 0, "circumspheres": 0,
                     "chunk_rmat": 0, "chunk_ba": 0, "close_wedges": 0}
 
@@ -656,6 +666,8 @@ KERNEL_GROUPS = {
     "sample_merge_kernel": "chunk_sample", "sample_rounds_kernel": "chunk_sample",
     "chunk_decode_kernel": "chunk_decode",
     "hist_kernel": "hist", "pair_mask_kernel": "pair_mask", "pair_edges_kernel": "pair_edges",
+    "hyp_plan_kernel": "hyp_edges", "hyp_pass_kernel": "hyp_edges",
+    "hyp_scan_kernel": "hyp_edges",
     "cell_points_kernel": "cell_points", "triangulate_kernel": "triangulate",
     "circumspheres_kernel": "circumspheres", "chunk_rmat_kernel": "chunk_rmat",
     "chunk_ba_kernel": "chunk_ba", "close_wedges_kernel": "close_wedges"}
@@ -2928,28 +2940,31 @@ def lm_groups(key: str) -> str:
 
 
 class held_lm_kernels:
-    """Within: ``rhg.pair_mask``, ``er.sample_rows`` and ``er.chunk_decode``
+    """Within: ``rhg.hyp_edges``, ``er.sample_rows`` and ``er.chunk_decode``
     launch their kernels and hold each result against the plain version
-    on the same inputs (``pair_mask``'s on the CPU), so each meets it at
-    the pipeline's shapes and data; ``shapes`` keeps every ``pair_mask``
-    call's inputs, ``seen`` counts the calls held."""
+    on the same inputs (``hyp_edges``' on the CPU), so each meets it at
+    the pipeline's shapes and data; ``tables`` keeps every ``hyp_edges``
+    call's inputs (on the card) and hit count, ``seen`` counts the calls
+    held."""
 
     def __init__(self, errs: Errors):
-        self.errs, self.shapes, self.seen, self.undo = errs, [], {}, []
+        self.errs, self.tables, self.seen, self.undo = errs, [], {}, []
 
     def __enter__(self):
         from repro_torch.core import er, rhg
-        from repro_torch.kernels.pairmask.ref import pair_mask_ref
+        from repro_torch.kernels.pairmask.ref import hyp_edges_ref
         from repro_torch.kernels.sampler.ref import chunk_decode_ref, sample_rows_ref
         errs, seen = self.errs, self.seen
-        mask, sample, decode = rhg.pair_mask, er.sample_rows, er.chunk_decode
+        edges, sample, decode = rhg.hyp_edges, er.sample_rows, er.chunk_decode
 
-        def held_mask(q, c, cosh_r, *, tile):
-            out = mask(q, c, cosh_r, tile=tile)
-            errs.same("pair_mask", out.cpu(), pair_mask_ref(q.cpu(), c.cpu(), cosh_r, tile=tile),
-                      f"pair_mask {tile} at rhg_pe's [{q.shape[0]}, 8] x [{c.shape[0]}, 8]")
-            self.shapes.append((q, c, cosh_r))
-            seen["pair_mask"] = seen.get("pair_mask", 0) + 1
+        def held_edges(q, c, q_gid, c_gid, segments, cosh_r):
+            out = edges(q, c, q_gid, c_gid, segments, cosh_r)
+            cpu = [t.cpu() for t in (q, c, q_gid, c_gid, segments)]
+            errs.same("hyp_edges", out.cpu(), hyp_edges_ref(*cpu, cosh_r),
+                      f"hyp_edges at rhg_pe's table of {len(segments)} segments, q [{len(q)}, 4], "
+                      f"c [{len(c)}, 4]")
+            self.tables.append(((q, c, q_gid, c_gid, segments, cosh_r), len(out)))
+            seen["hyp_edges"] = seen.get("hyp_edges", 0) + 1
             return out
 
         def held_sample(key, universe, count, capacity):
@@ -2967,7 +2982,7 @@ class held_lm_kernels:
             seen["chunk_decode"] = seen.get("chunk_decode", 0) + 1
             return out
 
-        for mod, name, fn in ((rhg, "pair_mask", held_mask), (er, "sample_rows", held_sample),
+        for mod, name, fn in ((rhg, "hyp_edges", held_edges), (er, "sample_rows", held_sample),
                               (er, "chunk_decode", held_decode)):
             self.undo.append((mod, name, getattr(mod, name)))
             setattr(mod, name, fn)
@@ -2978,12 +2993,48 @@ class held_lm_kernels:
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def timed_rhg_pe(walls: list):
+    """Within: every ``rhg.rhg_pe`` call appends ``(P, pe, wall s)`` to
+    ``walls`` (it returns host arrays: its wall ends after the card's
+    work)."""
+    from repro_torch.core import rhg
+
+    real = rhg.rhg_pe
+
+    def timed(params, P, pe, *a, **k):
+        t0 = time.perf_counter()
+        out = real(params, P, pe, *a, **k)
+        walls.append((P, pe, time.perf_counter() - t0))
+        return out
+    rhg.rhg_pe = timed
+    try:
+        yield walls
+    finally:
+        rhg.rhg_pe = real
+
+
+def rhg_pe_line(walls: list) -> str:
+    """``rhg_pe`` walls by P: a run is the calls of shards 0 .. P - 1,
+    summed."""
+    runs: dict = {}
+    for P, pe, w in walls:
+        if pe == 0:
+            runs.setdefault(P, []).append(0.0)
+        runs[P][-1] += w
+    return "; ".join(f"P={P}{' (all shards)' if P > 1 else ''}: "
+                     + ", ".join(f"{w:.6f}" for w in ws) + " s"
+                     for P, ws in sorted(runs.items()))
+
+
 def lm_pipeline(dev, errs: Errors) -> dict:
     """3h, part 1: ``make_global_batch`` at ``launch/train.py``'s data
-    config on the card, timed with the graphs cold; then again with every
-    ``pair_mask``, ``chunk_sample`` and ``chunk_decode`` launch held
-    against its plain version; every batch's digests against
-    ``golden/data.json`` and against the port on the CPU."""
+    config on the card, timed with the graphs cold (each ``rhg_pe`` call's
+    wall printed); then again with every ``hyp_edges``, ``chunk_sample``
+    and ``chunk_decode`` launch held against its plain version; every
+    batch's digests against ``golden/data.json`` and against the port on
+    the CPU.  ``rhg_pe`` must make one ``hyp_edges`` launch a graph and no
+    ``pair_mask`` launch."""
     from torch_golden import batch_digests
     from repro_torch.data import pipeline
     from repro_torch.kernels import build
@@ -2991,25 +3042,38 @@ def lm_pipeline(dev, errs: Errors) -> dict:
     doc = json.loads((ROOT / "src" / "repro_torch" / "golden" / "data.json").read_text())
     configs = [(pipeline.DataConfig(**e["params"]), e["step"], e) for e in doc["batches"]]
     pipeline._local_graph.cache_clear()
-    lm_names = ("pair_mask", "chunk_sample", "chunk_decode")
+    lm_names = ("hyp_edges", "pair_mask", "chunk_sample", "chunk_decode")
     before = {k: build.LAUNCHES[k] for k in lm_names}
-    walls = []
-    for cfg, step, _ in configs:
-        t0 = time.perf_counter()
-        pipeline.make_global_batch(cfg, step, device=dev)
-        walls.append(time.perf_counter() - t0)
+    walls, graph_walls = [], []
+    with timed_rhg_pe(graph_walls):
+        for cfg, step, _ in configs:
+            t0 = time.perf_counter()
+            pipeline.make_global_batch(cfg, step, device=dev)
+            walls.append(time.perf_counter() - t0)
     launches = {k: build.LAUNCHES[k] - before[k] for k in lm_names}
+    graphs = len({(c.num_shards, sh) for c, _, _ in configs if c.kind == "rhg_walk"
+                  for sh in range(c.num_shards)})
     print(f"  pipeline on the card, graphs cold: {len(configs)} batches in {sum(walls):.3f}s "
           f"(" + ", ".join(f"{c.kind}/{c.num_shards} step {s} {w:.3f}s"
                            for (c, s, _), w in zip(configs, walls)) + f"); launches "
           f"{launches} ({card_line()})")
+    print(f"  a pass: hyp_edges {launches['hyp_edges']} launches, pair_mask "
+          f"{launches['pair_mask']}, for {graphs} rhg_pe graphs; rhg_pe walls, graphs cold: "
+          f"{rhg_pe_line(graph_walls)}")
+    require(launches["pair_mask"] == 0 and launches["hyp_edges"] == graphs == len(graph_walls),
+            f"rhg_pe made {launches} launches for {graphs} graphs: one hyp_edges launch a graph "
+            "and no pair_mask launch expected")
 
     pipeline._local_graph.cache_clear()
+    before = {k: build.LAUNCHES[k] for k in lm_names}
     with held_lm_kernels(errs) as held:
         card = [pipeline.make_global_batch(cfg, step, device=dev) for cfg, step, _ in configs]
-    shapes = held.shapes
-    require(held.seen == launches, f"held run made {held.seen} calls, the timed run launched "
-            f"{launches}")
+    held_launches = {k: build.LAUNCHES[k] - before[k] for k in lm_names}
+    print(f"  a held pass: launches {held_launches}")
+    require(held_launches == launches and all(held.seen.get(k, 0) == n
+                                              for k, n in launches.items()),
+            f"held run made {held.seen} calls and {held_launches} launches, the timed run "
+            f"launched {launches}")
     t0 = time.perf_counter()
     cpu = [pipeline.make_global_batch(cfg, step, device="cpu") for cfg, step, _ in configs]
     cpu_s = time.perf_counter() - t0
@@ -3020,17 +3084,20 @@ def lm_pipeline(dev, errs: Errors) -> dict:
         require(batch_digests(b) == want, f"{cfg.kind}/{cfg.num_shards} step {step}: CPU "
                 "tokens differ from golden/data.json")
         require(list(a["tokens"].shape) == e["shape"], "batch shape")
-    big = max(shapes, key=lambda s: s[0].shape[0] * s[1].shape[0])
+    tables = held.tables
     print(f"  pipeline: {len(configs)} batches' tokens, labels, positions == golden/data.json "
           f"on the card and on the CPU ({cpu_s:.3f}s); held {held.seen}, each launch == its "
-          f"plain version (max |err| pair_mask {errs.max['pair_mask']}, chunk_sample "
-          f"{errs.max['chunk_sample']}, chunk_decode {errs.max['chunk_decode']}); shapes q rows "
-          f"{min(s[0].shape[0] for s in shapes)}..{max(s[0].shape[0] for s in shapes)}, c rows "
-          f"{min(s[1].shape[0] for s in shapes)}..{max(s[1].shape[0] for s in shapes)}, the "
-          f"largest [{big[0].shape[0]}, 8] x [{big[1].shape[0]}, 8]")
+          f"plain version (max |err| hyp_edges {errs.max['hyp_edges']}, chunk_sample "
+          f"{errs.max['chunk_sample']}, chunk_decode {errs.max['chunk_decode']}); hyp_edges "
+          f"tables: " + ", ".join(
+              f"{len(a[4])} segments, q [{len(a[0])}, 4], c [{len(a[1])}, 4], "
+              f"{int((a[4][:, 1] * a[4][:, 3]).sum())} pairs, {hits} hits" for a, hits in tables))
     prompts = card[[i for i, (c, s, _) in enumerate(configs)
                     if c.kind == "rhg_walk" and c.num_shards == 4 and s == 0][0]]["tokens"]
-    return {"prompts": prompts, "pair_mask_big": big, "pair_mask_calls": len(shapes)}
+    # the first graph is rhg_walk's at one shard: rhg_pe at P = 1, for phase 4
+    require(configs[0][0].kind == "rhg_walk" and configs[0][0].num_shards == 1,
+            "the first batch is not rhg_walk's at one shard")
+    return {"prompts": prompts, "hyp_tables": tables, "rhg_pe_cold": graph_walls}
 
 
 def lm_smoke_archs(dev) -> None:
@@ -3244,33 +3311,179 @@ def phase_lm(dev, sizes: dict) -> dict:
     return out
 
 
-def lm_timing(dev, out: dict, errs: Errors) -> list:
-    """Phase 4 of 3h: ``pair_mask``'s hyp tile at ``rhg_pe``'s largest
-    call, beside its plain version and its bound."""
-    from repro_torch.kernels.pairmask.ops import pair_mask
-    from repro_torch.kernels.pairmask.ref import pair_mask_ref
+def host_table(args) -> tuple:
+    """A ``hyp_edges`` call's inputs as host numpy arrays (and cosh R)."""
+    return tuple(a.cpu().numpy() for a in args[:5]) + (args[5],)
 
-    for k in ("pair_mask", "chunk_sample", "chunk_decode"):
+
+def dense_route(table, dev):
+    """The dense route on a ``hyp_edges`` table, as ``rhg_pe`` ran it before
+    ``hyp_edges`` (``_adjacency`` and ``emit``): a segment at a time, its
+    rows padded to 128-row blocks of 8 columns, uploaded, the dense hyp
+    ``pair_mask`` launched, the int8 mask copied back, ``astype(bool)``,
+    ``np.nonzero``, the gid filter.  The hits ``[K, 2]`` in emit order."""
+    import numpy as np
+    from repro_torch.kernels.pairmask.ops import pair_mask
+
+    q, c, q_gid, c_gid, seg, cosh_r = table
+    hits = [np.zeros((0, 2), np.int64)]
+    for qo, ql, co, cl in seg.tolist():
+        qp, cp = padded_blocks(table, (qo, ql, co, cl), dev)
+        mask = pair_mask(qp, cp, cosh_r, tile="hyp").cpu().numpy()[:ql, :cl].astype(bool)
+        ii, jj = np.nonzero(mask)
+        u, v = q_gid[qo + ii], c_gid[co + jj]
+        hits.append(np.stack([u[u != v], v[u != v]], axis=1))
+    return np.concatenate(hits)
+
+
+def padded_blocks(table, segment, dev):
+    """One segment's query and candidate rows as the dense route handed
+    them to ``pair_mask``: 8 columns, padded to 128-row blocks, on ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.hypdist.ops import pad_features
+
+    q, c = table[:2]
+    qo, ql, co, cl = segment
+    qf, cf = np.zeros((ql, 8)), np.zeros((cl, 8))
+    qf[:, :4], cf[:, :4] = q[qo:qo + ql], c[co:co + cl]
+    return (torch.from_numpy(pad_features(qf)).to(dev),
+            torch.from_numpy(pad_features(cf)).to(dev))
+
+
+def compact_route(table, dev):
+    """This route on the same table, as ``rhg._Segments.edges`` runs it:
+    one upload of the features, one of the gids and table, one
+    ``hyp_edges`` call, the hits copied back."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.pairmask.ops import hyp_edges
+
+    q, c, q_gid, c_gid, seg, cosh_r = table
+    f = torch.from_numpy(np.concatenate([q, c])).to(dev)
+    n = torch.from_numpy(np.concatenate([q_gid, c_gid, seg.reshape(-1)])).to(dev)
+    Q, C = len(q), len(c)
+    return hyp_edges(f[:Q], f[Q:], n[:Q], n[Q:Q + C], n[Q + C:].view(-1, 4), cosh_r).cpu().numpy()
+
+
+def route_turns(tables: list, dev, reps: int) -> dict:
+    """Both routes over ``tables`` (summed) in turns, dense, compact,
+    compact, dense, ``reps`` runs a turn, each on the host clock (they end
+    in host arrays); their hits must be equal."""
+    import numpy as np
+
+    hosts = [host_table(a) for a in tables]
+    walls = {"dense": [], "compact": []}
+    for turn in ("dense", "compact", "compact", "dense"):
+        route = dense_route if turn == "dense" else compact_route
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = [route(t, dev) for t in hosts]
+            walls[turn].append(time.perf_counter() - t0)
+        if turn == "compact":
+            require(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                    "hyp_edges' hits differ from the dense route's")
+        want = got
+    return walls
+
+
+def lm_timing(dev, out: dict, errs: Errors) -> list:
+    """Phase 4 of 3h: ``hyp_edges`` at ``rhg_pe``'s table at P = 1 (CUDA
+    events, a replayed CUDA graph of its passes, the profiler) beside its
+    plain version and its bound; the dense route it replaced (``pair_mask``
+    a segment, masks copied back, ``np.nonzero``) against it in turns on
+    the same segments at P = 1 and P = 4; ``rhg_pe``'s walls, warm; and
+    ``pair_mask``'s hyp tile at the largest segment, on the dense route's
+    padded blocks."""
+    import statistics
+    import torch
+    from repro_torch.core import rhg
+    from repro_torch.kernels.pairmask.ops import hyp_edges, hyp_edges_into, pair_mask
+    from repro_torch.kernels.pairmask.ref import hyp_edges_ref, pair_mask_ref
+
+    for k in ("hyp_edges", "chunk_sample", "chunk_decode"):
         errs.max[k] = max(errs.max[k], out["errs"].max[k])
-    q, c, cosh_r = out["pair_mask_big"]
-    res, ms, med = timed(lambda: pair_mask(q, c, cosh_r, tile="hyp"), reps=50,
-                         label="pair_mask hyp, rhg_pe's largest call")
-    ref, plain_ms = sync_time(lambda: pair_mask_ref(q, c, cosh_r, tile="hyp"), reps=5)
-    errs.same("pair_mask", res, ref, "pair_mask hyp at rhg_pe's largest call")
-    dev_ms = graph_ms_per_call(lambda: pair_mask(q, c, cosh_r, tile="hyp"), 50)
-    prof_ms = device_ms_per_call(lambda: pair_mask(q, c, cosh_r, tile="hyp"), 50)
-    bytes_s, ops_s = bound_terms(cost().pair_mask_hyp(q.numel(), c.numel(), res.numel()))
+    card = card_line()
+    (args, hits), rest = out["hyp_tables"][0], out["hyp_tables"][1:]
+    q, c, _, _, seg, cosh_r = args
+    pairs = int((seg[:, 1] * seg[:, 3]).sum())
+    res, h_ms, h_med = timed(lambda: hyp_edges(*args), reps=50,
+                             label="hyp_edges, rhg_pe's table at P = 1")
+    ref, h_plain = sync_time(lambda: hyp_edges_ref(*args), reps=3)
+    errs.same("hyp_edges", res, ref, "hyp_edges at rhg_pe's table at P = 1 (plain on the card)")
+    into = torch.full_like(res, -1)
+    dev_ms = graph_ms_per_call(lambda: hyp_edges_into(*args, into), 50)
+    errs.same("hyp_edges", into, res, "hyp_edges' passes replayed from a CUDA graph")
+    _, groups, _ = profiled(lambda: [hyp_edges(*args) for _ in range(50)])
+    prof_ms = groups["hyp_edges"] / 50 if "hyp_edges" in groups else None
+    bytes_s, ops_s = bound_terms(cost().hyp_edges(len(q), len(c), pairs, len(res)))
     bound = max(bytes_s, ops_s) * 1e3
-    print(f"  pair_mask shape: hyp [{q.shape[0]}, 8] x [{c.shape[0]}, 8] float64 (rhg_pe's "
-          f"largest of {out['pair_mask_calls']} calls); median {med:.6f} ms (mean {ms:.6f}; "
-          f"device {dev_ms:.6f} ms a call by graph replay, {fmt_ms(prof_ms)} by the profiler), "
-          f"plain {plain_ms:.6f} ms, bound "
-          f"{bound:.6f} ms ({'bytes' if bytes_s >= ops_s else 'operations'}): "
-          f"{dev_ms / bound:.2f}x the bound by device time")
-    return [("pair_mask", "src/repro_torch/kernels/pairmask/csrc/pairmask.cu",
-             "src/repro/kernels/pairmask/pairmask.py:56", ms, med, plain_ms, bytes_s, ops_s,
-             None, f"hyp tile at rhg_pe's largest call on path 3h, [{q.shape[0]}, 8] x "
-                   f"[{c.shape[0]}, 8] float64")]
+    require(len(res) == hits, f"hyp_edges gave {len(res)} hits, {hits} on path 3h")
+    print(f"  hyp_edges shape: rhg_pe's table at P = 1, {len(seg)} segments, q [{len(q)}, 4], "
+          f"c [{len(c)}, 4] float64, {pairs} pairs, {len(res)} hits ({card}); median "
+          f"{h_med:.6f} ms (mean {h_ms:.6f}, the host's read of the total included); device "
+          f"{dev_ms:.6f} ms a call by graph replay of its four passes, {fmt_ms(prof_ms)} by the "
+          f"profiler (its kernels; all device time "
+          f"{sum(groups.values()) / 50 if groups else 0:.6f} ms a call); plain {h_plain:.6f} ms "
+          f"on the card; bound {bound:.6f} ms ({'bytes' if bytes_s >= ops_s else 'operations'}: "
+          f"bytes {bytes_s * 1e3:.6f}, float64 operations {ops_s * 1e3:.6f}): "
+          f"{dev_ms / bound:.2f}x the bound by graph replay")
+
+    for what, tables in (("P = 1", [args]), ("P = 4, all four shards", [a for a, _ in rest])):
+        walls = route_turns(tables, dev, reps=3)
+        d, k = (statistics.median(walls[r]) * 1e3 for r in ("dense", "compact"))
+        print(f"  rhg_pe's adjacency at {what}, in turns (dense, compact, compact, dense; 3 runs "
+              f"a turn, host clock, ms): the dense route ({sum(len(a[4]) for a in tables)} "
+              f"pair_mask launches, masks copied back, np.nonzero) "
+              f"{', '.join(f'{w * 1e3:.3f}' for w in walls['dense'])}, median {d:.3f}; "
+              f"hyp_edges ({len(tables)} call{'s' * (len(tables) > 1)}) "
+              f"{', '.join(f'{w * 1e3:.3f}' for w in walls['compact'])}, median {k:.3f}: "
+              f"{d / k:.2f}x; the same hits in the same order ({card})")
+        hosts = [host_table(a) for a in tables]
+        _, d_groups, _ = profiled(lambda: [dense_route(t, dev) for t in hosts])
+        _, k_groups, _ = profiled(lambda: [compact_route(t, dev) for t in hosts])
+        print(f"  rhg_pe's adjacency at {what}, device ms under the profiler: the dense route "
+              + (", ".join(f"{g} {v:.6f}" for g, v in sorted(d_groups.items())) or "not measured")
+              + "; hyp_edges' route "
+              + (", ".join(f"{g} {v:.6f}" for g, v in sorted(k_groups.items())) or "not measured")
+              + " (copies and fills under other)")
+
+    params = rhg.RHGParams(4096, 16.0, 2.6, 11)
+    warm = []
+    with timed_rhg_pe(warm):
+        for _ in range(3):
+            rhg.rhg_pe(params, 1, 0, device=dev)
+            for pe in range(4):
+                rhg.rhg_pe(params, 4, pe, device=dev)
+    print(f"  rhg_pe walls, warm, 3 runs each (RHGParams(4096, 16, 2.6, 11)): "
+          f"{rhg_pe_line(warm)}; graphs cold on path 3h: {rhg_pe_line(out['rhg_pe_cold'])}")
+
+    # pair_mask's hyp tile at the largest segment, on the dense route's padded blocks
+    big = max(seg.tolist(), key=lambda r: r[1] * r[3])
+    qp, cp = padded_blocks(host_table(args), big, dev)
+    res, ms, med = timed(lambda: pair_mask(qp, cp, cosh_r, tile="hyp"), reps=50,
+                         label="pair_mask hyp, the largest segment of rhg_pe at P = 1")
+    ref, plain_ms = sync_time(lambda: pair_mask_ref(qp, cp, cosh_r, tile="hyp"), reps=5)
+    errs.same("pair_mask", res, ref, "pair_mask hyp at rhg_pe's largest segment")
+    dense_dev = graph_ms_per_call(lambda: pair_mask(qp, cp, cosh_r, tile="hyp"), 50)
+    dense_prof = device_ms_per_call(lambda: pair_mask(qp, cp, cosh_r, tile="hyp"), 50)
+    d_bytes, d_ops = bound_terms(cost().pair_mask_hyp(qp.numel(), cp.numel(), res.numel()))
+    d_bound = max(d_bytes, d_ops) * 1e3
+    print(f"  pair_mask shape: hyp [{qp.shape[0]}, 8] x [{cp.shape[0]}, 8] float64 (the largest "
+          f"of the {len(seg)} segments, padded); median {med:.6f} ms (mean {ms:.6f}; device "
+          f"{dense_dev:.6f} ms a call by graph replay, {fmt_ms(dense_prof)} by the profiler), "
+          f"plain {plain_ms:.6f} ms, bound {d_bound:.6f} ms "
+          f"({'bytes' if d_bytes >= d_ops else 'operations'}): {dense_dev / d_bound:.2f}x the "
+          f"bound by device time; no main path launches it")
+    return [("hyp_edges", "src/repro_torch/kernels/pairmask/csrc/pairmask.cu",
+             "src/repro/kernels/pairmask/pairmask.py:56", h_ms, h_med, h_plain, bytes_s, ops_s,
+             None, f"rhg_pe's table at P = 1 on path 3h: {len(seg)} segments, {pairs} pairs, "
+                   f"{hits} hits; device {dev_ms:.6f} ms by graph replay"),
+            ("pair_mask", "src/repro_torch/kernels/pairmask/csrc/pairmask.cu",
+             "src/repro/kernels/pairmask/pairmask.py:56", ms, med, plain_ms, d_bytes, d_ops,
+             None, f"hyp tile at rhg_pe's largest segment, [{qp.shape[0]}, 8] x "
+                   f"[{cp.shape[0]}, 8] float64, on the dense route's padded blocks (no "
+                   f"main path launches it)")]
 
 
 # optimizer of path 3i: the reference test's (lr 1e-3, warmup 5)
@@ -3346,8 +3559,9 @@ def train_main(dev, sizes: dict, errs: Errors) -> dict:
     width in bf16 (its data config: ``rhg_walk``, 4 x 256 a step, seed 11,
     the graph cold) for ``train_steps`` steps, checkpointed every
     ``train_ckpt_every`` in the background and at the end; each step timed
-    on the host clock between ``synchronize`` calls, every ``pair_mask``
-    launch of the first batch's graph held against its plain version."""
+    on the host clock between ``synchronize`` calls, the ``hyp_edges``
+    launch of the first batch's graph held against its plain version (and
+    no ``pair_mask`` launch)."""
     import shutil
     import statistics
     import tempfile
@@ -3383,7 +3597,7 @@ def train_main(dev, sizes: dict, errs: Errors) -> dict:
     require(shutil.disk_usage(ckpt).free > need, f"{shutil.disk_usage(ckpt).free / 1e9:.1f} "
             f"GB free under {ckpt}, main's checkpoints need {need / 1e9:.1f}")
     pipeline._local_graph.cache_clear()
-    before = build.LAUNCHES["pair_mask"]
+    before = dict(build.LAUNCHES)
     launch_train.make_train_step = timed_factory
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3404,9 +3618,10 @@ def train_main(dev, sizes: dict, errs: Errors) -> dict:
             f"main ran {len(losses)} steps, losses {losses}")
     want = [f"step_{s:08d}" for s in sorted({s for s in range(every, N + 1, every)} | {N})]
     require(saved == want[-3:], f"checkpoints {saved}, expected {want[-3:]}")
-    launches = build.LAUNCHES["pair_mask"] - before
-    require(held.seen.get("pair_mask", 0) == launches > 0,
-            f"pair_mask: {launches} launches, {held.seen} held")
+    launches = build.LAUNCHES["hyp_edges"] - before["hyp_edges"]
+    dense = build.LAUNCHES["pair_mask"] - before["pair_mask"]
+    require(held.seen.get("hyp_edges", 0) == launches > 0 and dense == 0,
+            f"hyp_edges: {launches} launches, {held.seen} held; pair_mask {dense} launches")
     steady = rec["step_s"][1:]
     med = statistics.median(steady)
     B, S = 4, 256
@@ -3414,7 +3629,8 @@ def train_main(dev, sizes: dict, errs: Errors) -> dict:
     bytes_s, ops_s = tc.seconds(H100)
     print(f"  launch/train.py main --arch {LM_ARCH} --steps {N} --ckpt-every {every} "
           f"({card_line()}): {wall:.3f}s wall, exit {code}; first batch's graph: {launches} "
-          f"pair_mask launches, each == pair_mask_ref (max |err| {errs.max['pair_mask']}); "
+          f"hyp_edges launch(es), each == hyp_edges_ref (max |err| {errs.max['hyp_edges']}), "
+          f"{dense} pair_mask launches; "
           f"checkpoints {saved}")
     print(f"  train step, {cfg.dtype} over float32 masters, {B} x {S} tokens: first "
           f"{rec['step_s'][0] * 1e3:.3f} ms; after it median {med * 1e3:.3f} ms (min "
@@ -3427,7 +3643,7 @@ def train_main(dev, sizes: dict, errs: Errors) -> dict:
           f"{ops_s * 1e3:.6f} ms): {med / max(bytes_s, ops_s):.1f}x it; peak device memory "
           f"{peak / 2 ** 30:.3f} GiB; losses {', '.join(f'{x:.4f}' for x in losses[::5])}")
     return {"state": rec["state"], "step_ms": med * 1e3, "first_ms": rec["step_s"][0] * 1e3,
-            "peak_gib": peak / 2 ** 30, "pair_mask_launches": launches}
+            "peak_gib": peak / 2 ** 30, "hyp_edges_launches": launches}
 
 
 def train_profile(dev, state, sizes: dict) -> None:
@@ -3771,8 +3987,8 @@ def phase_train(dev, sizes: dict) -> dict:
 
 def train_timing(dev, out: dict, errs: Errors) -> list:
     """Phase 4 of 3i: no kernel of its own (the step is cuBLAS and ATen);
-    its ``pair_mask`` launches join the kernel's row of path 3h."""
-    errs.max["pair_mask"] = max(errs.max["pair_mask"], out["errs"].max["pair_mask"])
+    its ``hyp_edges`` launch joins the kernel's row of path 3h."""
+    errs.max["hyp_edges"] = max(errs.max["hyp_edges"], out["errs"].max["hyp_edges"])
     return []
 
 
@@ -3952,9 +4168,9 @@ def mesh_timing(dev, out: dict, errs: Errors) -> list:
 
 
 OFF_PATH = {"pair_mask": "euclid tile at its own contract's shape (the oracles' 128-row cell "
-                         "blocks): the engine runs its tiles inside pair_edges; the hyp tile "
-                         "is launched on path 3h by rhg_pe, the LM pipeline's graph (its row "
-                         "below)"}
+                         "blocks): the engine runs its tiles inside pair_edges, and rhg_pe, "
+                         "the LM pipeline's graph, tests its segments with hyp_edges; its "
+                         "launches are the contract check's (path 3g)"}
 
 
 def kernel_lines(rows: list, errs: Errors, launches: dict) -> list:
@@ -3994,10 +4210,10 @@ FAMILY_KERNELS = ("chunk_rmat", "chunk_ba", "close_wedges", "hist", "chunk_sampl
 STATS_KERNELS = ("hist", "chunk_sample", "chunk_decode", "pair_edges", "triangulate")
 SERVE_KERNELS = ("hist", "chunk_sample", "chunk_decode", "chunk_ba", "chunk_rmat", "pair_edges",
                  "triangulate")
-# rhg_pe tests adjacency with pair_mask, gnm_undirected_pe samples and decodes
-LM_KERNELS = ("pair_mask", "chunk_sample", "chunk_decode")
-# the training path's batches come from rhg_pe, whose adjacency is pair_mask
-TRAIN_KERNELS = ("pair_mask",)
+# rhg_pe tests adjacency with hyp_edges, gnm_undirected_pe samples and decodes
+LM_KERNELS = ("hyp_edges", "chunk_sample", "chunk_decode")
+# the training path's batches come from rhg_pe, whose adjacency is hyp_edges
+TRAIN_KERNELS = ("hyp_edges",)
 # the kernels the registry launches on the card (RDG's planning and the
 # kernel cases among them)
 # the generator cell runs PE 0's program of GNM(2^30, 2^34)

@@ -25,8 +25,8 @@ from .. import obs
 from ..distrib.engine import (GEOM_HYP, POINTS_POLAR, make_point_plan,
                               pair_plan_from_columns)
 from ..kernels.build import resolve_device
-from ..kernels.hypdist.ops import pad_features, precompute_features
-from ..kernels.pairmask.ops import pair_mask
+from ..kernels.hypdist.ops import precompute_features
+from ..kernels.pairmask.ops import hyp_edges
 from .prng import THREEFRY, PhiloxReplayer, device_key, fold_in, fold_in_many, hash_paths, host_rng
 from .variates import binomial, multinomial_split
 
@@ -434,23 +434,53 @@ class RHGPlan:
         return r, theta, ann.gid0 + ann.counter.cell_offset(cell)
 
 
-def _adjacency(q_feat: np.ndarray, c_feat: np.ndarray, cosh_r: float,
-               device: torch.device) -> np.ndarray:
-    """bool ``[len(q_feat), len(c_feat)]`` edge mask: both feature sets
-    padded to 128-row blocks and tested by the ``hyp`` tile of
-    ``pair_mask`` on ``device`` (the kernel on the card, its plain
-    version on the CPU), the mask read back to the host."""
-    qp = torch.from_numpy(pad_features(q_feat)).to(device)
-    cp = torch.from_numpy(pad_features(c_feat)).to(device)
-    mask = pair_mask(qp, cp, cosh_r, tile="hyp").cpu().numpy()
-    return mask[: len(q_feat), : len(c_feat)].astype(bool)
+class _Segments:
+    """The adjacency tests of ``rhg_pe`` as segments of ``hyp_edges``:
+    blocks of packed query and candidate rows (the four features, no
+    padding, and their gids) and one ``(q_off, q_len, c_off, c_len)`` row
+    a test, in the order the reference's ``_adjacency`` calls run."""
+
+    def __init__(self):
+        self.q, self.c, self.rows = [], [], []
+        self.q_len = self.c_len = 0
+
+    def add_q(self, feat: np.ndarray, gids: np.ndarray) -> int:
+        """Append query rows; returns their offset."""
+        self.q.append((feat[:, :4], gids))
+        self.q_len += len(feat)
+        return self.q_len - len(feat)
+
+    def add_c(self, feat: np.ndarray, gids: np.ndarray) -> int:
+        """Append candidate rows; returns their offset."""
+        self.c.append((feat[:, :4], gids))
+        self.c_len += len(feat)
+        return self.c_len - len(feat)
+
+    def test(self, q_off: int, q_len: int, c_off: int, c_len: int) -> None:
+        self.rows.append((q_off, q_len, c_off, c_len))
+
+    def edges(self, cosh_r: float, device: torch.device) -> np.ndarray:
+        """int64 ``[K, 2]`` ``(query gid, candidate gid)`` hits, self-pairs
+        dropped, in the reference's ``emit`` order: one upload of the
+        features and one of the gids and table, one ``hyp_edges`` call,
+        the hits copied back."""
+        blocks = self.q + self.c
+        feats = np.concatenate([np.zeros((0, 4))] + [f for f, _ in blocks])
+        ints = np.concatenate([np.zeros(0, np.int64)] + [g for _, g in blocks]
+                              + [np.asarray(self.rows, np.int64).reshape(-1)])
+        f = torch.from_numpy(feats).to(device)
+        n = torch.from_numpy(ints).to(device)
+        Q, C = self.q_len, self.c_len
+        uv = hyp_edges(f[:Q], f[Q:], n[:Q], n[Q:Q + C], n[Q + C:].view(-1, 4), cosh_r)
+        return uv.cpu().numpy()
 
 
 def rhg_pe(params: RHGParams, P: int, pe: int, batch: int = 512, device=None
            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """All edges incident to PE ``pe``'s vertices, communication-free
     (``repro.core.rhg.rhg_pe``): (edges [k, 2] with u > v, sorted and
-    unique; local gids, radii, angles).  The adjacency tests run on
+    unique; local gids, radii, angles).  Every adjacency test the
+    reference runs becomes a segment of one ``hyp_edges`` call on
     ``device`` (CUDA unless the caller passes ``"cpu"``)."""
     dev = resolve_device(device)
     plan = RHGPlan(params, P)
@@ -476,22 +506,15 @@ def rhg_pe(params: RHGParams, P: int, pe: int, batch: int = 512, device=None
         g = np.concatenate(gs) if gs else np.zeros(0, np.int64)
         local[ann.idx] = (r, t, g)
 
-    edges_u: List[np.ndarray] = []
-    edges_v: List[np.ndarray] = []
-
-    def emit(mask: np.ndarray, qg: np.ndarray, cg: np.ndarray):
-        ii, jj = np.nonzero(mask)
-        if len(ii):
-            u, v = qg[ii], cg[jj]
-            keep = u != v
-            edges_u.append(u[keep])
-            edges_v.append(v[keep])
+    seg = _Segments()
+    core_c = seg.add_c(core_feat, core_gids)
 
     # ---- core-core: a clique by the triangle inequality, checked through
     # the same Eq. 9 path so float rounding never disagrees across PEs
     if plan.n_core > 1 and core_local.any():
-        m = _adjacency(core_feat[core_local], core_feat, coshR, dev)
-        emit(m, core_gids[core_local], core_gids)
+        n_local = int(core_local.sum())
+        seg.test(seg.add_q(core_feat[core_local], core_gids[core_local]), n_local,
+                 core_c, plan.n_core)
 
     # ---- queries: local vertices (incl. owned core) vs every region ----
     query_sets = [(core_r[core_local], core_theta[core_local], core_gids[core_local])]
@@ -509,13 +532,12 @@ def rhg_pe(params: RHGParams, P: int, pe: int, batch: int = 512, device=None
     for (qr, qt, qg) in query_sets:
         if len(qr) == 0:
             continue
-        q_feat_all = precompute_features(qr, qt)
+        q_off = seg.add_q(precompute_features(qr, qt), qg)
 
         # vs core candidates (inward query; no window needed: the core is tiny)
         if plan.n_core > 0:
             for s in range(0, len(qr), batch):
-                sl = slice(s, s + batch)
-                emit(_adjacency(q_feat_all[sl], core_feat, coshR, dev), qg[sl], core_gids)
+                seg.test(q_off + s, min(batch, len(qr) - s), core_c, plan.n_core)
 
         # vs each annulus (inward + outward unified)
         for ann in plan.annuli:
@@ -541,16 +563,14 @@ def rhg_pe(params: RHGParams, P: int, pe: int, batch: int = 512, device=None
                         cand_gids.append(g0 + np.arange(len(r)))
                 if not cand_feats:
                     continue
-                emit(_adjacency(q_feat_all[sl], np.concatenate(cand_feats), coshR, dev),
-                     qg[sl], np.concatenate(cand_gids))
+                cand = np.concatenate(cand_feats)
+                seg.test(q_off + s, min(batch, len(qr) - s),
+                         seg.add_c(cand, np.concatenate(cand_gids)), len(cand))
 
-    if edges_u:
-        e = np.stack([np.concatenate(edges_u), np.concatenate(edges_v)], axis=1)
-        u = np.maximum(e[:, 0], e[:, 1])
-        v = np.minimum(e[:, 0], e[:, 1])
-        e = np.unique(np.stack([u, v], axis=1), axis=0)  # repro: allow(no-numpy-unique) per-PE union, as the reference's rhg_pe
-    else:
-        e = np.zeros((0, 2), dtype=np.int64)
+    e = seg.edges(coshR, dev)
+    u = np.maximum(e[:, 0], e[:, 1])
+    v = np.minimum(e[:, 0], e[:, 1])
+    e = np.unique(np.stack([u, v], axis=1), axis=0)  # repro: allow(no-numpy-unique) per-PE union, as the reference's rhg_pe
 
     lg = [core_gids[core_local]] + [local[a][2] for a in local]
     lr = [core_r[core_local]] + [local[a][0] for a in local]

@@ -10,7 +10,7 @@ shard):
 Corpus: random walks over the shard's local RHG or ER subgraph,
 tokenized by vertex id (mod vocab) with a separator token between walks.
 The graph is generated on the card (``rhg_pe`` tests adjacency with
-``pair_mask``; ``gnm_undirected_pe`` samples with ``chunk_sample`` and
+``hyp_edges``; ``gnm_undirected_pe`` samples with ``chunk_sample`` and
 decodes with ``chunk_decode``); the walks are host numpy over
 :func:`repro_torch.core.prng.host_rng`, so the tokens equal the
 reference's bit for bit.

@@ -47,7 +47,7 @@ SOURCES: Dict[str, tuple] = {
 }
 
 LAUNCHES: Dict[str, int] = {"chunk_sample": 0, "chunk_decode": 0, "hist": 0,
-                            "pair_mask": 0, "pair_edges": 0, "cell_points": 0,
+                            "pair_mask": 0, "hyp_edges": 0, "pair_edges": 0, "cell_points": 0,
                             "triangulate": 0, "circumspheres": 0,
                             "chunk_rmat": 0, "chunk_ba": 0, "close_wedges": 0}
 

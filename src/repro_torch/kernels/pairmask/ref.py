@@ -12,8 +12,11 @@ multiply-adds, so the plain version spells the fused order out with
   fma(q0, c0, q1 * c1))) > 0``.
 
 The CUDA tiles (``csrc/tiles.cuh``) compute the same operations in the
-same order.  Every function broadcasts over leading batch dimensions:
+same order.  Every tile broadcasts over leading batch dimensions:
 ``a [..., M, F]`` against ``b [..., N, F]`` gives ``[..., M, N]``.
+
+:func:`hyp_edges_ref` runs the hyp tile over a table of ragged segments
+and keeps the hits' gid pairs, as ``rhg_pe`` needs them.
 """
 from __future__ import annotations
 
@@ -62,3 +65,22 @@ def pair_mask_ref(a: torch.Tensor, b: torch.Tensor, scalar, *, tile: str,
     if tile == "hyp":
         return hyp_tile(a, b, float(scalar)).to(torch.int8)
     raise ValueError(f"unknown tile {tile!r}; know {TILES}")
+
+
+def hyp_edges_ref(q: torch.Tensor, c: torch.Tensor, q_gid: torch.Tensor,
+                  c_gid: torch.Tensor, segments: torch.Tensor, cosh_r) -> torch.Tensor:
+    """int64 ``[K, 2]`` of ``(q_gid[i], c_gid[j])`` for every pair of each
+    segment ``(q_off, q_len, c_off, c_len)`` of ``segments`` whose hyp tile
+    holds and whose gids differ: segment by segment, row-major in
+    ``(i, j)`` within one.  The plain twin of
+    :func:`repro_torch.kernels.pairmask.ops.hyp_edges`."""
+    out = [torch.zeros((0, 2), dtype=torch.int64, device=q.device)]
+    for qo, ql, co, cl in segments.tolist():
+        if ql == 0 or cl == 0:
+            continue
+        ii, jj = torch.nonzero(hyp_tile(q[qo:qo + ql], c[co:co + cl], float(cosh_r)),
+                               as_tuple=True)
+        u, v = q_gid[qo + ii], c_gid[co + jj]
+        keep = u != v
+        out.append(torch.stack([u[keep], v[keep]], dim=1))
+    return torch.cat(out)

@@ -113,6 +113,14 @@ def pair_mask_hyp(a_elems: int, b_elems: int, out_elems: int) -> Cost:
     return Cost((a_elems + b_elems) * 8 + out_elems, out_elems * 6, "fp64")
 
 
+def hyp_edges(rows_q: int, rows_c: int, pairs: int, hits: int) -> Cost:
+    """The hyp test over ragged segments with the hits compacted: the
+    float64 feature rows (32 bytes) and int64 gids (8) of both sides read
+    once, an int64 pair (16 bytes) written a hit; 6 float64 operations a
+    pair tested (two products, three FMAs, the compare)."""
+    return Cost((rows_q + rows_c) * 40 + hits * 16, pairs * 6, "fp64")
+
+
 def pair_edges(in_bytes: int, rows: int, capacity: int,
                points: Optional[int] = None) -> Cost:
     """Candidate-pair rows: the row tables read once (``in_bytes``), an
@@ -281,6 +289,11 @@ def launch_cost(name: str, args: tuple, kwargs: dict) -> Cost:
         M, N = a.shape[-2], b.shape[-2]
         B = a.shape[0] if a.dim() == 3 else 1
         return pair_mask(a.numel(), b.numel(), B * M * N)
+    if name == "hyp_edges":
+        # the pairs are the table's (a small read); every pair a hit at most
+        seg = args[4].cpu()
+        pairs = int((seg[:, 1] * seg[:, 3]).sum())
+        return hyp_edges(args[0].shape[0], args[1].shape[0], pairs, pairs)
     if name == "pair_edges":
         rows, cap = args[0].shape[0], int(kw["capacity"])
         return pair_edges(_nbytes(*args), rows, cap)

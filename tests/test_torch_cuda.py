@@ -794,29 +794,102 @@ def test_serve_fault_reissue_and_overlap_on_the_card(cuda):
 
 # ------------------------------------------------------------ the LM stack
 
+def _hyp_inputs(dev, Q, C, rows, seed=0, r_hi=12.0):
+    """float64 feature rows ``[Q, 4]``, ``[C, 4]`` of random points, gids
+    with repeats across the sides (some self-pairs), and the table."""
+    from repro_torch.kernels.hypdist.ops import precompute_features
+
+    rng = np.random.default_rng(seed)
+    f = precompute_features(rng.uniform(0.2, r_hi, Q + C), rng.uniform(0, 2 * np.pi, Q + C))
+    f = torch.from_numpy(np.ascontiguousarray(f[:, :4])).to(dev)
+    gid = torch.from_numpy(rng.integers(0, (Q + C) // 2 + 1, Q + C)).to(dev)
+    seg = torch.tensor(rows, dtype=torch.int64).reshape(-1, 4).to(dev)
+    return f[:Q], f[Q:], gid[:Q], gid[Q:], seg
+
+
+def _random_table(rng, Q, C, S):
+    rows = []
+    for _ in range(S):
+        qo, co = int(rng.integers(0, Q + 1)), int(rng.integers(0, C + 1))
+        rows.append((qo, int(rng.integers(0, min(Q - qo, 600) + 1)), co,
+                     int(rng.integers(0, min(C - co, 3000) + 1))))
+    return rows
+
+
+# (Q, C, segments, seed): one pair, tables with empty segments and rows off
+# every multiple of 32, and tables of hundreds of segments (spans of a warp
+# crossing many rows and segments)
+HYP_SHAPES = [(1, 1, 1, 0), (37, 95, 5, 1), (700, 2900, 40, 2), (4000, 9000, 300, 3),
+              (5000, 20000, 17, 4)]
+
+
+@pytest.mark.parametrize("Q,C,S,seed", HYP_SHAPES, ids=str)
+def test_hyp_edges_matches_plain(cuda, Q, C, S, seed):
+    from repro_torch.kernels.pairmask.ref import hyp_edges_ref
+
+    rows = _random_table(np.random.default_rng(seed), Q, C, S)
+    rows[0] = (0, min(Q, 700), 0, min(C, 3000))
+    args = _hyp_inputs(cuda, Q, C, rows, seed)
+    for cosh_r in (np.cosh(9.0), np.cosh(13.0), np.cosh(60.0)):
+        before = build.LAUNCHES["hyp_edges"]
+        got = M.hyp_edges(*args, cosh_r)
+        assert build.LAUNCHES["hyp_edges"] == before + 1
+        want = hyp_edges_ref(*[a.cpu() for a in args], cosh_r)
+        assert torch.equal(got.cpu(), want)
+        out = torch.full_like(got, -1)
+        M.hyp_edges_into(*args, cosh_r, out)
+        assert torch.equal(out, got)
+        assert build.LAUNCHES["hyp_edges"] == before + 2
+
+
+def test_hyp_edges_empty_and_out_of_range_tables(cuda):
+    args = list(_hyp_inputs(cuda, 50, 60, [(0, 50, 0, 60)]))
+    assert len(M.hyp_edges(*args, np.cosh(60.0))) == 50 * 60 - int(
+        (args[2][:, None] == args[3][None, :]).sum())
+    args[4] = torch.zeros((0, 4), dtype=torch.int64, device=cuda)
+    assert M.hyp_edges(*args, 2.0).shape == (0, 2)
+    args[4] = torch.tensor([[0, 0, 0, 0], [0, 50, 0, 60], [3, 48, 0, 1]], device=cuda)
+    before = build.LAUNCHES["hyp_edges"]
+    with pytest.raises(ValueError, match="segment 2 .* out of range"):
+        M.hyp_edges(*args, 2.0)
+    assert build.LAUNCHES["hyp_edges"] == before
+    # a feature view starting 8 bytes into its storage
+    args[4] = torch.tensor([[0, 50, 0, 60]], device=cuda)
+    args[1] = torch.cat([torch.zeros(1, dtype=torch.float64, device=cuda),
+                         args[1].reshape(-1)])[1:].view(60, 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        M.hyp_edges(*args, 2.0)
+
+
 def test_rhg_pe_pair_mask_launches_match_plain(cuda, monkeypatch):
-    """``rhg_pe`` on the card (the data pipeline's graph): every
-    ``pair_mask`` launch, at its own shapes (128-row blocks of hyp
-    features), equals the plain version, and the edges equal the CPU's."""
+    """``rhg_pe`` on the card (the data pipeline's graph): one
+    ``hyp_edges`` launch a call and no ``pair_mask`` launch; each launch,
+    on ``rhg_pe``'s own table, equals the plain version, and the edges
+    equal the CPU's, at P = 1 and on a shard of P = 4."""
     from repro_torch.core import rhg
+    from repro_torch.kernels.pairmask.ref import hyp_edges_ref
 
-    real, seen = rhg.pair_mask, []
+    real, seen = rhg.hyp_edges, []
 
-    def held(q, c, cosh_r, *, tile):
-        out = real(q, c, cosh_r, tile=tile)
-        assert torch.equal(out.cpu(), pair_mask_ref(q.cpu(), c.cpu(), cosh_r, tile=tile))
-        seen.append(tuple(q.shape) + tuple(c.shape))
+    def held(*args):
+        out = real(*args)
+        assert torch.equal(out.cpu(), hyp_edges_ref(*[a.cpu() if torch.is_tensor(a) else a
+                                                      for a in args]))
+        seen.append(len(args[4]))
         return out
 
-    monkeypatch.setattr(rhg, "pair_mask", held)
+    monkeypatch.setattr(rhg, "hyp_edges", held)
     params = rhg.RHGParams(4096, 16.0, 2.6, 11)
-    before = build.LAUNCHES["pair_mask"]
-    got = rhg.rhg_pe(params, 4, 1, device=cuda)
-    assert build.LAUNCHES["pair_mask"] - before == len(seen) > 0
-    monkeypatch.setattr(rhg, "pair_mask", real)
-    want = rhg.rhg_pe(params, 4, 1, device="cpu")
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a, b)
+    for P, pe in ((1, 0), (4, 1)):
+        seen.clear()
+        before = dict(build.LAUNCHES)
+        got = rhg.rhg_pe(params, P, pe, device=cuda)
+        assert build.LAUNCHES["hyp_edges"] - before["hyp_edges"] == len(seen) == 1
+        assert build.LAUNCHES["pair_mask"] == before["pair_mask"]
+        assert seen[0] > 10
+        want = rhg.rhg_pe(params, P, pe, device="cpu")
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_pipeline_batches_on_the_card_equal_cpu(cuda):

@@ -46,25 +46,39 @@ def test_rhg_pe_matches_the_reference(n, avg_deg, gamma, P, pe, batch):
 
 
 def test_rhg_pe_calls_pair_mask_on_padded_blocks(monkeypatch):
-    """Every adjacency test goes through ``pair_mask``'s hyp tile on
-    128-row blocks, as many calls as the reference's ``_adjacency``."""
-    seen, ref_calls = [], []
-    real = trhg.pair_mask
+    """``rhg_pe`` makes one ``hyp_edges`` call (and no ``pair_mask``
+    call) whose segments are the reference's ``_adjacency`` calls, one
+    for one and in order: each segment's query and candidate rows equal
+    that call's inputs before their padding to 128-row blocks."""
+    from repro_torch.kernels.pairmask import ops as tops
 
-    def spy(q, c, cosh_r, *, tile):
-        seen.append((tuple(q.shape), tuple(c.shape), tile))
-        return real(q, c, cosh_r, tile=tile)
+    seen, ref_calls = [], []
+    real = trhg.hyp_edges
+
+    def spy(q, c, q_gid, c_gid, segments, cosh_r):
+        seen.append((q, c, segments))
+        return real(q, c, q_gid, c_gid, segments, cosh_r)
 
     real_ref = jrhg._adjacency
-    monkeypatch.setattr(trhg, "pair_mask", spy)
-    monkeypatch.setattr(jrhg, "_adjacency", lambda *a, **k: (
-        ref_calls.append(1), real_ref(*a, **k))[1])
-    jrhg.rhg_pe(jrhg.RHGParams(2000, 8.0, 2.8, 5), 2, 1)
-    trhg.rhg_pe(trhg.RHGParams(2000, 8.0, 2.8, 5), 2, 1, device="cpu")
-    assert len(seen) == len(ref_calls) > 0
-    for qs, cs, tile in seen:
-        assert tile == "hyp" and qs[0] % 128 == 0 and cs[0] % 128 == 0
-        assert qs[1] == cs[1] == thyp.FEAT
+
+    def ref_spy(q_feat, c_feat, *a, **k):
+        ref_calls.append((np.array(q_feat), np.array(c_feat)))
+        return real_ref(q_feat, c_feat, *a, **k)
+
+    monkeypatch.setattr(trhg, "hyp_edges", spy)
+    monkeypatch.setattr(tops, "pair_mask", None)    # a call would fail
+    monkeypatch.setattr(jrhg, "_adjacency", ref_spy)
+    want = jrhg.rhg_pe(jrhg.RHGParams(2000, 8.0, 2.8, 5), 2, 1)
+    got = trhg.rhg_pe(trhg.RHGParams(2000, 8.0, 2.8, 5), 2, 1, device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    assert len(seen) == 1
+    q, c, segments = seen[0]
+    assert q.shape[1] == c.shape[1] == 4
+    assert len(segments) == len(ref_calls) > 10
+    for (qo, ql, co, cl), (qf, cf) in zip(segments.tolist(), ref_calls):
+        assert ql == len(qf) and cl == len(cf) and qf.shape[1] == cf.shape[1] == thyp.FEAT
+        np.testing.assert_array_equal(q[qo:qo + ql].numpy(), qf[:, :4])
+        np.testing.assert_array_equal(c[co:co + cl].numpy(), cf[:, :4])
 
 
 def test_range_counter_matches_the_reference():

@@ -4,10 +4,14 @@
 as the JAX package's own tests run it.  Inputs come from seeded numpy
 generators.  Every comparison is exact: the thresholds are set exactly
 on accumulator values, where a different rounding order flips the mask.
+``hyp_edges`` (the hyp test over ragged segments, hits compacted) is held
+against the jitted ``hyp_mask_ref`` that the reference's ``rhg_pe`` runs
+on the CPU, segment by segment.
 """
 import math
 from fractions import Fraction
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ import torch
 
 from repro.kernels.hypdist import ops as jhyp
 from repro.kernels.pairmask.pairmask import pair_mask as jpair_mask
+from repro.kernels.pairmask.ref import hyp_mask_ref
 from repro_torch.core import rhg as trhg
 from repro_torch.kernels import build
 from repro_torch.kernels.pairmask import ops as tops
@@ -168,3 +173,135 @@ def test_addcmul_is_a_single_rounded_fma(dtype):
 @pytest.mark.parametrize("R", [0.0, 3.5, 40.0, 699.9, 700.0, 710.5, 1e4])
 def test_cosh_threshold_matches_reference(R):
     assert trhg.cosh_threshold(R) == jhyp.cosh_threshold(R)
+
+
+_hyp_mask_jit = jax.jit(hyp_mask_ref)
+
+
+def _feature_rows(rng, m, r_hi=12.0):
+    """float64 feature rows ``[m, 8]`` (the reference's layout) of random
+    points with radii in [0.2, r_hi)."""
+    return jhyp.precompute_features(rng.uniform(0.2, r_hi, m), rng.uniform(0, 2 * math.pi, m))
+
+
+def _hyp_edges_want(q8, c8, q_gid, c_gid, rows, cosh_r):
+    """The reference's hits segment by segment: ``np.nonzero`` of the
+    jitted ``hyp_mask_ref`` of each segment's rows, self-pairs dropped
+    (the reference's ``emit``)."""
+    out = [np.zeros((0, 2), np.int64)]
+    for qo, ql, co, cl in rows:
+        mask = np.asarray(_hyp_mask_jit(jnp.asarray(q8[qo:qo + ql]), jnp.asarray(c8[co:co + cl]),
+                                        cosh_r))
+        ii, jj = np.nonzero(mask)
+        u, v = q_gid[qo + ii], c_gid[co + jj]
+        out.append(np.stack([u[u != v], v[u != v]], axis=1))
+    return np.concatenate(out)
+
+
+def _hyp_edges_got(q8, c8, q_gid, c_gid, rows, cosh_r):
+    got = tops.hyp_edges(torch.from_numpy(np.ascontiguousarray(q8[:, :4])),
+                         torch.from_numpy(np.ascontiguousarray(c8[:, :4])),
+                         torch.from_numpy(q_gid), torch.from_numpy(c_gid),
+                         torch.tensor(rows, dtype=torch.int64).reshape(-1, 4), cosh_r)
+    assert got.dtype == torch.int64 and got.shape[1:] == (2,)
+    return got.numpy()
+
+
+# ragged segment tables over q [300, .] and c [700, .]: (q_off, q_len,
+# c_off, c_len) rows, the threshold R (cosh R is the tile's scalar)
+HYP_TABLES = {
+    "ragged": ([(0, 300, 0, 700), (17, 129, 5, 255), (299, 1, 0, 700), (3, 127, 600, 100)], 9.0),
+    "empty-segments": ([(0, 0, 0, 700), (10, 50, 3, 0), (0, 0, 0, 0), (40, 1, 699, 1),
+                        (300, 0, 700, 0), (100, 200, 0, 129)], 9.0),
+    "q_len-1": ([(k, 1, 2 * k, 257) for k in range(0, 150, 37)], 11.0),
+    "no-segment": ([], 9.0),
+    # a core-like block: every pair within distance R, self-pairs dropped
+    "every-pair-a-hit": ([(0, 100, 0, 130), (0, 300, 600, 100)], 60.0),
+}
+
+
+@pytest.mark.parametrize("name", list(HYP_TABLES))
+def test_hyp_edges_equals_jitted_reference_per_segment(name):
+    rows, R = HYP_TABLES[name]
+    rng = np.random.default_rng(23)
+    r_hi = 3.0 if name == "every-pair-a-hit" else 12.0
+    q8, c8 = _feature_rows(rng, 300, r_hi), _feature_rows(rng, 700, r_hi)
+    # gids with repeats across the sides, so some pairs are self-pairs
+    q_gid = rng.integers(0, 400, 300).astype(np.int64)
+    c_gid = rng.integers(0, 400, 700).astype(np.int64)
+    cosh_r = math.cosh(R)
+    want = _hyp_edges_want(q8, c8, q_gid, c_gid, rows, cosh_r)
+    before = build.LAUNCHES["hyp_edges"]
+    got = _hyp_edges_got(q8, c8, q_gid, c_gid, rows, cosh_r)
+    assert build.LAUNCHES["hyp_edges"] == before   # the CPU runs the plain version
+    np.testing.assert_array_equal(got, want)
+    if name == "every-pair-a-hit":
+        pairs = sum(ql * cl for _, ql, _, cl in rows)
+        self_pairs = sum(int((q_gid[qo:qo + ql, None] == c_gid[None, co:co + cl]).sum())
+                         for qo, ql, co, cl in rows)
+        assert self_pairs > 0 and len(got) == pairs - self_pairs
+    elif rows:
+        assert 0 < len(got) < sum(ql * cl for _, ql, _, cl in rows)
+
+
+def test_hyp_edges_equals_reference_with_threshold_on_an_accumulator():
+    """cosh R set so that one pair's accumulator lands within ulps of 0,
+    where the rounding order decides the test: the plain ``hyp_edges``
+    keeps exactly the jitted reference's pairs (and the Pallas kernel's
+    mask in interpret mode)."""
+    rng = np.random.default_rng(7)
+    q8, c8 = _feature_rows(rng, 200), _feature_rows(rng, 150)
+    Q, C = torch.from_numpy(q8), torch.from_numpy(c8)
+    rest = torch.addcmul(torch.addcmul(Q[:, None, 1] * C[None, :, 1], Q[:, None, 0],
+                                       C[None, :, 0]), -Q[:, None, 2], C[None, :, 2])
+    p = Q[:, None, 3] * C[None, :, 3]
+    q_gid, c_gid = np.arange(200, dtype=np.int64), np.arange(1000, 1150, dtype=np.int64)
+    rows = [(0, 200, 0, 150), (3, 90, 5, 130), (150, 50, 17, 1)]
+    for i, j in [(3, 5), (100, 17), (199, 149), (160, 17)]:
+        cosh_r = float(-rest[i, j] / p[i, j])
+        want = _hyp_edges_want(q8, c8, q_gid, c_gid, rows, cosh_r)
+        got = _hyp_edges_got(q8, c8, q_gid, c_gid, rows, cosh_r)
+        np.testing.assert_array_equal(got, want)
+        pallas = np.asarray(jpair_mask(jnp.asarray(jhyp.pad_features(q8, 256)),
+                                       jnp.asarray(jhyp.pad_features(c8, 256)), cosh_r,
+                                       tile="hyp", interpret=True))[:200, :150]
+        ii, jj = np.nonzero(pallas)
+        np.testing.assert_array_equal(got[:len(ii)], np.stack([q_gid[ii], c_gid[jj]], 1))
+        assert 0 < len(ii) < 200 * 150
+
+
+def _edges_inputs(Q=6, C=9, S=2):
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(np.ascontiguousarray(_feature_rows(rng, Q)[:, :4]))
+    c = torch.from_numpy(np.ascontiguousarray(_feature_rows(rng, C)[:, :4]))
+    seg = torch.tensor([[0, Q, 0, C]] * S, dtype=torch.int64)
+    return [q, c, torch.arange(Q), torch.arange(C), seg, 50.0]
+
+
+BAD_TABLES = {"q_len past q": [0, 7, 0, 9], "q_off past q": [7, 0, 0, 0],
+              "c_len past c": [0, 6, 4, 6], "negative q_off": [-1, 1, 0, 9],
+              "negative c_len": [0, 6, 0, -1]}
+
+
+@pytest.mark.parametrize("what", list(BAD_TABLES))
+def test_hyp_edges_raises_on_a_table_out_of_range(what):
+    args = _edges_inputs()
+    args[4][1] = torch.tensor(BAD_TABLES[what])
+    with pytest.raises(ValueError, match="segment 1 .* out of range"):
+        tops.hyp_edges(*args)
+
+
+BAD_ARGS = {"float32 q": (0, lambda t: t.float()), "int32 gids": (2, lambda t: t.int()),
+            "float64 table": (4, lambda t: t.double()), "q of 8 columns": (
+                0, lambda t: torch.cat([t, t], 1)), "table of 3 columns": (4, lambda t: t[:, :3]),
+            "c_gid too short": (3, lambda t: t[:-1]),
+            "strided c": (1, lambda t: torch.cat([t, t], 1)[:, ::2])}
+
+
+@pytest.mark.parametrize("what", list(BAD_ARGS))
+def test_hyp_edges_raises_on_a_wrong_argument(what):
+    args = _edges_inputs()
+    k, change = BAD_ARGS[what]
+    args[k] = change(args[k])
+    with pytest.raises(ValueError):
+        tops.hyp_edges(*args)

@@ -3,6 +3,7 @@ formulas, and the analytic costs against the bounds ``PERF.md`` records
 for the card (``chip_smoke.py``'s kernels line, NVIDIA H100 80GB HBM3).
 """
 import pytest
+import torch
 
 from repro.launch import roofline as jroof
 from repro_torch.launch import cost, roofline
@@ -166,3 +167,22 @@ def test_pair_mask_hyp_cost():
     c = cost.pair_mask_hyp(512 * 8, 2048 * 8, 512 * 2048)
     assert (c.bytes, c.ops, c.op_kind) == ((512 + 2048) * 64 + 512 * 2048, 512 * 2048 * 6,
                                            "fp64")
+
+
+def test_hyp_edges_cost():
+    """Features (32 bytes) and gids (8) of both sides read once, 16 bytes a
+    hit written, 6 float64 operations a pair; ``launch_cost`` prices a call
+    from its table's pairs, every pair a hit at most."""
+    c = cost.hyp_edges(1000, 3000, 2_000_000, 5000)
+    assert (c.bytes, c.ops, c.op_kind) == (4000 * 40 + 5000 * 16, 12_000_000, "fp64")
+    # the fp64 peak: 132 SMs x 64 FMA units x 2 at 1.98 GHz, 33.45e12/s
+    assert c.seconds()[1] == 12_000_000 / (132 * 64 * 2 * 1.98e9)
+    assert c.bound_by() == "operations"
+    # rhg_pe's graph of the pipeline at P = 1 tests at most 13,746,176
+    # pairs: a bound of about 2.5 µs
+    assert cost.hyp_edges(0, 0, 13_746_176, 0).bound_s() < 2.5e-6
+    q, c_ = torch.zeros(10, 4, dtype=torch.float64), torch.zeros(20, 4, dtype=torch.float64)
+    seg = torch.tensor([[0, 10, 0, 20], [2, 3, 5, 0], [4, 6, 1, 7]])
+    got = cost.launch_cost("hyp_edges", (q, c_, torch.zeros(10, dtype=torch.int64),
+                                         torch.zeros(20, dtype=torch.int64), seg, 2.0), {})
+    assert got == cost.hyp_edges(10, 20, 200 + 42, 200 + 42)
