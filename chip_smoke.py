@@ -153,11 +153,32 @@ or of the JAX package.  Phases, each printed with its seconds:
       the dry run of path 3i's step on a (1, 1) mesh against that step
       run on the card: the predicted peak within 3 % of the step's own
       ``max_memory_allocated`` and its matmul flops equal to
-      ``FlopCounterMode``'s; the generator cell (``GNM(2^30, 2^34)``
+      ``FlopCounterMode``'s; the prefill and decode dry runs of Qwen3's
+      smoke config on a fake (4, 2) mesh (the decode attention on this
+      torch's DTensor); the generator cell (``GNM(2^30, 2^34)``
       planned at 256 and 512 ranks, PE 0's program on the card under
       the op scan, no collective, its plan's edge count, each
       ``chunk_sample`` and ``chunk_decode`` launch equal to its plain
       version on the same inputs);
+   k. generation across ranks (``repro_torch.distrib.world``): four
+      spawned ranks, every one on this card and ``World.from_env()``
+      from torchrun's variables, no process group; each generates its
+      own PEs at P = 16: ``generate(GNM(2^24, 2^28))``, streamed
+      ``SBM(2^24, 16 blocks)`` (its native segments), ``RHG(2^20)``
+      (``pair_edges``) and ``RDG(2^18, 2-D)`` (``triangulate`` on each
+      rank), and its PEs' ``gnm_directed_pe`` and ``rmat_pe`` at
+      GNM(2^24, 2^28, directed) and RMAT(26, 2^30), all with
+      ``check=True`` or under the op trace, each rank's first
+      ``chunk_sample``, ``chunk_decode`` and ``pair_edges`` launch held
+      against its plain version; then the small per-PE generators
+      (n = 2^14) on its PEs.
+      Meanwhile this process runs the small generators on the CPU, and
+      then the same specs at P = 16 on the card in one process.  Every
+      rank's per-PE digests must equal the one process's, the small
+      generators' card digests their CPU digests, and no rank's op scan
+      may find a collective; each rank's wall, the world's (the slowest
+      rank's) and the one process's are printed, which with four ranks
+      on one card measure correctness, not scaling;
    each checked on the device; each ``collect`` must launch ``hist`` once
    per non-empty chunk of its first pass plus once per section histogram.  The generator
    paths run ``pair_mask``'s tiles inside ``pair_edges``, as the
@@ -198,14 +219,14 @@ or of the JAX package.  Phases, each printed with its seconds:
    order; ``rhg_pe``'s walls, warm; and a second ``pair_mask`` row, the
    hyp tile at the largest segment on the dense route's padded blocks.
    Path i adds no row: its step runs cuBLAS and ATen, its ``hyp_edges``
-   launch joins the kernel's count; path j neither, its ``chunk_sample``
-   and ``chunk_decode`` launches join theirs.
+   launch joins the kernel's count; paths j and k neither, their
+   launches (the ranks' included) join their kernels' counts.
 
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
 
 ``--only PATH`` (``er``, ``geom``, ``rdg``, ``families``, ``stats``, ``serve``, ``analyze``,
-``lm``, ``train``, ``mesh``; repeatable)
+``lm``, ``train``, ``mesh``, ``world``; repeatable)
 builds and runs
 only that main path and its phase 4 timing, and ``--no-timing`` stops
 after the path: run the same script in two checkouts in turns to
@@ -2248,7 +2269,7 @@ def timed_stream(spec, P: int, dev, overlap: int, batch: int):
     import torch
     from repro_torch import api
 
-    per_n, per_h = [0] * P, [0] * P
+    digests = Digests()
     total = chunks = c = 0
     first = None
     t0 = time.perf_counter()
@@ -2256,17 +2277,12 @@ def timed_stream(spec, P: int, dev, overlap: int, batch: int):
         e = ch.edges()
         if first is None:
             first = time.perf_counter() - t0
-        k = len(e)
-        total, chunks = total + k, chunks + 1
+        total, chunks = total + len(e), chunks + 1
         c = (c + big_checksum(e)) % (1 << 64)
-        if k:
-            pos = torch.arange(per_n[ch.pe] + 1, per_n[ch.pe] + k + 1, device=e.device)
-            h = (e[:, 0] * _MIX1 + e[:, 1]) ^ (pos * _POS)
-            h = (h ^ (h >> 31)) * _MIX2
-            per_h[ch.pe] = (per_h[ch.pe] + int((h ^ (h >> 29)).sum())) % (1 << 64)
-            per_n[ch.pe] += k
+        digests.add(ch.pe, e)
     torch.cuda.synchronize(dev)
-    return total, chunks, c, tuple(zip(per_n, per_h)), first, time.perf_counter() - t0
+    return (total, chunks, c, tuple(digests.of(pe) for pe in range(P)), first,
+            time.perf_counter() - t0)
 
 
 def overlap_turns(spec, P: int, dev, batch: int, cold, turns=(0, 4, 4, 0)) -> list:
@@ -2687,13 +2703,19 @@ class held_kernels:
     plain version on the same inputs (what the call writes into is cloned
     first), the two are held equal in ``errs``, and the kernel's result
     goes on.  Each kernel thus meets its plain version at the shapes and
-    on the data the served slab gives it; ``seen`` counts the calls held."""
+    on the data the served slab gives it; ``seen`` counts the calls held.
+    With ``first_only`` only each kernel's first call is held, and
+    ``plain_s`` sums the seconds the plain versions took; ``names``
+    restricts the holding to those kernels.  A held call is
+    opaque to the op scan, as the kernel's entry point is."""
 
-    def __init__(self, errs: Errors, what: str):
+    def __init__(self, errs: Errors, what: str, first_only: bool = False, names=None):
         self.errs, self.what, self.seen, self.undo = errs, what, {}, []
+        self.first_only, self.plain_s, self.names = first_only, 0.0, names
 
     def __enter__(self):
         import torch
+        from repro_torch.analyze import opscan
 
         def copy(x):
             if isinstance(x, tuple):
@@ -2704,18 +2726,30 @@ class held_kernels:
             return (r,) if torch.is_tensor(r) else r
 
         for mod, name, plain, writes in slot_kernels():
+            if self.names is not None and name not in self.names:
+                continue
             kernel = getattr(mod, name)
 
             def both(*a, _k=kernel, _p=plain, _w=writes, _n=name, **kw):
+                if self.first_only and _n in self.seen:
+                    return _k(*a, **kw)
                 pa = [copy(x) if i in _w else x for i, x in enumerate(a)]
                 got = _k(*a, **kw)
+                if self.first_only:     # the plain version's seconds alone
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 want = _p(*pa, **kw)
+                if self.first_only:
+                    torch.cuda.synchronize()
+                self.plain_s += time.perf_counter() - t0
                 for x, y in zip(pairs(got), pairs(want)):
                     self.errs.same(_n, x, y, f"{_n} in {self.what}")
                 self.seen[_n] = self.seen.get(_n, 0) + 1
                 return got
 
-            setattr(mod, name, both)
+            # opaque to the op scan as the kernel is: the plain version and
+            # the comparison (host reads) are the check's, not the program's
+            setattr(mod, name, opscan.opaque(name)(both))
             self.undo.append((mod, name, kernel))
         return self
 
@@ -2940,7 +2974,8 @@ def lm_groups(key: str) -> str:
 
 
 class held_lm_kernels:
-    """Within: ``rhg.hyp_edges``, ``er.sample_rows`` and ``er.chunk_decode``
+    """Within: ``rhg.hyp_edges`` and the chunk program's ``sample_rows`` and
+    ``chunk_decode`` (``engine``'s, which ``gnm_undirected_pe`` runs)
     launch their kernels and hold each result against the plain version
     on the same inputs (``hyp_edges``' on the CPU), so each meets it at
     the pipeline's shapes and data; ``tables`` keeps every ``hyp_edges``
@@ -2951,11 +2986,12 @@ class held_lm_kernels:
         self.errs, self.tables, self.seen, self.undo = errs, [], {}, []
 
     def __enter__(self):
-        from repro_torch.core import er, rhg
+        from repro_torch.core import rhg
+        from repro_torch.distrib import engine
         from repro_torch.kernels.pairmask.ref import hyp_edges_ref
         from repro_torch.kernels.sampler.ref import chunk_decode_ref, sample_rows_ref
         errs, seen = self.errs, self.seen
-        edges, sample, decode = rhg.hyp_edges, er.sample_rows, er.chunk_decode
+        edges, sample, decode = rhg.hyp_edges, engine.sample_rows, engine.chunk_decode
 
         def held_edges(q, c, q_gid, c_gid, segments, cosh_r):
             out = edges(q, c, q_gid, c_gid, segments, cosh_r)
@@ -2982,8 +3018,9 @@ class held_lm_kernels:
             seen["chunk_decode"] = seen.get("chunk_decode", 0) + 1
             return out
 
-        for mod, name, fn in ((rhg, "hyp_edges", held_edges), (er, "sample_rows", held_sample),
-                              (er, "chunk_decode", held_decode)):
+        for mod, name, fn in ((rhg, "hyp_edges", held_edges),
+                              (engine, "sample_rows", held_sample),
+                              (engine, "chunk_decode", held_decode)):
             self.undo.append((mod, name, getattr(mod, name)))
             setattr(mod, name, fn)
         return self
@@ -4090,6 +4127,32 @@ def mesh_calibration(dev) -> dict:
     return {"pred_peak": pred, "peak": peak, "flops": flops}
 
 
+def mesh_smoke_4x2() -> dict:
+    """3j, part 3: the prefill and decode dry runs of Qwen3's smoke config
+    on a fake (4, 2) mesh (a batch of 8, 64 positions): the kv heads and
+    the cache's positions are sharded over the model axis, which the
+    decode attention (``models/layers.py::_sdpa_decode``) must take on
+    this torch's DTensor.  Each record's status must be ``ok``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+
+    cfg = get_smoke_config(LM_ARCH)
+    recs = {}
+    try:
+        M.reset()
+        mesh = M.make_debug_mesh(4, 2)
+        for spec in (ShapeSpec("prefill_smoke", "prefill", 64, 8),
+                     ShapeSpec("decode_smoke", "decode", 64, 8)):
+            rec = dryrun.run_cell(LM_ARCH, spec.name, False, mesh=mesh, cfg=cfg, spec=spec)
+            require(rec["status"] == "ok", f"the (4, 2) smoke {spec.kind}: {rec}")
+            recs[spec.kind] = rec
+    finally:
+        M.reset()
+    return recs
+
+
 def phase_mesh(dev, sizes: dict) -> dict:
     """Phase 3j: the LM's meshes and dry run (``--only mesh``): the dry
     runs of Qwen3-0.6B at ``train_4k`` and ``decode_32k`` on the fake
@@ -4100,6 +4163,7 @@ def phase_mesh(dev, sizes: dict) -> dict:
     collective, each launch held against its plain version) at 256 and
     512 ranks."""
     import tempfile
+    import torch
     from repro_torch.launch import dryrun
 
     errs = Errors()
@@ -4117,6 +4181,11 @@ def phase_mesh(dev, sizes: dict) -> dict:
         t1 = time.perf_counter()
         cal = mesh_calibration(dev)
         print(f"  [3j calibration {time.perf_counter() - t1:.3f}s]", flush=True)
+        t1 = time.perf_counter()
+        smoke = mesh_smoke_4x2()
+        for kind, rec in smoke.items():
+            print(f"  (4, 2) smoke {kind} (the two dry runs {time.perf_counter() - t1:.3f}s on "
+                  f"the host, torch {torch.__version__}): {roofline_line(rec)}", flush=True)
         gens = []
         for mp in (False, True):
             t1 = time.perf_counter()
@@ -4167,6 +4236,302 @@ def mesh_timing(dev, out: dict, errs: Errors) -> list:
     return []
 
 
+WORLD_RANKS = 4
+WORLD_P = 16
+# each rank holds its first launch of these against their plain versions
+# (chunk_rmat's plain version at rmat_pe's 2^26 slots takes 13 GiB a rank)
+WORLD_HELD = ("chunk_sample", "chunk_decode", "pair_edges")
+
+
+def world_specs(api, sizes: dict) -> dict:
+    """Path 3k's specs: the main paths' GNM (generated), SBM, RHG and an
+    RDG of 2^18 points (streamed), and the shapes of the per-PE
+    generators' one-process counterparts (streamed)."""
+    return {"gnm": api.GNM(n=sizes["gnm_n"], m=sizes["gnm_m"], seed=1),
+            "sbm": api.SBM(n=sizes["sbm_n"], blocks=sizes["sbm_blocks"],
+                           p_in=sizes["sbm_p"][0], p_out=sizes["sbm_p"][1], seed=10),
+            "rhg": api.RHG(n=sizes["rhg_n"], avg_deg=16, gamma=2.8, seed=5),
+            "rdg": api.RDG(n=sizes["world_rdg_n"], dim=2, seed=6),
+            "gnm_directed_pe": api.GNM(n=sizes["gnm_n"], m=sizes["gnm_m"], directed=True,
+                                       seed=1),
+            "rmat_pe": api.RMAT(log_n=sizes["rmat_log_n"], m=sizes["rmat_m"], seed=8)}
+
+
+def small_generators(n: int) -> dict:
+    """The per-PE generators at a size whose plain versions finish in
+    seconds: name -> ``fn(pe, device)`` at P = ``WORLD_P``."""
+    from repro_torch.core import ba, er, rmat, sbm
+    P, log_n = WORLD_P, n.bit_length() - 1
+    return {
+        "gnm_directed_pe": lambda pe, dev: er.gnm_directed_pe(3, n, 16 * n, P, pe, device=dev),
+        "gnp_directed_pe": lambda pe, dev: er.gnp_directed_pe(4, n, 16 / n, P, pe, device=dev),
+        "gnp_undirected_pe": lambda pe, dev: er.gnp_undirected_pe(5, n, 16 / n, P, pe,
+                                                                  device=dev),
+        "gnm_undirected_pe": lambda pe, dev: torch_of(
+            er.gnm_undirected_pe(9, n, 8 * n, P, pe, device=dev), dev),
+        "ba_pe": lambda pe, dev: ba.ba_pe(6, n, 8, P, pe, device=dev),
+        "rmat_pe": lambda pe, dev: rmat.rmat_pe(7, log_n, 16 * n, P, pe, device=dev),
+        "sbm_pe": lambda pe, dev: sbm.sbm_pe(8, n, 16, 2 ** -9, 2 ** -13, P, pe, device=dev),
+        "sbm_region_edges": lambda pe, dev: sbm.sbm_region_edges(8, n, 16, pe, pe // 2,
+                                                                 2 ** -9, 2 ** -13, device=dev),
+    }
+
+
+def torch_of(a, dev):
+    import torch
+    return torch.from_numpy(a).to(dev)
+
+
+class Digests:
+    """Per-PE ``(edges, digest)``: a PE's digest is the wrapping int64 sum
+    of a mix of each edge with its position in that PE's output, so it
+    holds the per-PE order; chunks of a PE are added in order."""
+
+    def __init__(self):
+        self.n, self.h = {}, {}
+
+    def add(self, pe: int, e) -> None:
+        import torch
+        k, at = len(e), self.n.get(pe, 0)
+        self.n[pe] = at + k
+        self.h.setdefault(pe, 0)
+        if k:
+            pos = torch.arange(at + 1, at + k + 1, device=e.device)
+            h = (e[:, 0] * _MIX1 + e[:, 1]) ^ (pos * _POS)
+            h = (h ^ (h >> 31)) * _MIX2
+            self.h[pe] = (self.h[pe] + int((h ^ (h >> 29)).sum())) % (1 << 64)
+
+    def split(self, edges, counts, lo: int) -> "Digests":
+        """Add ``edges`` cut into PEs ``lo, lo + 1, ...`` of ``counts`` edges."""
+        at = 0
+        for i, k in enumerate(counts):
+            self.add(lo + i, edges[at:at + int(k)])
+            at += int(k)
+        require(at == len(edges), f"{len(edges)} edges, the plan's PEs hold {at}")
+        return self
+
+    def of(self, pe: int) -> tuple:
+        return self.n.get(pe, 0), self.h.get(pe, 0)
+
+
+def owned_counts(plan):
+    """Each PE's edge count of a ChunkPlan (its owned rows')."""
+    return (plan.count * plan.owned).sum(axis=1)
+
+
+def world_rank(rank: int, size: int, sizes: dict, conn) -> None:
+    """Path 3k, one rank of the world (spawned): ``World.from_env()`` from
+    torchrun's variables, then the rank's own PEs of ``world_specs``
+    (its PEs' ``gnm_directed_pe`` and ``rmat_pe`` under an op trace;
+    ``generate`` of GNM; SBM, RHG and RDG streamed, with ``check=True``),
+    the first launch of each kernel of ``WORLD_HELD`` held against its
+    plain version; then the small per-PE generators.  Sends per-PE digests, walls, launches, errors and
+    the op scan's collectives to the parent."""
+    import traceback
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(size), LOCAL_RANK=str(rank))
+        import torch
+        from repro_torch import api
+        from repro_torch.analyze import opscan
+        from repro_torch.core import er, rmat
+        from repro_torch.distrib import runtime
+        from repro_torch.distrib.world import World
+        from repro_torch.kernels import build
+
+        t_start = time.perf_counter()
+        world = World.from_env()
+        dev = world.bind()
+        torch.empty(1, device=dev)
+        lo, hi = world.pes(WORLD_P)
+        specs = world_specs(api, sizes)
+        build.reset_launches()
+        errs, walls, dig = Errors(), {}, {k: Digests() for k in specs}
+        ready = time.perf_counter()
+        with held_kernels(errs, f"rank {rank}", first_only=True, names=WORLD_HELD) as held:
+            # first, so that the sampler's first launch, held against its
+            # plain version, is one row of 2^24 slots a PE
+            gd, rm = specs["gnm_directed_pe"], specs["rmat_pe"]
+            t0 = time.perf_counter()
+            with opscan.trace() as census:
+                for pe in range(lo, hi):
+                    dig["gnm_directed_pe"].add(pe, er.gnm_directed_pe(
+                        gd.seed, gd.n, gd.m, WORLD_P, pe, device=dev))
+                    dig["rmat_pe"].add(pe, rmat.rmat_pe(
+                        rm.seed, rm.log_n, rm.m, WORLD_P, pe, rm.probs, device=dev))
+            torch.cuda.synchronize()
+            walls["per-PE generators"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            g = api.generate(specs["gnm"], WORLD_P, mesh=world, check=True)
+            counts = owned_counts(specs["gnm"].plan(WORLD_P))[lo:hi]
+            dig["gnm"].split(g.edges, counts, lo)
+            del g
+            torch.cuda.synchronize()
+            walls["gnm generate"] = time.perf_counter() - t0
+            for name in ("sbm", "rhg", "rdg"):
+                t0 = time.perf_counter()
+                for ch in api.iter_edge_chunks(specs[name], WORLD_P, mesh=world,
+                                               batch=sizes["batch"], check=True):
+                    dig[name].add(ch.pe, ch.edges())
+                torch.cuda.synchronize()
+                walls[f"{name} stream"] = time.perf_counter() - t0
+        wall = time.perf_counter() - ready
+        scanned = sorted(f"{k[0]}/{k[1][0]}" for k in runtime._CHECKED)
+        collectives = opscan.scan_census(census, opscan.GENERATOR_CONTRACT).collectives
+        small = {}
+        for name, fn in small_generators(sizes["world_small_n"]).items():
+            d = Digests()
+            for pe in range(lo, hi):
+                d.add(pe, fn(pe, dev))
+            small[name] = {pe: d.of(pe) for pe in range(lo, hi)}
+        conn.send({"rank": rank, "pes": (lo, hi), "device": str(dev),
+                   "startup_s": ready - t_start, "wall": wall, "walls": walls,
+                   "plain_s": held.plain_s, "held": held.seen, "errs": errs.max,
+                   "launches": dict(build.LAUNCHES), "scanned": scanned,
+                   "collectives": collectives,
+                   "digests": {k: {pe: d.of(pe) for pe in range(lo, hi)}
+                               for k, d in dig.items()},
+                   "small": small})
+    except BaseException:
+        conn.send({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        conn.close()
+
+
+def world_one_process(dev, specs: dict, sizes: dict) -> tuple:
+    """The same specs at P = 16 in this one process on the card: per-PE
+    digests (GNM generated and cut by its plan's counts; the others
+    streamed) and the wall of each."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import rdg
+
+    rdg.rdg_structure.cache_clear()         # cold, as on every rank
+    dig, walls = {k: Digests() for k in specs}, {}
+    t0 = time.perf_counter()
+    g = api.generate(specs["gnm"], WORLD_P, device=dev)
+    dig["gnm"].split(g.edges, owned_counts(specs["gnm"].plan(WORLD_P)), 0)
+    del g
+    torch.cuda.synchronize()
+    walls["gnm generate"] = time.perf_counter() - t0
+    for name in ("sbm", "rhg", "rdg", "gnm_directed_pe", "rmat_pe"):
+        t0 = time.perf_counter()
+        for ch in api.iter_edge_chunks(specs[name], WORLD_P, device=dev, batch=sizes["batch"]):
+            dig[name].add(ch.pe, ch.edges())
+        torch.cuda.synchronize()
+        walls[f"{name} stream"] = time.perf_counter() - t0
+    return dig, walls
+
+
+def phase_world(dev, sizes: dict) -> dict:
+    """Phase 3k: generation across ranks (``--only world``).  A world of
+    ``WORLD_RANKS`` spawned ranks, every one on this card (``cuda:0``),
+    no process group: each rank generates its own PEs of ``world_specs``
+    at P = 16 (:func:`world_rank`) while this process runs the small
+    per-PE generators on the CPU; then the same specs in this one
+    process.  Every per-PE digest of a rank must equal the one process's,
+    the small generators' card digests their CPU digests, every rank's
+    op scan must find no collective and every rank's first
+    ``chunk_sample``, ``chunk_decode`` and ``pair_edges`` launch must
+    equal its plain version.  Four ranks sharing one card measure
+    correctness, not scaling."""
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch import api
+    from repro_torch.kernels import build
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()                # the earlier paths' cache, for the ranks
+    ctx = mp.get_context("spawn")
+    procs, conns = [], []
+    t0 = time.perf_counter()
+    for r in range(WORLD_RANKS):
+        conn, child = ctx.Pipe()
+        p = ctx.Process(target=world_rank, args=(r, WORLD_RANKS, sizes, child))
+        p.start()
+        child.close()
+        procs.append(p)
+        conns.append(conn)
+    try:
+        t1 = time.perf_counter()
+        cpu = {}
+        for name, fn in small_generators(sizes["world_small_n"]).items():
+            d = Digests()
+            for pe in range(WORLD_P):
+                d.add(pe, fn(pe, "cpu"))
+            cpu[name] = d
+        cpu_s = time.perf_counter() - t1
+        ranks = []
+        for conn in conns:
+            res = conn.recv()
+            require("error" not in res, f"world rank failed:\n{res.get('error')}")
+            ranks.append(res)
+        for p in procs:
+            p.join(timeout=120)
+            require(p.exitcode == 0, f"a world rank exited {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    world_s = time.perf_counter() - t0
+    specs = world_specs(api, sizes)
+    t1 = time.perf_counter()
+    one, one_walls = world_one_process(dev, specs, sizes)
+    one_s = time.perf_counter() - t1
+    errs = Errors()
+    for res in ranks:
+        r, (lo, hi) = res["rank"], res["pes"]
+        for name in specs:
+            for pe in range(lo, hi):
+                require(res["digests"][name][pe] == one[name].of(pe),
+                        f"rank {r}, {name}, PE {pe}: digest {res['digests'][name][pe]} != "
+                        f"the one process's {one[name].of(pe)}")
+        for name, d in res["small"].items():
+            for pe in range(lo, hi):
+                require(d[pe] == cpu[name].of(pe), f"rank {r}, {name}({pe}) on the card "
+                        f"{d[pe]} != on the CPU {cpu[name].of(pe)}")
+        require(not res["collectives"], f"rank {r}'s op scan found {res['collectives']}")
+        for k in WORLD_HELD:
+            require(res["held"].get(k) == 1, f"rank {r}: {k}'s first launch was not held")
+        for k, v in res["errs"].items():
+            errs.max[k] = max(errs.max[k], v)
+        for k, v in res["launches"].items():
+            build.LAUNCHES[k] += v
+        less = res["wall"] - res["plain_s"]
+        print(f"  rank {r} of {WORLD_RANKS} on {res['device']}, PEs [{lo}, {hi}): wall "
+              f"{res['wall']:.3f}s ({less:.3f}s less the plain versions' "
+              f"{res['plain_s']:.3f}s; start-up {res['startup_s']:.3f}s before it): "
+              + ", ".join(f"{k} {v:.3f}s" for k, v in res["walls"].items())
+              + f"; programs scanned {len(res['scanned'])}, collectives none; first "
+              f"launches held {res['held']}, max |err| " + ", ".join(
+                  f"{k} {res['errs'][k]}" for k in WORLD_HELD)
+              + f"; launches {({k: v for k, v in res['launches'].items() if v})}", flush=True)
+    edges = {k: sum(d.of(pe)[0] for pe in range(WORLD_P)) for k, d in one.items()}
+    slowest = max(res["wall"] for res in ranks)
+    print(f"  world ({card_line()}): {WORLD_RANKS} ranks sharing the one card, P = {WORLD_P}: "
+          f"world wall (the slowest rank) {slowest:.3f}s, spawn to the last result "
+          f"{world_s:.3f}s; one process {one_s:.3f}s (" + ", ".join(
+              f"{k} {v:.3f}s" for k, v in one_walls.items()) + "); four ranks on one card "
+          f"measure correctness, not scaling", flush=True)
+    print(f"  every per-PE digest of the ranks == the one process's, "
+          f"{len(specs) * WORLD_P} PEs x specs: " + ", ".join(
+              f"{k} {v} edges" for k, v in edges.items())
+          + f"; small per-PE generators (n = {sizes['world_small_n']}) on the card == on the "
+          f"CPU ({cpu_s:.3f}s there): " + ", ".join(
+              f"{k} {sum(d.of(pe)[0] for pe in range(WORLD_P))}" for k, d in cpu.items()),
+          flush=True)
+    return {"errs": errs, "ranks": ranks, "one_s": one_s, "world_s": slowest}
+
+
+def world_timing(dev, out: dict, errs: Errors) -> list:
+    """Phase 4 of 3k: no kernel of its own; each rank's first launches,
+    held against their plain versions, join those kernels' errors."""
+    for k in WORLD_KERNELS:
+        errs.max[k] = max(errs.max[k], out["errs"].max[k])
+    return []
+
+
 OFF_PATH = {"pair_mask": "euclid tile at its own contract's shape (the oracles' 128-row cell "
                          "blocks): the engine runs its tiles inside pair_edges, and rhg_pe, "
                          "the LM pipeline's graph, tests its segments with hyp_edges; its "
@@ -4201,7 +4566,8 @@ FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 
         "lm_profiled_steps": 16,
         "train_steps": 20, "train_ckpt_every": 12, "train_profiled_steps": 3,
         "train_overfit_steps": 30, "train_resume_steps": 3,
-        "mesh_gen_n": 1 << 30, "mesh_gen_m": 1 << 34}
+        "mesh_gen_n": 1 << 30, "mesh_gen_m": 1 << 34,
+        "world_rdg_n": 1 << 18, "world_small_n": 1 << 14}
 ER_KERNELS = ("chunk_sample", "chunk_decode", "hist")
 GEOM_KERNELS = ("pair_edges", "cell_points", "hist")
 RDG_KERNELS = ("triangulate", "circumspheres", "pair_edges", "cell_points")
@@ -4218,6 +4584,9 @@ TRAIN_KERNELS = ("hyp_edges",)
 # kernel cases among them)
 # the generator cell runs PE 0's program of GNM(2^30, 2^34)
 MESH_KERNELS = ("chunk_sample", "chunk_decode")
+# a world's ranks sample, decode (GNM, SBM, the per-PE ER rows), test pairs
+# (RHG, RDG), triangulate (RDG planning) and descend (rmat_pe)
+WORLD_KERNELS = ("chunk_sample", "chunk_decode", "pair_edges", "triangulate", "chunk_rmat")
 ANALYZE_KERNELS = ("chunk_sample", "chunk_decode", "chunk_ba", "chunk_rmat", "pair_edges",
                    "cell_points", "pair_mask", "triangulate", "circumspheres")
 
@@ -4231,7 +4600,8 @@ PATHS = {"er": ("3a Erdős–Rényi", phase_main, ER_KERNELS, phase_timing),
          "analyze": ("3g contract checking", phase_analyze, ANALYZE_KERNELS, analyze_timing),
          "lm": ("3h LM serving", phase_lm, LM_KERNELS, lm_timing),
          "train": ("3i training", phase_train, TRAIN_KERNELS, train_timing),
-         "mesh": ("3j meshes and dry run", phase_mesh, MESH_KERNELS, mesh_timing)}
+         "mesh": ("3j meshes and dry run", phase_mesh, MESH_KERNELS, mesh_timing),
+         "world": ("3k generation across ranks", phase_world, WORLD_KERNELS, world_timing)}
 
 
 def main(argv=None) -> int:

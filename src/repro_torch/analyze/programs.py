@@ -84,25 +84,29 @@ def _plan_kind(plan) -> str:
             engine.PointPlan: "point"}[type(plan)]
 
 
-def _run_outputs(plan, dev):
+def _run_outputs(plan, dev, mesh):
     from ..distrib import runtime
 
-    payload, valid = runtime.run(plan, dev, check=False)
+    payload, valid = runtime.run(plan, dev, check=False, mesh=mesh)
     return payload, valid
 
 
-def _wave_outputs(plan, dev, D: int, batch: int):
+def _wave_outputs(plan, dev, mesh, batch: int):
     from ..distrib import runtime
 
     out = []
-    for wave in runtime.stream_waves(plan, batch=batch, device=dev, D=D):
+    for wave in runtime.stream_waves(plan, batch=batch, device=dev, mesh=mesh):
         out += [wave.payload, wave.valid]
     return tuple(out)
 
 
 def _plan_cases(family: str, spec, P: int, batch: int, mesh=None,
                 device="cpu") -> Iterator[ProgramCase]:
-    D = 1 if mesh is None else int(mesh)
+    """The spec's programs on ``mesh``: a row count D, or a world whose
+    rank runs its own rows only."""
+    from ..distrib.world import World
+
+    D = mesh if isinstance(mesh, World) else 1 if mesh is None else int(mesh)
     plans: List[Tuple[str, object]] = []
     plan = spec.plan(P, device=device)
     plans.append((_plan_kind(plan), plan))
@@ -114,7 +118,7 @@ def _plan_cases(family: str, spec, P: int, batch: int, mesh=None,
         contract = GENERATOR_CONTRACT if kind == "chunk" else RECOMPUTE_CONTRACT
         for mode in MODES:
             if mode == "run":
-                run = (lambda dev, p=p: _run_outputs(p, dev))
+                run = (lambda dev, p=p: _run_outputs(p, dev, D))
             else:
                 run = (lambda dev, p=p: _wave_outputs(p, dev, D, batch))
             yield ProgramCase(

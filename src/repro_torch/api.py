@@ -28,8 +28,16 @@ of ``repro.api``, all eight families).
 5. **Check**: ``check=True`` (``generate``'s default, as the
    reference's) scans each program once for the communication-free
    contracts (:mod:`repro_torch.analyze`), and :func:`verify_contracts`
-   reports them for one spec; ``mesh`` is the reference's mesh as a row
-   count D dividing P, all rows on the one card.
+   reports them for one spec.
+6. **Mesh**: ``mesh`` is the reference's mesh.  A row count D dividing P
+   runs every row on the one card.  A :class:`~repro_torch.distrib.world.World`
+   (``World.from_env()`` under ``torchrun``) makes the caller rank ``d``
+   of D processes, each on a card of its own: it plans, uploads and runs
+   PEs ``[d P/D, (d+1) P/D)`` only, with no collective and no process
+   group.  :func:`generate` returns the rank's edges in PE order, and
+   concatenating the ranks' edges in rank order gives the one-process
+   edges bit for bit; the streams yield the rank's chunks with global
+   ``pe`` ids.
 
 Every entry point takes ``device``: the work runs on CUDA unless the
 caller passes ``device="cpu"`` (the plain PyTorch versions of the
@@ -60,6 +68,7 @@ from .core import rmat as _rmat
 from .core import sbm as _sbm
 from .core.prng import THREEFRY
 from .distrib import engine, runtime
+from .distrib.world import World
 
 DEFAULT_RNG = THREEFRY
 
@@ -344,6 +353,26 @@ def _mesh_rows(mesh, P: int) -> int:
     return D
 
 
+def _placed(mesh, P: int, device) -> Tuple[torch.device, int, int, object]:
+    """``(device, lo, hi, rows)`` of an entry point on ``mesh``: a
+    :class:`World` binds its rank's device and gives the rank's PEs (and
+    is its own ``rows``); otherwise every PE on ``device`` and the row
+    count, which must divide P."""
+    if isinstance(mesh, World):
+        return (mesh.bind(device), *mesh.pes(P), mesh)
+    return runtime.resolve_device(device), 0, P, _mesh_rows(mesh, P)
+
+
+def _plan_rows(spec, P: int, lo: int, hi: int, rng_impl: str, dev):
+    """The plan of PEs ``[lo, hi)`` (the whole plan when that is every
+    PE), as each rank of a world plans it: with :func:`plan_emitter`'s
+    ``build``, equal field by field to rows ``[lo, hi)`` of the whole
+    plan (``capacity`` apart, for families that plan a range natively)."""
+    if (lo, hi) == (0, P):
+        return spec.plan(P, rng_impl=rng_impl, device=dev)
+    return plan_emitter(spec, P, rng_impl=rng_impl, device=dev).build(lo, hi)
+
+
 def generate(spec, P: int = 1, *, device=None, mesh=None, rng_impl: str = DEFAULT_RNG,
              check: bool = True, return_points: bool = False) -> Graph:
     """Generate ``spec`` across P virtual PEs on ``device`` (CUDA unless
@@ -355,17 +384,27 @@ def generate(spec, P: int = 1, *, device=None, mesh=None, rng_impl: str = DEFAUL
     ``check=True`` scans each distinct program once for the contracts of
     :mod:`repro_torch.analyze` (zero collectives first).  ``mesh`` is
     ``None`` or a row count D dividing P (the reference's mesh, all rows
-    on the one card); the edges and their order do not depend on it."""
-    dev = runtime.resolve_device(device)
-    _mesh_rows(mesh, P)
-    payload, valid = runtime.run(spec.plan(P, rng_impl=rng_impl, device=dev), dev,
+    on the one card); the edges and their order do not depend on it.
+
+    On a :class:`World` (``mesh=world``) the rank plans and runs only its
+    PEs on its own device: ``edges`` are its PEs' edges in PE order (the
+    ranks' in rank order concatenate to the one-process edges), and
+    ``points`` its own cells' positions, cell by cell in stream order
+    (what :func:`iter_points` yields on its rows), not all n."""
+    dev, lo, hi, _ = _placed(mesh, P, device)
+    payload, valid = runtime.run(_plan_rows(spec, P, lo, hi, rng_impl, dev), dev,
                                  check=check)
     with obs.trace("extract", phase="sink"):
         edges = payload[valid]
     del payload, valid
     points = None
     if return_points and hasattr(spec, "point_plan"):
-        points = _all_points(spec, P, dev, rng_impl, check)
+        if isinstance(mesh, World):
+            pts, ok = runtime.run(spec.point_plan(P, rng_impl=rng_impl, device=dev), dev,
+                                  check=check, mesh=mesh)
+            points = pts[ok]
+        else:
+            points = _all_points(spec, P, dev, rng_impl, check)
     return Graph(edges=edges, n=spec.num_vertices, directed=spec.directed,
                  points=points)
 
@@ -412,8 +451,7 @@ def verify_contracts(spec, P: int = 1, *, mesh=None, batch: int = 4, device=None
     ``raise_on_violation=False``."""
     from .analyze import programs as _programs
 
-    dev = runtime.resolve_device(device)
-    _mesh_rows(mesh, P)
+    dev, *_ = _placed(mesh, P, device)
     reports = _programs.scan_spec(spec, P, mesh=mesh, batch=batch, device=dev,
                                   name=type(spec).__name__.lower())
     bad = [r for r in reports if not r.ok]
@@ -441,24 +479,30 @@ def iter_edge_chunks(spec, P: int = 1, *, device=None, mesh=None,
     exception of the planner is raised here.
 
     ``mesh`` (a row count D dividing P) streams waves of D rows of
-    ``batch`` slots; grouping by ``pe`` gives the same chunks.  ``check``
-    scans the wave program once, as :func:`generate` does."""
-    dev = runtime.resolve_device(device)
-    D = _mesh_rows(mesh, P)
+    ``batch`` slots; grouping by ``pe`` gives the same chunks.  On a
+    :class:`World` the rank plans (in segments, with ``overlap``) and
+    streams its own PEs only: row ``d`` of the reference's wave schedule,
+    with global ``pe`` ids.  ``check`` scans the wave program once, as
+    :func:`generate` does."""
+    dev, lo, hi, rows = _placed(mesh, P, device)
+    shift = 0
     if overlap:
         plan = plan_emitter(spec, P, segments=int(overlap), rng_impl=rng_impl, device=dev)
         chunk_counts = None
     else:
-        plan = spec.plan(P, rng_impl=rng_impl, device=dev)
+        plan = _plan_rows(spec, P, lo, hi, rng_impl, dev)
         chunk_counts = plan.count if isinstance(plan, engine.ChunkPlan) else None
+        if isinstance(mesh, World):     # the rank's own rows, PEs from lo
+            rows, shift = 1, lo
     for pe, slots, payload, valid in runtime.stream_slots(
-            plan, batch=batch, prefetch=prefetch, device=dev, D=D, check=check):
+            plan, batch=batch, prefetch=prefetch, device=dev, mesh=rows, check=check):
         count = (int(chunk_counts[pe, slots].sum())
                  if chunk_counts is not None else None)
+        pe = int(pe) + shift
         if batch <= 1:
-            yield EdgeChunk(buffer=payload[0], mask=valid[0], count=count, pe=int(pe))
+            yield EdgeChunk(buffer=payload[0], mask=valid[0], count=count, pe=pe)
         else:
-            yield EdgeChunk(buffer=payload, mask=valid, count=count, pe=int(pe))
+            yield EdgeChunk(buffer=payload, mask=valid, count=count, pe=pe)
 
 
 def iter_points(spec, P: int = 1, *, device=None, mesh=None, rng_impl: str = DEFAULT_RNG,
@@ -467,17 +511,17 @@ def iter_points(spec, P: int = 1, *, device=None, mesh=None, rng_impl: str = DEF
     """Stream a geometric spec's vertex positions as :class:`PointChunk`
     cells, pe-major; grouping by ``pe`` and concatenating
     ``chunk.points()`` reproduces the masked output of its point plan.
-    ``mesh`` and ``check`` as in :func:`iter_edge_chunks`."""
+    ``mesh`` and ``check`` as in :func:`iter_edge_chunks`; a
+    :class:`World`'s rank streams its own cells."""
     point_plan = getattr(spec, "point_plan", None)
     if point_plan is None:
         raise TypeError(
             f"{type(spec).__name__} has no vertex positions to stream "
             f"(only the geometric families carry points)")
-    dev = runtime.resolve_device(device)
-    D = _mesh_rows(mesh, P)
+    dev, _, _, rows = _placed(mesh, P, device)
     plan = point_plan(P, rng_impl=rng_impl, device=dev)
     for pe, slots, payload, valid in runtime.stream_slots(
-            plan, batch=batch, prefetch=prefetch, device=dev, D=D, check=check):
+            plan, batch=batch, prefetch=prefetch, device=dev, mesh=rows, check=check):
         if batch <= 1:
             yield PointChunk(buffer=payload[0], mask=valid[0], pe=int(pe))
         else:

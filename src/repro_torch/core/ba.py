@@ -5,14 +5,20 @@ Batagelj-Brandes fill the edge array M sequentially: ``M[2k] = k // d``
 and ``M[2k + 1] = M[r]`` for a uniform ``r`` in ``[0, 2k]``.  Each target
 resolves independently by replaying its chain of positions with a
 hash-keyed draw per position (``chunk_ba`` on the device), so the plan
-is one KIND_BA chunk per PE covering the edge ids of its vertex section.
+is one KIND_BA chunk per PE covering the edge ids of its vertex section,
+and :func:`ba_pe` is that chunk alone.
 """
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from .. import obs
-from ..distrib.engine import KIND_BA, chunk_plan_from_columns, reseedable_chunk_plan
+from ..distrib.engine import (KIND_BA, ChunkSpec, chunk_edges, chunk_plan_from_columns,
+                              reseedable_chunk_plan)
+from ..kernels.build import resolve_device
+from .chunking import section_bounds
 from .prng import THREEFRY, device_key
 
 _TAG_BA = 41
@@ -37,3 +43,12 @@ def ba_plan(seed: int, n: int, d: int, P: int, rng_impl: str = THREEFRY):
         # edge-id ranges (and so counts and capacity) are seed-independent:
         # reseeding is a key swap
         return reseedable_chunk_plan(plan, key_fn=key_of)
+
+
+def ba_pe(seed: int, n: int, d: int, P: int, pe: int, device=None) -> torch.Tensor:
+    """Edges whose source lies in PE ``pe``'s vertex section, int64 ``[k,
+    2]`` on ``device`` (CUDA unless ``"cpu"``): ``repro.core.ba.ba_pe``,
+    bit for bit, through ``chunk_ba``."""
+    vlo, vhi = section_bounds(n, P, pe)
+    spec = ChunkSpec(KIND_BA, device_key(seed, _TAG_BA), 0, (vhi - vlo) * d, (d, vlo * d, 0))
+    return chunk_edges([spec], resolve_device(device))

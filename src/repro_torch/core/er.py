@@ -23,15 +23,17 @@ from ..distrib.engine import (
     KIND_DIRECTED,
     KIND_RECT,
     KIND_TRI,
+    ChunkSpec,
+    chunk_edges,
     chunk_plan_from_columns,
     reseedable_chunk_plan,
 )
 from ..kernels.build import resolve_device
-from ..kernels.sampler.ops import chunk_decode
-from .chunking import (Chunk, directed_split_tree, tri_size, undirected_chunks_for_pe,
+from .chunking import (Chunk, _make_chunk, directed_counts_for_pe, directed_split_tree,
+                       section_bounds, tri_size, undirected_chunks_for_pe,
                        undirected_split_tree)
-from .prng import THREEFRY, PhiloxReplayer, device_key, fold_in, fold_in_many, hash_paths
-from .sampling import key_bits32, round_up_capacity, sample_rows
+from .prng import (THREEFRY, PhiloxReplayer, device_key, fold_in, fold_in_many, hash_paths,
+                   host_rng)
 from .variates import binomial
 
 _CHUNK_TAG = 11  # mixed into per-chunk hashes
@@ -193,49 +195,87 @@ def gnp_undirected_plan(seed: int, n: int, p: float, P: int, rng_impl: str = THR
 
 
 # --------------------------------------------------------------------------
-# per-PE undirected G(n,m): every edge incident to a PE's vertex range
+# per-PE generators: what one PE of the paper computes
 # --------------------------------------------------------------------------
+#
+# Each runs its chunks' rows through the engine's chunk program on
+# ``device`` (CUDA unless the caller passes "cpu"): ``chunk_sample`` and
+# ``chunk_decode`` on the card.  They return the reference function's
+# int64 [k, 2] edges, bit for bit, as a tensor on ``device``;
+# ``gnm_undirected_pe`` returns them as a numpy array, which the LM
+# pipeline walks on the host.
 
 def _chunk_key(seed: int, ch: Chunk) -> torch.Tensor:
     return device_key(seed, _CHUNK_TAG, ch.row_sec, ch.col_sec)
 
 
-def _gen_chunks(seed: int, n: int, chunks: List[Tuple[Chunk, int]], device) -> np.ndarray:
-    """The edges of a list of (chunk, count), batched by kind: all tri
-    chunks, then all rect chunks, each batch one ``sample_rows`` call and
-    one ``chunk_decode`` call on ``device`` at the capacity of its largest
-    count."""
-    if not chunks:
-        return np.zeros((0, 2), dtype=np.int64)
-    out = []
-    for kind, code in (("tri", KIND_TRI), ("rect", KIND_RECT)):
-        sel = [(ch, c) for ch, c in chunks if ch.kind == kind]
-        if not sel:
-            continue
-        cap = round_up_capacity(max(c for _, c in sel))
-        keys = key_bits32(torch.stack([_chunk_key(seed, ch) for ch, _ in sel]))  # repro: allow(no-per-chunk-host-loop) per-PE oracle, as the reference's _gen_chunks
-        universe = torch.tensor([ch.universe for ch, _ in sel], dtype=torch.int64)
-        count = torch.tensor([c for _, c in sel], dtype=torch.int64)
-        params = torch.tensor([[ch.rlo, 0, 0] if kind == "tri"
-                               else [ch.chi - ch.clo, ch.rlo, ch.clo] for ch, _ in sel],
-                              dtype=torch.int64)
-        R = len(sel)
-        keys, universe, count, params = (t.to(device) for t in (keys, universe, count, params))
-        vals = sample_rows(keys, universe, count, cap)
-        edges, keep = chunk_decode(vals, torch.full((R,), code, dtype=torch.int32, device=device),
-                                   params, count, torch.ones(R, dtype=torch.bool, device=device))
-        out.append(edges[keep].cpu().numpy())
-    return np.concatenate(out, axis=0)
+def _chunk_spec(seed: int, ch: Chunk, count: int) -> ChunkSpec:
+    tri = ch.kind == "tri"
+    return ChunkSpec(KIND_TRI if tri else KIND_RECT, _chunk_key(seed, ch), ch.universe, count,
+                     (ch.rlo, 0, 0) if tri else (ch.chi - ch.clo, ch.rlo, ch.clo))
+
+
+def _gen_chunks(seed: int, chunks: List[Tuple[Chunk, int]], device) -> torch.Tensor:
+    """The edges of a list of (chunk, count) on ``device``, batched by kind
+    as the reference's ``_gen_chunks``: all tri chunks, then all rect
+    chunks, each batch one call of the chunk program at the capacity of
+    its largest count."""
+    out = [chunk_edges([_chunk_spec(seed, ch, c) for ch, c in chunks if ch.kind == kind],  # repro: allow(no-per-chunk-host-loop) per-PE generator, as the reference's _gen_chunks
+                       device)
+           for kind in ("tri", "rect") if any(ch.kind == kind for ch, _ in chunks)]
+    return torch.cat(out) if out else torch.zeros((0, 2), dtype=torch.int64, device=device)
+
+
+def _row_chunk(seed: int, n: int, P: int, pe: int, count: int, device) -> torch.Tensor:
+    """The edges of PE ``pe``'s row chunk of the directed adjacency matrix
+    with ``count`` edges (``decode_directed``)."""
+    lo, hi = section_bounds(n, P, pe)
+    spec = ChunkSpec(KIND_DIRECTED, device_key(seed, _CHUNK_TAG, pe), (hi - lo) * (n - 1),
+                     count, (lo, n, 0))
+    return chunk_edges([spec], resolve_device(device))
+
+
+def gnm_directed_pe(seed: int, n: int, m: int, P: int, pe: int, device=None) -> torch.Tensor:
+    """Edges of PE ``pe``'s row chunk, its count from the O(log P)
+    hypergeometric descent (``repro.core.er.gnm_directed_pe``)."""
+    return _row_chunk(seed, n, P, pe, directed_counts_for_pe(seed, n, m, P, pe), device)
+
+
+def gnp_directed_pe(seed: int, n: int, p: float, P: int, pe: int, device=None) -> torch.Tensor:
+    """Edges of PE ``pe``'s row chunk with a Binomial(U, p) count seeded by
+    the chunk id (``repro.core.er.gnp_directed_pe``)."""
+    lo, hi = section_bounds(n, P, pe)
+    count = binomial(host_rng(seed, _CHUNK_TAG, pe), (hi - lo) * (n - 1), p)
+    return _row_chunk(seed, n, P, pe, count, device)
+
+
+def gnp_chunks_for_pe(seed: int, n: int, p: float, P: int, pe: int) -> List[Tuple[Chunk, int]]:
+    """PE ``pe``'s cross of the chunk matrix with Binomial(U, p) counts
+    (``repro.core.er.gnp_chunks_for_pe``): j <= pe walks row pe (the
+    diagonal once, at j == pe), j > pe column pe, so every j is a
+    distinct chunk."""
+    out: List[Tuple[Chunk, int]] = []
+    for j in range(P):
+        I, J = (pe, j) if j <= pe else (j, pe)
+        ch = _make_chunk(n, P, I, J)  # repro: allow(no-per-chunk-host-loop) per-PE generator, as the reference's
+        out.append((ch, binomial(host_rng(seed, _CHUNK_TAG, I, J), ch.universe, p)))  # repro: allow(no-per-chunk-host-loop) per-PE generator, as the reference's
+    return out
+
+
+def gnp_undirected_pe(seed: int, n: int, p: float, P: int, pe: int, device=None) -> torch.Tensor:
+    """All edges of PE ``pe``'s cross, as (u, v) with u > v, each chunk's
+    count a Binomial seeded by its id (§4.3;
+    ``repro.core.er.gnp_undirected_pe``)."""
+    return _gen_chunks(seed, gnp_chunks_for_pe(seed, n, p, P, pe), resolve_device(device))
 
 
 def gnm_undirected_pe(seed: int, n: int, m: int, P: int, pe: int, device=None) -> np.ndarray:
     """All edges incident to PE ``pe``'s vertex range, as (u, v) with
-    u > v (``repro.core.er.gnm_undirected_pe``).  Includes the redundantly
-    recomputed cross-chunk edges (the paper's 2m recomputation bound):
-    every edge appears on both endpoint PEs.  Runs on ``device`` (CUDA
-    unless the caller passes ``"cpu"``)."""
+    u > v, a numpy array (``repro.core.er.gnm_undirected_pe``).  Includes
+    the redundantly recomputed cross-chunk edges (the paper's 2m
+    recomputation bound): every edge appears on both endpoint PEs."""
     chunks = undirected_chunks_for_pe(seed, n, m, P, pe)
-    return _gen_chunks(seed, n, chunks, resolve_device(device))
+    return _gen_chunks(seed, chunks, resolve_device(device)).cpu().numpy()
 
 
 def expected_gnm_universe(n: int, directed: bool) -> int:

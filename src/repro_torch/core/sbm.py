@@ -11,7 +11,8 @@ run them unchanged.
 
 As in the undirected ER cross, region (i, j) is generated on PE i % P
 (owned) and mirrored on PE j % P, so the concatenated owned rows are the
-exact edge set.
+exact edge set.  :func:`sbm_region_edges` and :func:`sbm_pe` are the
+per-region and per-PE generators of the reference, on the same kernels.
 """
 from __future__ import annotations
 
@@ -19,10 +20,12 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..distrib.engine import (KIND_RECT, KIND_TRI, chunk_plan_from_columns,
-                              reseedable_chunk_plan)
-from .chunking import section_bounds
-from .prng import THREEFRY, PhiloxReplayer, device_key, fold_in, fold_in_many, hash_paths
+from ..distrib.engine import (KIND_RECT, KIND_TRI, ChunkSpec, chunk_edges,
+                              chunk_plan_from_columns, reseedable_chunk_plan)
+from ..kernels.build import resolve_device
+from .chunking import section_bounds, tri_size
+from .prng import (THREEFRY, PhiloxReplayer, device_key, fold_in, fold_in_many, hash_paths,
+                   host_rng)
 from .variates import binomial
 
 _TAG_SBM = 61
@@ -80,6 +83,51 @@ def _cross_pack(ri: np.ndarray, rj: np.ndarray, P: int):
     own_col = np.concatenate([np.ones(R, bool), np.zeros(int(mir.sum()), bool)])
     order = np.lexsort((r_col, pe_col))  # pe-major, region-minor
     return r_col[order], pe_col[order], own_col[order]
+
+
+def _region_spec(seed: int, n: int, B: int, i: int, j: int, p_in: float,
+                 p_out: float) -> ChunkSpec:
+    """Block region (i, j), i >= j, as one chunk row: its Binomial count
+    from ``host_rng(seed, _TAG_SBM, i, j)``, a TRI chunk on the diagonal,
+    a RECT chunk off it."""
+    if i < j:
+        raise ValueError(f"region ({i}, {j}): want i >= j")
+    lo_i, hi_i = section_bounds(n, B, i)
+    lo_j, hi_j = section_bounds(n, B, j)
+    key = device_key(seed, _TAG_SBM, i, j)
+    if i == j:
+        U = tri_size(hi_i - lo_i)
+        return ChunkSpec(KIND_TRI, key, U, binomial(host_rng(seed, _TAG_SBM, i, j), U, p_in),
+                         (lo_i, 0, 0))
+    U = (hi_i - lo_i) * (hi_j - lo_j)
+    return ChunkSpec(KIND_RECT, key, U, binomial(host_rng(seed, _TAG_SBM, i, j), U, p_out),
+                     (hi_j - lo_j, lo_i, lo_j))
+
+
+def sbm_region_edges(seed: int, n: int, B: int, i: int, j: int, p_in: float, p_out: float,
+                     device=None) -> torch.Tensor:
+    """Edges of block region (i, j), i >= j, the same from any PE:
+    ``repro.core.sbm.sbm_region_edges``, bit for bit, as int64 ``[k, 2]``
+    on ``device`` (CUDA unless ``"cpu"``)."""
+    return chunk_edges([_region_spec(seed, n, B, i, j, p_in, p_out)], resolve_device(device))
+
+
+def sbm_pe(seed: int, n: int, B: int, p_in: float, p_out: float, P: int, pe: int,
+           device=None) -> torch.Tensor:
+    """All edges incident to PE ``pe``'s blocks (blocks dealt round-robin),
+    each region once, in the reference's order (``repro.core.sbm.sbm_pe``):
+    one call of the chunk program over the regions on ``device``."""
+    seen, specs = set(), []
+    for b in range(pe, B, P):
+        for j in range(B):
+            region = (b, j) if j <= b else (j, b)
+            if region not in seen:
+                seen.add(region)
+                specs.append(_region_spec(seed, n, B, *region, p_in, p_out))  # repro: allow(no-per-chunk-host-loop) per-PE generator, as the reference's
+    dev = resolve_device(device)
+    if not specs:
+        return torch.zeros((0, 2), dtype=torch.int64, device=dev)
+    return chunk_edges(specs, dev)
 
 
 def sbm_plan(seed: int, n: int, B: int, p_in: float, p_out: float,

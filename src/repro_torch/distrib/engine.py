@@ -174,6 +174,19 @@ def make_chunk_plan(
     return ChunkPlan(kind, key_data, universe, count, params, fparams, owned, n, cap, rng_impl)
 
 
+def chunk_edges(specs: Sequence[ChunkSpec], device, rng_impl: str = THREEFRY) -> torch.Tensor:
+    """int64 ``[k, 2]`` on ``device``: the kept edges of ``specs``, row
+    after row, from one call of the chunk program (:func:`_edge_chunk_fn`)
+    at the capacity of their largest count.  The per-PE generators of
+    :mod:`repro_torch.core` (one PE's chunks, as the paper's PE computes
+    them) run on it."""
+    plan = make_chunk_plan([specs], 0, rng_impl=rng_impl)
+    rows = [torch.from_numpy(a[0].view(np.int32) if a.dtype == np.uint32 else a[0]).to(device)
+            for a in plan.input_arrays()]
+    edges, keep = plan.slot_fn()(*rows)
+    return edges[keep]
+
+
 def chunk_plan_from_columns(
     P: int,
     pe: np.ndarray,

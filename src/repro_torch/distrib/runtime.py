@@ -1,5 +1,6 @@
-"""Executor for the port's plans on one device (port of the run and
-wave-streaming half of ``repro.distrib.runtime``).
+"""Executor for the port's plans on one device, or on each rank of a
+world (port of the run and wave-streaming half of
+``repro.distrib.runtime``).
 
 A plan exposes ``input_arrays()`` (its ``[P, C, ...]`` numpy tables),
 ``slot_fn()`` (the batched program over ``[R]`` table rows) and
@@ -32,10 +33,17 @@ first checked call: that execution runs under the op trace of
 generator contract (every program kind's in the port) an
 ``AssertionError`` naming the rule.  An entry that
 fails is scanned again on its next checked call (the reference's
-``_Entry.checked``).  ``D`` (the reference's mesh rows) deals a plan's
-PEs onto ``D`` rows of each wave, all on the one card; it must divide P.
+``_Entry.checked``).
 
-There are no collectives: one card executes every virtual PE's rows.
+``mesh`` is the reference's mesh.  A row count ``D`` deals a plan's PEs
+onto ``D`` rows of each wave, all on the one card; it must divide P.  A
+:class:`~repro_torch.distrib.world.World` makes the caller one rank of
+a world, a process on a card of its own: :func:`run` and
+:func:`stream_waves` plan rows ``[d P/D, (d+1) P/D)`` only, upload and
+execute them alone, and yield the reference's mesh row ``d``.
+
+There are no collectives: each process executes its own PEs' rows and
+waits on no other.
 There is no compile either: a plan's slot function is a closure over
 its static parameters, cached by the plan's ``signature()`` (the stand-in
 for the reference's compile cache, whose hits and misses the
@@ -59,6 +67,7 @@ import torch
 from .. import obs
 from ..analyze import opscan
 from ..kernels.build import resolve_device
+from .world import World, check_rows
 
 
 def plan_tensors(plan, device) -> Tuple[torch.Tensor, ...]:
@@ -110,8 +119,20 @@ def _checked(key: tuple, check: bool, step: Callable):
     return out
 
 
-def run(plan, device=None, check: bool = True):
-    """Execute a plan's full table; returns ``(payload, valid)``."""
+def run(plan, device=None, check: bool = True, mesh=None):
+    """Execute a plan's full table; returns ``(payload, valid)``.
+
+    ``mesh`` is ``None``, a row count D dividing P (every row on the one
+    card; the output does not depend on it) or a :class:`World`: its rank
+    uploads and executes only its own rows, and gets its shard ``[P/D, C,
+    ...]`` of the payload, on the world's device."""
+    if isinstance(mesh, World):
+        lo, hi = mesh.pes(plan.num_pes)
+        device = mesh.bind(device)
+        from .engine import slice_plan
+        plan = slice_plan(plan, lo, hi)
+    elif mesh is not None:
+        check_rows(plan.num_pes, int(mesh))
     dev = resolve_device(device)
     key = ("run", plan.signature())
     fn = _slot_fn("run", key, plan.slot_fn)
@@ -142,13 +163,6 @@ class WaveSchedule:
     @property
     def num_waves(self) -> int:
         return self.sched.shape[0]
-
-
-def check_rows(P: int, D: int) -> None:
-    """Raise unless ``D`` mesh rows can shard ``P`` PEs."""
-    if D < 1 or P % D:
-        raise ValueError(f"mesh of {D} devices cannot shard a {P}-PE plan: "
-                         f"P % devices must be 0")
 
 
 def wave_schedule(plan, D: int = 1, batch: int = 1) -> WaveSchedule:
@@ -183,10 +197,15 @@ def wave_schedule(plan, D: int = 1, batch: int = 1) -> WaveSchedule:
 class Wave:
     """One executed ``[D, batch]`` slab on the device: ``payload[d]`` /
     ``valid[d]`` are mesh row ``d``'s batch of outputs with the padding
-    masked; ``rows[d]`` names its PE and slot ids."""
-    payload: torch.Tensor   # [D, B, ...]
+    masked; ``rows[d]`` names its PE and slot ids.
+
+    A rank of a :class:`World` holds its own row only: ``payload`` and
+    ``valid`` are ``[1, B, ...]``, ``row0`` is the rank, and ``rows`` is
+    ``None`` at every other rank's row."""
+    payload: torch.Tensor   # [D, B, ...] ([1, B, ...] on a world)
     valid: torch.Tensor     # [D, B, L]
     rows: tuple             # [D] -> (pe, slots) | None
+    row0: int = 0           # the mesh row of payload[0]
 
     def chunks(self) -> Iterator[Tuple[int, np.ndarray, torch.Tensor, torch.Tensor]]:
         """Yield ``(pe, slots, payload [B, ...], valid [B, L])`` per
@@ -195,7 +214,7 @@ class Wave:
             if row is None:
                 continue
             pe, slots = row
-            yield pe, slots, self.payload[d], self.valid[d]
+            yield pe, slots, self.payload[d - self.row0], self.valid[d - self.row0]
 
 
 # --------------------------------------------------------------------------
@@ -316,7 +335,7 @@ def _stream_emitter_waves(emitter: PlanEmitter, D: int, batch: int, prefetch: in
                 raise item
             lo, seg = item
             for wave in stream_waves(seg, batch=batch, prefetch=prefetch, device=device,
-                                     D=D, check=check):
+                                     mesh=D, check=check):
                 if lo:
                     wave = Wave(wave.payload, wave.valid,
                                 tuple(None if r is None else (r[0] + lo, r[1])
@@ -326,14 +345,44 @@ def _stream_emitter_waves(emitter: PlanEmitter, D: int, batch: int, prefetch: in
         stop.set()
 
 
-def stream_waves(plan, batch: int = 1, prefetch: int = 2, device=None, *, D: int = 1,
+def _rank_waves(plan, world: World, batch: int, prefetch: int, device,
+                check: bool) -> Iterator[Wave]:
+    """:func:`stream_waves` on a rank of ``world``: row ``d = rank`` of the
+    reference's ``wave_schedule(plan, size, batch)``, the same ``(pe,
+    slots)`` batches in the same order, executed alone (the rank's rows
+    are all it plans, uploads and holds; it waits on no other rank).  A
+    batch is clamped to the rank's longest per-PE run, which deals the
+    same batches as the reference's clamp to the whole plan's."""
+    lo, hi = world.pes(plan.num_pes)
+    dev = world.bind(device)
+    if isinstance(plan, PlanEmitter):
+        part = PlanEmitter(hi - lo, lambda a, b: plan.build(lo + a, lo + b), plan.segments)
+    else:
+        from .engine import slice_plan
+        part = slice_plan(plan, lo, hi)
+    d, D = world.rank, world.size
+    for wave in stream_waves(part, batch=batch, prefetch=prefetch, device=dev, check=check):
+        rows = [None] * D
+        rows[d] = None if wave.rows[0] is None else (wave.rows[0][0] + lo, wave.rows[0][1])
+        yield Wave(wave.payload, wave.valid, tuple(rows), d)
+
+
+def stream_waves(plan, batch: int = 1, prefetch: int = 2, device=None, *, mesh=1,
                  check: bool = False) -> Iterator[Wave]:
     """Stream a plan as :class:`Wave` slabs of ``D`` rows of ``batch``
     slots (one program call of ``D batch`` rows each); at most
     ``prefetch`` executed waves are held before they are yielded.  A
     :class:`PlanEmitter` streams through the plan/execute overlap path,
     with global PE ids in ``Wave.rows``.  ``check`` scans the wave
-    program once (see the module docstring)."""
+    program once (see the module docstring).
+
+    ``mesh`` is the row count D dividing P, every row on the one card, or
+    a :class:`World`, whose rank streams its own row ``d`` of the
+    reference's schedule (:func:`_rank_waves`)."""
+    if isinstance(mesh, World):
+        yield from _rank_waves(plan, mesh, batch, prefetch, device, check)
+        return
+    D = int(mesh)
     dev = resolve_device(device)
     if isinstance(plan, PlanEmitter):
         yield from _stream_emitter_waves(plan, D, batch, prefetch, dev, check)
@@ -437,12 +486,12 @@ def run_slab(slot_fn_thunk: Callable[[], Callable], signature: tuple,
             ok.reshape(D, B, *ok.shape[1:]))
 
 
-def stream_slots(plan, batch: int = 1, prefetch: int = 2, device=None, *, D: int = 1,
+def stream_slots(plan, batch: int = 1, prefetch: int = 2, device=None, *, mesh=1,
                  check: bool = False
                  ) -> Iterator[Tuple[int, np.ndarray, torch.Tensor, torch.Tensor]]:
     """Flattened :func:`stream_waves`: ``(pe, slots, payload, valid)``
-    per batch (pe-major for ``D = 1``); takes a :class:`PlanEmitter` too
-    (``pe`` is then the global PE id)."""
-    for wave in stream_waves(plan, batch=batch, prefetch=prefetch, device=device, D=D,
+    per batch (pe-major for ``D = 1`` and on a :class:`World`'s rank);
+    takes a :class:`PlanEmitter` too (``pe`` is then the global PE id)."""
+    for wave in stream_waves(plan, batch=batch, prefetch=prefetch, device=device, mesh=mesh,
                              check=check):
         yield from wave.chunks()

@@ -6,7 +6,9 @@ Each source under ``kernels/*/csrc/`` becomes one shared library in
 ``build/repro_torch/`` at the root of the checkout, named after a digest
 of its sources, the headers it may include and its flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  :func:`build` starts one ``nvcc`` per
-library, all at once.  Nothing here runs when the module is imported.
+library, all at once, each under a file lock, so processes that start
+together compile a library once.  Nothing here runs when the module is
+imported.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: a run
 resets it with :func:`reset_launches` and reads it afterwards to show
@@ -15,6 +17,7 @@ which kernels its path went through.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -62,7 +65,9 @@ def reset_launches() -> None:
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks
-    for the CPU.  Raises when CUDA is asked for and there is none."""
+    for the CPU, and a CUDA device without an index is the current one
+    (a rank of a world makes its own current).  Raises when CUDA is
+    asked for and there is none."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
@@ -70,6 +75,8 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions of the kernels")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -96,31 +103,69 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _locked(out: Path, wait: bool):
+    """The open lock file of library ``out``, held exclusively (``fcntl``);
+    ``None`` when ``wait`` is false and another process holds it."""
+    f = open(out.with_name(out.name + ".lock"), "w")
+    try:
+        fcntl.flock(f, fcntl.LOCK_EX | (0 if wait else fcntl.LOCK_NB))
+    except BlockingIOError:
+        f.close()
+        return None
+    return f
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile the named libraries (all by default) that are not built
     yet, one ``nvcc`` each, all started together.  Returns each
     compiled library's ``nvcc`` output (``-Xptxas -v``: registers and
-    shared memory per kernel); raises if any compile fails."""
+    shared memory per kernel); raises if any compile fails.
+
+    Each library is built under a file lock next to it, so processes that
+    start together (the ranks of a world, test workers) run ``nvcc`` once
+    a library: a library another process is building is waited for, after
+    this process has started its own compiles, and built here only if
+    that process did not finish it."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    logs, failed = {}, []
+
+    def compile_all(todo) -> list:
+        procs = []
+        for name, lock in todo:
+            out = library_path(name)
+            if out.exists():        # built by the lock's previous holder
+                lock.close()
+                continue
+            src, flags = SOURCES[name]
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc(), *_NVCC_FLAGS, *flags, "-o", str(tmp), str(_KERNELS / src)]
+            procs.append((name, lock, tmp, out,
+                          subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+        return procs
+
+    def finish(procs) -> None:
+        for name, lock, tmp, out, proc in procs:
+            with lock:
+                logs[name] = proc.communicate()[0]
+                if proc.returncode:
+                    failed.append(f"{name}:\n{logs[name]}")
+                else:
+                    os.replace(tmp, out)
+
+    mine, busy = [], []
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        src, flags = SOURCES[name]
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *_NVCC_FLAGS, *flags, "-o", str(tmp), str(_KERNELS / src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode:
-            failed.append(f"{name}:\n{logs[name]}")
+        lock = _locked(out, wait=False)
+        if lock is None:
+            busy.append(name)
         else:
-            os.replace(tmp, out)
+            mine.append((name, lock))
+    finish(compile_all(mine))
+    finish(compile_all([(name, _locked(library_path(name), wait=True)) for name in busy]))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs

@@ -221,9 +221,13 @@ def _sdpa_decode(q, k, v, hd, n_heads, *, window, q_offset, key_pos=None):
     B, S, H, _ = q.shape
     KV = k.shape[2]
     G = n_heads // KV
-    # under mesh hints the heads split into (KV, G) only where the kv
-    # heads take the tensor-parallel shards whole
-    q = pmesh.constrain(q, "dp", None, "tp" if pmesh.splits("tp", KV) else None, None)
+    # under mesh hints q's heads stay whole on every tensor-parallel rank
+    # (q is one token a sequence): the cache's positions take that axis
+    # (``shardings.cache_specs``), so each rank scores its own positions
+    # and the contraction over them sums across it.  Heads split over the
+    # same axis would put two sharded dimensions, batch and kv heads,
+    # into one of the einsum's folds, which torch 2.11's DTensor refuses.
+    q = pmesh.constrain(q, "dp", None, None, None)
     qg = q.reshape(B, S, KV, G, hd)
     scores = _einsum("bskgh,btkh->bkgst", qg, k).to(torch.float32)
     scores = scores / math.sqrt(hd)

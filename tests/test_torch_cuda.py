@@ -1012,3 +1012,20 @@ def test_dryrun_matmul_flops_equal_the_card_step(cuda):
     with FlopCounterMode(display=False) as fc:
         make_train_step(cfg, O.OptConfig())(params, O.opt_init(params), batch)
     assert cost.flops_by["matmul"] == fc.get_total_flops() > 0
+
+
+def test_world_of_two_ranks_on_the_card_equals_one_process(cuda, tmp_path):
+    """Two spawned ranks of a world, both on the one card, each generating
+    its own PEs with no process group: their edges concatenated in rank
+    order equal the one-process run on the card (GNM, SBM on its native
+    segments, RHG's pair program)."""
+    import torch_world_worker as WW
+
+    out = str(tmp_path / "rank")
+    torch.multiprocessing.start_processes(WW.run_on_card, args=(2, out), nprocs=2,
+                                          start_method="spawn")
+    ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
+    for name in ("gnm", "sbm", "rhg"):
+        cls, kw = WW.SPECS[name]
+        want = api.generate(getattr(api, cls)(**kw), WW.P, device=cuda).edges.cpu().numpy()
+        np.testing.assert_array_equal(np.concatenate([r[name] for r in ranks]), want)

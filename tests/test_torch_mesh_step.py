@@ -155,6 +155,22 @@ def test_grouped_moe_matches_reference_under_mesh(tmp_path):
         assert abs(aux - float(ref[arch + "/aux"])) <= 1e-6, arch
 
 
+DECODE_CASES = [(4, 2, 0, False), (4, 1, 0, False), (8, 2, 6, True)]
+
+
+def test_decode_attention_under_mesh_hints_matches_one_process():
+    """The grouped decode attention on a 2 x 2 mesh, q's heads and the
+    cache's positions sharded over the model axis: kv heads split over it
+    (KV 2), kept whole (KV 1), a sliding-window ring cache; each equals
+    the one-process result."""
+    got = _spawn("decode_attention", (DECODE_CASES,))
+    for case, y, (q, k, v, H, hd, kw) in zip(DECODE_CASES, got,
+                                               W.decode_inputs(DECODE_CASES)):
+        want = L._sdpa_decode(q, k, v, hd, H, **kw).numpy()
+        assert y.shape == want.shape, case
+        assert float(np.abs(y - want).max()) <= 1e-6 * float(np.abs(want).max()), case
+
+
 @pytest.mark.parametrize("S", [1, 3])
 def test_cache_write_branches_agree(S):
     g = torch.Generator().manual_seed(S)

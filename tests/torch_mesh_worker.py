@@ -71,7 +71,43 @@ def moe_case(weights: dict, cfgs: dict) -> dict:
     return out
 
 
-CASES = {"train_step": train_step_case, "moe": moe_case}
+def decode_attention_case(cases) -> list:
+    """``layers._sdpa_decode`` of seeded q [B, 1, H, hd] against a cache
+    [B, T, KV, hd] under the hints of a 2 x 2 ("data", "model") mesh, q's
+    heads and the cache's positions sharded over the model axis (as the
+    cache specs place a decode cache): the whole output of each case
+    ``(H, KV, window, ring)``, for the one-process result to be held
+    against."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+    from repro_torch.models import pmesh
+
+    mesh = M.make_mesh((2, 2), ("data", "model"))
+    out = []
+    for q, k, v, H, hd, kw in decode_inputs(cases):
+        with M.hints(mesh):
+            qd = pmesh.constrain(q, "dp", None, "tp", None)
+            kd, vd = (pmesh.constrain(x, "dp", "tp", None, None) for x in (k, v))
+            out.append(M.whole(L._sdpa_decode(qd, kd, vd, hd, H, **kw)).numpy())
+    return out
+
+
+def decode_inputs(cases):
+    """Seeded ``(q, k, v, H, hd, keywords)`` of each decode attention case."""
+    g = torch.Generator().manual_seed(5)
+    B, T, hd = 4, 16, 8
+    for H, KV, window, ring in cases:
+        q = torch.randn((B, 1, H, hd), generator=g)
+        k, v = (torch.randn((B, T, KV, hd), generator=g) for _ in range(2))
+        kw = {"window": window, "q_offset": T + 3 if ring else T - 1}
+        if ring:     # slot r of a ring holds position idx - ((idx % T - r) mod T)
+            kw["key_pos"] = kw["q_offset"] - torch.remainder(kw["q_offset"] % T
+                                                             - torch.arange(T), T)
+        yield q, k, v, H, hd, kw
+
+
+CASES = {"train_step": train_step_case, "moe": moe_case,
+         "decode_attention": decode_attention_case}
 
 
 def run(rank: int, world: int, port: int, out: str, case: str, args: tuple) -> None:
