@@ -165,8 +165,9 @@ or of the JAX package.  Phases, each printed with its seconds:
       from torchrun's variables, no process group; each generates its
       own PEs at P = 16: ``generate(GNM(2^24, 2^28))``, streamed
       ``SBM(2^24, 16 blocks)`` (its native segments), ``RHG(2^20)``
-      (``pair_edges``) and ``RDG(2^18, 2-D)`` (``triangulate`` on each
-      rank), and its PEs' ``gnm_directed_pe`` and ``rmat_pe`` at
+      (``pair_edges``) and ``RDG(2^16, 2-D)`` (``triangulate`` on each
+      rank; 2^18 points until path 3l needed the time), and its PEs'
+      ``gnm_directed_pe`` and ``rmat_pe`` at
       GNM(2^24, 2^28, directed) and RMAT(26, 2^30), all with
       ``check=True`` or under the op trace, each rank's first
       ``chunk_sample``, ``chunk_decode`` and ``pair_edges`` launch held
@@ -179,6 +180,22 @@ or of the JAX package.  Phases, each printed with its seconds:
       may find a collective; each rank's wall, the world's (the slowest
       rank's) and the one process's are printed, which with four ranks
       on one card measure correctness, not scaling;
+   l. one process over local cards (``repro_torch.distrib.world.LocalMesh``,
+      the reference's default mesh ``mesh_for(P)``): four rows on this
+      card, each on a stream of its own, P = 16: ``generate(GNM(2^24,
+      2^28))`` (every row's first ``chunk_sample`` and ``chunk_decode``
+      launch held against its plain version; the digest equal to one
+      device's; both timed, with the gathering device's peak), the SBM
+      stream with overlap 0 and 2 and the RHG stream in waves of 32,768
+      rows (every row's first ``pair_edges`` launch held) equal chunk by
+      chunk to the integer ``mesh=4`` stream on the one card, each chunk
+      on the device of the row that streams it (``runtime.stream_row``:
+      under overlap, its segment's row), and a ``Service`` fleet (4 GNM(2^22, 2^26),
+      4 SBM(2^22, 16 blocks), the RHG) with the last row dead at slab 1,
+      every ticket equal to ``generate``; with two cards or more the same
+      on ``mesh_for(16)``'s distinct cards, else a line saying that the
+      machine has one card.  Rows on one card measure correctness, not
+      scaling;
    each checked on the device; each ``collect`` must launch ``hist`` once
    per non-empty chunk of its first pass plus once per section histogram.  The generator
    paths run ``pair_mask``'s tiles inside ``pair_edges``, as the
@@ -219,14 +236,14 @@ or of the JAX package.  Phases, each printed with its seconds:
    order; ``rhg_pe``'s walls, warm; and a second ``pair_mask`` row, the
    hyp tile at the largest segment on the dense route's padded blocks.
    Path i adds no row: its step runs cuBLAS and ATen, its ``hyp_edges``
-   launch joins the kernel's count; paths j and k neither, their
+   launch joins the kernel's count; paths j, k and l neither, their
    launches (the ranks' included) join their kernels' counts.
 
 It exits non-zero on any failure, when no CUDA device is present and
 when the script stands outside a checkout of the repository.
 
 ``--only PATH`` (``er``, ``geom``, ``rdg``, ``families``, ``stats``, ``serve``, ``analyze``,
-``lm``, ``train``, ``mesh``, ``world``; repeatable)
+``lm``, ``train``, ``mesh``, ``world``, ``local``; repeatable)
 builds and runs
 only that main path and its phase 4 timing, and ``--no-timing`` stops
 after the path: run the same script in two checkouts in turns to
@@ -2704,14 +2721,17 @@ class held_kernels:
     first), the two are held equal in ``errs``, and the kernel's result
     goes on.  Each kernel thus meets its plain version at the shapes and
     on the data the served slab gives it; ``seen`` counts the calls held.
-    With ``first_only`` only each kernel's first call is held, and
-    ``plain_s`` sums the seconds the plain versions took; ``names``
-    restricts the holding to those kernels.  A held call is
+    With ``first_only`` only each kernel's first call is held (with
+    ``per``, a function naming the calling row, its first call on each
+    row), and ``plain_s`` sums the seconds the plain versions took;
+    ``names`` restricts the holding to those kernels.  A held call is
     opaque to the op scan, as the kernel's entry point is."""
 
-    def __init__(self, errs: Errors, what: str, first_only: bool = False, names=None):
+    def __init__(self, errs: Errors, what: str, first_only: bool = False, names=None,
+                 per=None):
         self.errs, self.what, self.seen, self.undo = errs, what, {}, []
         self.first_only, self.plain_s, self.names = first_only, 0.0, names
+        self.per, self.firsts = per, set()
 
     def __enter__(self):
         import torch
@@ -2731,8 +2751,10 @@ class held_kernels:
             kernel = getattr(mod, name)
 
             def both(*a, _k=kernel, _p=plain, _w=writes, _n=name, **kw):
-                if self.first_only and _n in self.seen:
+                first = (_n, self.per()) if self.per else _n
+                if self.first_only and first in self.firsts:
                     return _k(*a, **kw)
+                self.firsts.add(first)
                 pa = [copy(x) if i in _w else x for i, x in enumerate(a)]
                 got = _k(*a, **kw)
                 if self.first_only:     # the plain version's seconds alone
@@ -4245,7 +4267,7 @@ WORLD_HELD = ("chunk_sample", "chunk_decode", "pair_edges")
 
 def world_specs(api, sizes: dict) -> dict:
     """Path 3k's specs: the main paths' GNM (generated), SBM, RHG and an
-    RDG of 2^18 points (streamed), and the shapes of the per-PE
+    RDG of 2^16 points (streamed), and the shapes of the per-PE
     generators' one-process counterparts (streamed)."""
     return {"gnm": api.GNM(n=sizes["gnm_n"], m=sizes["gnm_m"], seed=1),
             "sbm": api.SBM(n=sizes["sbm_n"], blocks=sizes["sbm_blocks"],
@@ -4532,6 +4554,198 @@ def world_timing(dev, out: dict, errs: Errors) -> list:
     return []
 
 
+LOCAL_ROWS = 4
+LOCAL_P = 16
+# the local mesh's rows sample and decode (GNM, SBM, the fleet's chunk
+# slabs) and test pairs (RHG, the fleet's pair slabs); every row's first
+# launch of each is held against its plain version
+LOCAL_KERNELS = WORLD_HELD
+
+
+def local_specs(api, sizes: dict) -> dict:
+    """Path 3l's specs: path 3k's GNM, SBM and RHG, and a fleet of 4
+    GNM(2^22, 2^26), 4 SBM(2^22, 16 blocks) and that RHG(2^20)."""
+    sbm = dict(n=sizes["serve_n"], blocks=16, p_in=2.0 ** -15, p_out=2.0 ** -19)
+    specs = {k: v for k, v in world_specs(api, sizes).items() if k in ("gnm", "sbm", "rhg")}
+    specs["fleet"] = ([api.GNM(n=sizes["serve_n"], m=sizes["serve_m"], seed=40 + i)
+                       for i in range(4)]
+                      + [api.SBM(seed=50 + i, **sbm) for i in range(4)] + [specs["rhg"]])
+    return specs
+
+
+def edge_digest(e) -> tuple:
+    """``(edges, digest)`` of an edge list, order-sensitive, computed on its
+    device (:class:`Digests` of one PE)."""
+    return Digests().split(e, [len(e)], 0).of(0)
+
+
+def stream_chunks(chunks, mesh=None, per_pe=None, overlap: int = 0) -> list:
+    """``(pe, edges, digest)`` of every chunk of a stream, in order (each
+    chunk also added to the ``per_pe`` :class:`Digests` when given); on a
+    mesh each chunk's buffer must lie on the device of the row that
+    streams its PE (``runtime.stream_row``: with ``overlap``, the row of
+    its segment, as the reference places it)."""
+    from repro_torch.distrib.runtime import stream_row
+
+    out = []
+    for ch in chunks:
+        if mesh is not None:
+            want = mesh.devices[stream_row(LOCAL_P, mesh.size, ch.pe, overlap)]
+            require(ch.buffer.device == want,
+                    f"PE {ch.pe}'s chunk on {ch.buffer.device}, its row's device is {want}")
+        d, e = Digests(), ch.edges()
+        d.add(ch.pe, e)
+        if per_pe is not None:
+            per_pe.add(ch.pe, e)
+        out.append((ch.pe, *d.of(ch.pe)))
+    return out
+
+
+def local_run(tag: str, mesh, one, specs: dict, sizes: dict, errs: Errors) -> dict:
+    """Path 3l on ``mesh`` against the one device ``one``, P = 16:
+    ``generate`` of GNM (each row's first ``chunk_sample`` and
+    ``chunk_decode`` launch held), then timed in turns with the one
+    device (walls, the gathering device's peak); the SBM stream with
+    overlap 0 and 2 and the RHG stream (each row's first ``pair_edges``
+    launch held) against the integer ``mesh=D`` stream on ``one``, chunk
+    by chunk; the fleet with the last row dead at slab 1, every ticket
+    against ``generate`` on ``one``."""
+    import torch
+    from repro_torch import api
+    from repro_torch.serve import Service
+
+    D, P, B = mesh.size, LOCAL_P, sizes["batch"]
+    first = mesh.devices[0]
+    walls, peaks = {}, {}
+
+    def row_of():
+        return torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream
+
+    def sync():
+        mesh.sync()
+        torch.cuda.synchronize(one)
+
+    def generate(m, dev):
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        e = api.generate(specs["gnm"], P, mesh=m, device=dev).edges
+        sync()
+        wall = time.perf_counter() - t0
+        return edge_digest(e), wall, torch.cuda.max_memory_allocated(dev) - base
+
+    with held_kernels(errs, f"{tag} GNM generate", first_only=True,
+                      names=("chunk_sample", "chunk_decode"), per=row_of) as held:
+        digest, wall, _ = generate(mesh, first)
+    for k in ("chunk_sample", "chunk_decode"):
+        require(held.seen.get(k) == D, f"{tag}: {k} held on {held.seen.get(k)} of {D} rows")
+    walls[f"GNM generate, {D} rows, every row's first launches held (plain versions "
+          f"{held.plain_s:.3f}s)"] = wall
+    # in turns: one device, the rows, the rows, one device
+    for i, (label, m, dev) in enumerate([("one device", None, one), (f"{D} rows", mesh, first),
+                                         (f"{D} rows", mesh, first), ("one device", None, one)]):
+        got, walls[f"GNM generate, {label} ({i + 1})"], peaks[f"{label} ({i + 1})"] = \
+            generate(m, dev)
+        require(got == digest, f"{tag}: GNM edges {got} on {label} != {digest}")
+    m = digest[0]
+
+    for overlap in (0, 2):
+        sync()
+        t0 = time.perf_counter()
+        same = stream_chunks(api.iter_edge_chunks(specs["sbm"], P, mesh=D, device=one,
+                                                  batch=B, overlap=overlap))
+        sync()
+        walls[f"SBM stream overlap {overlap}, one device"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = stream_chunks(api.iter_edge_chunks(specs["sbm"], P, mesh=mesh, batch=B,
+                                                 overlap=overlap), mesh, overlap=overlap)
+        sync()
+        walls[f"SBM stream overlap {overlap}, {D} rows"] = time.perf_counter() - t0
+        require(got == same, f"{tag}: SBM stream (overlap {overlap}) != the mesh={D} stream")
+
+    rhg = Digests()
+    t0 = time.perf_counter()
+    same = stream_chunks(api.iter_edge_chunks(specs["rhg"], P, mesh=D, device=one, batch=B),
+                         per_pe=rhg)
+    sync()
+    walls["RHG stream, one device"] = time.perf_counter() - t0
+    with held_kernels(errs, f"{tag} RHG stream", first_only=True, names=("pair_edges",),
+                      per=row_of) as held:
+        t0 = time.perf_counter()
+        got = stream_chunks(api.iter_edge_chunks(specs["rhg"], P, mesh=mesh, batch=B), mesh)
+        sync()
+        walls[f"RHG stream, {D} rows (first launches held)"] = time.perf_counter() - t0
+    require(held.seen.get("pair_edges") == D, f"{tag}: pair_edges held on "
+            f"{held.seen.get('pair_edges')} of {D} rows")
+    require(got == same, f"{tag}: RHG stream != the mesh={D} stream")
+    rhg_counts = [rhg.of(pe)[0] for pe in range(P)]
+
+    fleet = specs["fleet"]
+    svc = Service(P, mesh=mesh, slab_batch=16, slab_bytes=sizes["serve_slab_bytes"])
+    sync()
+    t0 = time.perf_counter()
+    tickets = [svc.submit(s) for s in fleet]
+    svc.inject_fault([D - 1], at_slab=1)
+    svc.drain()
+    sync()
+    walls[f"fleet, {D} rows, row {D - 1} dead at slab 1"] = time.perf_counter() - t0
+    require(svc.scheduler.reissued > 0, f"{tag}: the fault reissued nothing")
+    for t, spec in zip(tickets, fleet):
+        e = t.result().edges
+        require(e.device == first, f"{tag}: a ticket's edges on {e.device}, not {first}")
+        if spec is specs["rhg"]:
+            d = Digests().split(e, rhg_counts, 0)
+            require(all(d.of(pe) == rhg.of(pe) for pe in range(P)),
+                    f"{tag}: the fleet's RHG ticket != its stream")
+        else:
+            require(edge_digest(e) == edge_digest(api.generate(spec, P, device=one).edges),
+                    f"{tag}: a fleet ticket of {spec} != generate")
+    print(f"  {tag} ({card_line()}), P = {P}: GNM {m} edges, digest == one device's; "
+          + ", ".join(f"{k} {v:.3f}s" for k, v in walls.items())
+          + "; peak of the gathering device "
+          + ", ".join(f"{k} {v / 2 ** 30:.3f} GiB" for k, v in peaks.items())
+          + f"; fleet of {len(fleet)}: {svc.scheduler.slabs} slabs, {svc.scheduler.reissued} "
+          f"slots reissued, every ticket == generate; SBM and RHG streams == the mesh={D} "
+          f"stream chunk by chunk ({sum(rhg_counts)} RHG edges)", flush=True)
+    return {"walls": walls, "peaks": peaks}
+
+
+def phase_local(dev, sizes: dict) -> dict:
+    """Phase 3l: one process over local devices (``--only local``): a
+    ``LocalMesh`` of ``LOCAL_ROWS`` rows on this card, each on a stream of
+    its own (:func:`local_run`), then, where the machine has two cards or
+    more, ``mesh_for(16)``'s distinct cards.  Rows sharing one card check
+    correctness, not scaling."""
+    import torch
+    from repro_torch import api
+    from repro_torch.distrib import runtime
+    from repro_torch.distrib.world import LocalMesh
+
+    errs = Errors()
+    specs = local_specs(api, sizes)
+    runs = {"rows": local_run(f"{LOCAL_ROWS} rows on {dev}", LocalMesh([dev] * LOCAL_ROWS),
+                              dev, specs, sizes, errs)}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        mesh = runtime.mesh_for(LOCAL_P)
+        runs["cards"] = local_run(f"mesh_for({LOCAL_P}) on {cards} cards", mesh, dev, specs,
+                                  sizes, errs)
+    else:
+        print(f"  this machine has one card: mesh_for({LOCAL_P}) is one row on {dev}, the "
+              f"one-device path; distinct cards were not run", flush=True)
+    print(f"  {LOCAL_ROWS} rows on one card measure correctness, not scaling", flush=True)
+    return {"errs": errs, "runs": runs}
+
+
+def local_timing(dev, out: dict, errs: Errors) -> list:
+    """Phase 4 of 3l: no kernel of its own; each row's first launches,
+    held against their plain versions, join those kernels' errors."""
+    for k in LOCAL_KERNELS:
+        errs.max[k] = max(errs.max[k], out["errs"].max[k])
+    return []
+
+
 OFF_PATH = {"pair_mask": "euclid tile at its own contract's shape (the oracles' 128-row cell "
                          "blocks): the engine runs its tiles inside pair_edges, and rhg_pe, "
                          "the LM pipeline's graph, tests its segments with hyp_edges; its "
@@ -4567,7 +4781,7 @@ FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 
         "train_steps": 20, "train_ckpt_every": 12, "train_profiled_steps": 3,
         "train_overfit_steps": 30, "train_resume_steps": 3,
         "mesh_gen_n": 1 << 30, "mesh_gen_m": 1 << 34,
-        "world_rdg_n": 1 << 18, "world_small_n": 1 << 14}
+        "world_rdg_n": 1 << 16, "world_small_n": 1 << 14}
 ER_KERNELS = ("chunk_sample", "chunk_decode", "hist")
 GEOM_KERNELS = ("pair_edges", "cell_points", "hist")
 RDG_KERNELS = ("triangulate", "circumspheres", "pair_edges", "cell_points")
@@ -4601,7 +4815,9 @@ PATHS = {"er": ("3a Erdős–Rényi", phase_main, ER_KERNELS, phase_timing),
          "lm": ("3h LM serving", phase_lm, LM_KERNELS, lm_timing),
          "train": ("3i training", phase_train, TRAIN_KERNELS, train_timing),
          "mesh": ("3j meshes and dry run", phase_mesh, MESH_KERNELS, mesh_timing),
-         "world": ("3k generation across ranks", phase_world, WORLD_KERNELS, world_timing)}
+         "world": ("3k generation across ranks", phase_world, WORLD_KERNELS, world_timing),
+         "local": ("3l one process over local cards", phase_local, LOCAL_KERNELS,
+                   local_timing)}
 
 
 def main(argv=None) -> int:

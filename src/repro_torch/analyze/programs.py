@@ -75,6 +75,7 @@ class ProgramCase:
     run: Callable[[torch.device], tuple]
     signature: tuple = ()
     opaque: bool = True
+    device: Optional[torch.device] = None   # a mesh row's case runs on its row's device
 
 
 def _plan_kind(plan) -> str:
@@ -100,13 +101,30 @@ def _wave_outputs(plan, dev, mesh, batch: int):
     return tuple(out)
 
 
+def _row_outputs(plan, mesh, d: int, mode: str, batch: int):
+    """Row ``d``'s outputs of a plan on a :class:`LocalMesh`: its slice run
+    on its device, or its batches of the mesh's waves, alone."""
+    from ..distrib import runtime
+
+    if mode == "run":
+        return runtime.run_rows(plan, mesh, check=False, only=(d,))[d]
+    out = []
+    for wave in runtime._local_waves(plan, mesh, batch, 2, False, only=(d,)):
+        if wave.rows[d] is not None:
+            out += [wave.payload[d], wave.valid[d]]
+    return tuple(out)
+
+
 def _plan_cases(family: str, spec, P: int, batch: int, mesh=None,
                 device="cpu") -> Iterator[ProgramCase]:
-    """The spec's programs on ``mesh``: a row count D, or a world whose
-    rank runs its own rows only."""
-    from ..distrib.world import World
+    """The spec's programs on ``mesh``: a row count D, a world whose rank
+    runs its own rows only, or a :class:`LocalMesh` of several rows, on
+    which each row's program is a case of its own (``.../row<d>``), run
+    on its row's device."""
+    from ..distrib.world import LocalMesh, World
 
-    D = mesh if isinstance(mesh, World) else 1 if mesh is None else int(mesh)
+    local = mesh if isinstance(mesh, LocalMesh) else None
+    D = mesh if isinstance(mesh, World) else 1 if mesh is None or local else int(mesh)
     plans: List[Tuple[str, object]] = []
     plan = spec.plan(P, device=device)
     plans.append((_plan_kind(plan), plan))
@@ -117,12 +135,21 @@ def _plan_cases(family: str, spec, P: int, batch: int, mesh=None,
     for kind, p in plans:
         contract = GENERATOR_CONTRACT if kind == "chunk" else RECOMPUTE_CONTRACT
         for mode in MODES:
+            name = f"{family}/{kind}/{mode}"
+            if local is not None:
+                for d in range(local.size):
+                    yield ProgramCase(
+                        name=f"{name}/row{d}", family=family, plan_kind=kind, mode=mode,
+                        contract=contract, signature=p.signature(), device=local.devices[d],
+                        run=(lambda dev, p=p, d=d, mode=mode:
+                             _row_outputs(p, local, d, mode, batch)))
+                continue
             if mode == "run":
                 run = (lambda dev, p=p: _run_outputs(p, dev, D))
             else:
                 run = (lambda dev, p=p: _wave_outputs(p, dev, D, batch))
             yield ProgramCase(
-                name=f"{family}/{kind}/{mode}", family=family, plan_kind=kind,
+                name=name, family=family, plan_kind=kind,
                 mode=mode, contract=contract, run=run, signature=p.signature())
 
 
@@ -138,7 +165,7 @@ def _serve_cases(P: int, mesh=None, device="cpu") -> Iterator[ProgramCase]:
     from ..serve.sinks import Sink
 
     n = 64
-    D = 1 if mesh is None else int(mesh)
+    D = runtime.mesh_size(mesh)
     mixes = {
         "chunk": (GENERATOR_CONTRACT,
                   [GNM(n=n, m=2 * n, seed=7, chunks=8),
@@ -288,7 +315,7 @@ def scan_case(case: ProgramCase, with_cost: bool = True, device="cpu",
     and scan its census; optionally price its launches."""
     import time
 
-    dev = torch.device(device)
+    dev = torch.device(case.device if case.device is not None else device)
     calls: list = []
     try:
         t0 = time.perf_counter()

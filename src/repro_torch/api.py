@@ -29,7 +29,17 @@ of ``repro.api``, all eight families).
    reference's) scans each program once for the communication-free
    contracts (:mod:`repro_torch.analyze`), and :func:`verify_contracts`
    reports them for one spec.
-6. **Mesh**: ``mesh`` is the reference's mesh.  A row count D dividing P
+6. **Mesh**: ``mesh`` is the reference's mesh.  ``None`` is
+   :func:`repro_torch.distrib.runtime.mesh_for` (the most local cards
+   that divide P, as the reference's default) unless ``device`` names
+   the CPU or one card.  A :class:`~repro_torch.distrib.world.LocalMesh`
+   spreads PEs ``[d P/D, (d+1) P/D)`` over its row ``d``'s device: each
+   row plans its slice, uploads it and runs on its card, and the results
+   are the one-device run's, bit for bit (``generate`` gathers the rows'
+   edges in PE order on ``device``, by default the mesh's first; the
+   streams leave each chunk on the card of the row that streamed it,
+   which under ``overlap`` is its segment's row, not its whole-plan row:
+   :func:`repro_torch.distrib.runtime.stream_row`).  A row count D dividing P
    runs every row on the one card.  A :class:`~repro_torch.distrib.world.World`
    (``World.from_env()`` under ``torchrun``) makes the caller rank ``d``
    of D processes, each on a card of its own: it plans, uploads and runs
@@ -68,7 +78,7 @@ from .core import rmat as _rmat
 from .core import sbm as _sbm
 from .core.prng import THREEFRY
 from .distrib import engine, runtime
-from .distrib.world import World
+from .distrib.world import LocalMesh, World
 
 DEFAULT_RNG = THREEFRY
 
@@ -333,34 +343,37 @@ class SBM:
                                      self.p_out, P, lo, hi, rng_impl)
 
 
-def _all_points(spec, P: int, dev, rng_impl: str, check: bool) -> torch.Tensor:
-    """Every vertex position of a geometric spec in vertex-id order: the
-    point plan's cells run at once and scattered by their first id."""
+def _all_points(spec, P: int, dev, rng_impl: str, check: bool, rows=1) -> torch.Tensor:
+    """Every vertex position of a geometric spec in vertex-id order, on
+    ``dev``: the point plan's cells run at once (a slice a row on a
+    :class:`LocalMesh`) and scattered by their first id."""
     plan = spec.point_plan(P, rng_impl=rng_impl, device=dev)
-    pts, mask = runtime.run(plan, dev, check=check)
     slot = torch.arange(plan.capacity, device=dev)
-    gid = torch.from_numpy(plan.gid0).to(dev)[:, :, None] + slot
     out = torch.zeros((spec.num_vertices, plan.dim), dtype=torch.float64, device=dev)
-    out[gid[mask]] = pts[mask]
+    if isinstance(rows, LocalMesh):
+        parts = runtime.run_rows(plan, rows, check)
+    else:
+        parts = [runtime.run(plan, dev, check=check, mesh=rows)]
+    lo = 0
+    for pts, mask in parts:
+        hi = lo + len(mask)
+        gid = torch.from_numpy(plan.gid0[lo:hi]).to(dev)[:, :, None] + slot
+        mask = mask.to(dev)
+        out[gid[mask]] = pts.to(dev)[mask]
+        lo = hi
     return out
-
-
-def _mesh_rows(mesh, P: int) -> int:
-    """The row count ``D`` of ``mesh`` (``None``: 1), which must divide P;
-    every row runs on the one card."""
-    D = 1 if mesh is None else int(mesh)
-    runtime.check_rows(P, D)
-    return D
 
 
 def _placed(mesh, P: int, device) -> Tuple[torch.device, int, int, object]:
     """``(device, lo, hi, rows)`` of an entry point on ``mesh``: a
     :class:`World` binds its rank's device and gives the rank's PEs (and
-    is its own ``rows``); otherwise every PE on ``device`` and the row
-    count, which must divide P."""
+    is its own ``rows``); otherwise every PE, planned on ``device``, over
+    the rows of :func:`runtime.placement`: a row count on ``device`` or
+    a :class:`LocalMesh` of several rows."""
     if isinstance(mesh, World):
         return (mesh.bind(device), *mesh.pes(P), mesh)
-    return runtime.resolve_device(device), 0, P, _mesh_rows(mesh, P)
+    rows, dev = runtime.placement(P, mesh, device)
+    return dev, 0, P, rows
 
 
 def _plan_rows(spec, P: int, lo: int, hi: int, rng_impl: str, dev):
@@ -383,20 +396,31 @@ def generate(spec, P: int = 1, *, device=None, mesh=None, rng_impl: str = DEFAUL
 
     ``check=True`` scans each distinct program once for the contracts of
     :mod:`repro_torch.analyze` (zero collectives first).  ``mesh`` is
-    ``None`` or a row count D dividing P (the reference's mesh, all rows
-    on the one card); the edges and their order do not depend on it.
+    the reference's mesh (module docstring, item 6): ``None`` (every
+    local card that divides P), a :class:`LocalMesh` (each row extracts
+    its edges on its own card; they are gathered in PE order on
+    ``device``, by default the mesh's first) or a row count D dividing P
+    (all rows on the one card); the edges and their order do not depend
+    on it.
 
     On a :class:`World` (``mesh=world``) the rank plans and runs only its
     PEs on its own device: ``edges`` are its PEs' edges in PE order (the
     ranks' in rank order concatenate to the one-process edges), and
     ``points`` its own cells' positions, cell by cell in stream order
     (what :func:`iter_points` yields on its rows), not all n."""
-    dev, lo, hi, _ = _placed(mesh, P, device)
-    payload, valid = runtime.run(_plan_rows(spec, P, lo, hi, rng_impl, dev), dev,
-                                 check=check)
-    with obs.trace("extract", phase="sink"):
-        edges = payload[valid]
-    del payload, valid
+    dev, lo, hi, rows = _placed(mesh, P, device)
+    plan = _plan_rows(spec, P, lo, hi, rng_impl, dev)
+    if isinstance(rows, LocalMesh):
+        parts = runtime.run_rows(plan, rows, check)
+        with obs.trace("extract", phase="sink"):
+            edges = [payload[valid] for payload, valid in parts]
+            del parts
+            edges = torch.cat([e.to(dev) for e in edges])
+    else:
+        payload, valid = runtime.run(plan, dev, check=check)
+        with obs.trace("extract", phase="sink"):
+            edges = payload[valid]
+        del payload, valid
     points = None
     if return_points and hasattr(spec, "point_plan"):
         if isinstance(mesh, World):
@@ -404,7 +428,7 @@ def generate(spec, P: int = 1, *, device=None, mesh=None, rng_impl: str = DEFAUL
                                   check=check, mesh=mesh)
             points = pts[ok]
         else:
-            points = _all_points(spec, P, dev, rng_impl, check)
+            points = _all_points(spec, P, dev, rng_impl, check, rows)
     return Graph(edges=edges, n=spec.num_vertices, directed=spec.directed,
                  points=points)
 
@@ -451,9 +475,9 @@ def verify_contracts(spec, P: int = 1, *, mesh=None, batch: int = 4, device=None
     ``raise_on_violation=False``."""
     from .analyze import programs as _programs
 
-    dev, *_ = _placed(mesh, P, device)
-    reports = _programs.scan_spec(spec, P, mesh=mesh, batch=batch, device=dev,
-                                  name=type(spec).__name__.lower())
+    dev, _, _, rows = _placed(mesh, P, device)
+    reports = _programs.scan_spec(spec, P, mesh=mesh if isinstance(mesh, World) else rows,
+                                  batch=batch, device=dev, name=type(spec).__name__.lower())
     bad = [r for r in reports if not r.ok]
     if bad and raise_on_violation:
         lines = [f"{r.name}: " + (r.error or "; ".join(
@@ -480,10 +504,15 @@ def iter_edge_chunks(spec, P: int = 1, *, device=None, mesh=None,
 
     ``mesh`` (a row count D dividing P) streams waves of D rows of
     ``batch`` slots; grouping by ``pe`` gives the same chunks.  On a
-    :class:`World` the rank plans (in segments, with ``overlap``) and
-    streams its own PEs only: row ``d`` of the reference's wave schedule,
-    with global ``pe`` ids.  ``check`` scans the wave program once, as
-    :func:`generate` does."""
+    :class:`LocalMesh` each wave's row ``d`` runs on row ``d``'s card,
+    whose chunks stay there, the rows in order within a wave (the
+    reference's order; a row count D streams the same chunks in the same
+    order).  With ``overlap`` each segment is spread over all the rows,
+    as in the reference, so a PE's row is its segment's
+    (:func:`repro_torch.distrib.runtime.stream_row`).  On a :class:`World` the rank plans (in segments, with
+    ``overlap``) and streams its own PEs only: row ``d`` of the
+    reference's wave schedule, with global ``pe`` ids.  ``check`` scans
+    the wave program once, as :func:`generate` does."""
     dev, lo, hi, rows = _placed(mesh, P, device)
     shift = 0
     if overlap:
@@ -545,7 +574,7 @@ def validate(spec, P: int = 1, **kwargs):
 
 
 def serve(specs, P: int = 1, **kwargs):
-    """Serve many concurrent specs on one card: :func:`repro_torch.serve.serve`.
+    """Serve many concurrent specs on the local cards: :func:`repro_torch.serve.serve`.
 
     The same graphs, bit for bit, as ``[generate(s, P) for s in specs]``,
     but plans resolve through a reseeding cache and the requests' rows

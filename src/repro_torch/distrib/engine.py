@@ -38,13 +38,29 @@ from ..kernels.geom.ops import cell_points, pair_edges
 from ..kernels.geom.ref import (GEOM_CERT, GEOM_EMPTY, GEOM_HYP, GEOM_TORUS,  # noqa: F401
                                 POINTS_CUBE, POINTS_POLAR)
 from ..kernels.sampler.ops import chunk_ba, chunk_decode, chunk_rmat
+from ..kernels.build import resolve_device
 from ..kernels.sampler.ref import (KIND_BA, KIND_DIRECTED, KIND_EMPTY, KIND_RECT,  # noqa: F401
                                    KIND_RMAT, KIND_TRI)
+from .world import LocalMesh
 
 # kinds whose edges come from the without-replacement index sampler
 SAMPLED_KINDS = frozenset({KIND_DIRECTED, KIND_TRI, KIND_RECT})
 
 _EDGE_INPUTS = ("kind", "key_data", "universe", "count", "params", "fparams", "owned")
+
+
+def default_mesh(P: int, device=None) -> LocalMesh:
+    """1-D mesh over the most local devices that divide P evenly (the
+    reference's rule): the first k cards, k the largest divisor of P that
+    is at most ``torch.cuda.device_count()``.  A CPU device, or a CUDA
+    device with an index, gives a one-row mesh on that device; asking for
+    CUDA without a card raises (:func:`resolve_device`)."""
+    dev = resolve_device(device)
+    if device is not None and (dev.type == "cpu" or torch.device(device).index is not None):
+        return LocalMesh((dev,))
+    ndev = torch.cuda.device_count()
+    use = max(d for d in range(1, min(ndev, P) + 1) if P % d == 0)
+    return LocalMesh(tuple(torch.device("cuda", i) for i in range(use)))
 
 
 @dataclass(frozen=True)

@@ -35,8 +35,18 @@ generator contract (every program kind's in the port) an
 fails is scanned again on its next checked call (the reference's
 ``_Entry.checked``).
 
-``mesh`` is the reference's mesh.  A row count ``D`` deals a plan's PEs
-onto ``D`` rows of each wave, all on the one card; it must divide P.  A
+``mesh`` is the reference's mesh.  ``None`` is :func:`mesh_for` (the
+reference's default: a :class:`~repro_torch.distrib.world.LocalMesh`
+over the most local cards that divide P), unless ``device`` names the
+CPU or an indexed card, which gives one row on it.  A
+:class:`~repro_torch.distrib.world.LocalMesh` of several rows runs row
+``d``'s PEs ``[d P/D, (d+1) P/D)`` on its own device (and stream):
+:func:`run` slices the plan a row, :func:`stream_waves` executes row
+``d`` of each wave of the reference's schedule there, and
+:func:`run_slab` uploads each row of a slab to its own device.  A
+one-row mesh is the one-card path exactly.  A row count ``D`` deals a
+plan's PEs onto ``D`` rows of each wave, all on the one card, in one
+launch; it must divide P.  A
 :class:`~repro_torch.distrib.world.World` makes the caller one rank of
 a world, a process on a card of its own: :func:`run` and
 :func:`stream_waves` plan rows ``[d P/D, (d+1) P/D)`` only, upload and
@@ -54,6 +64,7 @@ tracing is on, ``run/exec``, ``wave/device`` and ``slab/exec`` end in a
 """
 from __future__ import annotations
 
+import functools
 import queue as _queue
 import threading
 from collections import deque
@@ -67,7 +78,7 @@ import torch
 from .. import obs
 from ..analyze import opscan
 from ..kernels.build import resolve_device
-from .world import World, check_rows
+from .world import LocalMesh, World, check_rows
 
 
 def plan_tensors(plan, device) -> Tuple[torch.Tensor, ...]:
@@ -90,6 +101,47 @@ _CHECKED: set = set()
 def cache_clear() -> None:
     _CACHE.clear()
     _CHECKED.clear()
+    mesh_for.cache_clear()
+
+
+def mesh_size(mesh) -> int:
+    """The row count of a mesh: a :class:`LocalMesh`'s devices, a
+    :class:`World`'s ranks, or a row count itself (``None``: 1)."""
+    if isinstance(mesh, (LocalMesh, World)):
+        return mesh.size
+    return 1 if mesh is None else int(mesh)
+
+
+@functools.lru_cache(maxsize=None)
+def mesh_for(P: int) -> LocalMesh:
+    """The cached default mesh for P virtual PEs: the most local cards
+    that divide P (:func:`repro_torch.distrib.engine.default_mesh`)."""
+    from .engine import default_mesh
+
+    return default_mesh(P)
+
+
+def placement(P: int, mesh=None, device=None):
+    """``(rows, device)`` of an entry point: ``rows`` is a row count D
+    (every row on ``device``, which is resolved) or a :class:`LocalMesh`
+    of its rows' devices, and ``device`` is where planning runs and
+    gathered results land (a mesh's first device unless ``device`` names
+    one).  ``mesh=None`` is :func:`mesh_for` unless ``device`` is the CPU
+    or an indexed card (one row there); a one-row mesh whose device is
+    ``device`` is the row count 1.  Raises unless the rows divide P."""
+    if mesh is None:
+        explicit = device is not None and (torch.device(device).type == "cpu"
+                                           or torch.device(device).index is not None)
+        mesh = LocalMesh((device,)) if explicit else mesh_for(P)
+    if isinstance(mesh, LocalMesh):
+        check_rows(P, mesh.size)
+        dev = mesh.devices[0] if device is None else resolve_device(device)
+        if mesh.size == 1 and mesh.devices[0] == dev:
+            return 1, dev
+        return mesh, dev
+    D = int(mesh)
+    check_rows(P, D)
+    return D, resolve_device(device)
 
 
 def _slot_fn(kind: str, key: tuple, thunk: Callable[[], Callable]) -> Callable:
@@ -119,21 +171,66 @@ def _checked(key: tuple, check: bool, step: Callable):
     return out
 
 
+def _row_key(key: tuple, mesh: LocalMesh, d: int) -> tuple:
+    """The contract-scan key of row ``d`` of a local mesh: each row's
+    program is scanned once, on its own device."""
+    return key + ("row", d, str(mesh.devices[d]))
+
+
+def run_rows(plan, mesh: LocalMesh, check: bool = True, only=None) -> list:
+    """Execute a plan's table on a :class:`LocalMesh`: row ``d`` slices
+    the plan to its PEs, uploads its tables to its device and runs them
+    there, in one program call under its stream.  Returns a list of
+    ``(payload [P/D, C, ...], valid [P/D, C, L])`` a row, each on its
+    row's device and handed over to the caller's current stream there
+    (``None`` for a row left out of ``only``).  Every row is launched
+    before any is read back, so rows on distinct cards run at once."""
+    from .engine import slice_plan
+
+    P = plan.num_pes
+    check_rows(P, mesh.size)
+    key = ("run", plan.signature())
+    fn = _slot_fn("run", key, plan.slot_fn)
+    out, fences = [None] * mesh.size, [None] * mesh.size
+    for d in (range(mesh.size) if only is None else only):
+        part = slice_plan(plan, *mesh.pes(P, d))
+        with mesh.row(d) as dev, obs.trace("run/exec", phase="exec", mode="run", row=d):
+            tables = plan_tensors(part, dev)
+            R, C = tables[0].shape[:2]
+            rows = [t.reshape(R * C, *t.shape[2:]) for t in tables]
+            payload, valid = _checked(_row_key(key, mesh, d), check, lambda: fn(*rows))
+            out[d] = (payload.reshape(R, C, *payload.shape[1:]),
+                      valid.reshape(R, C, *valid.shape[1:]))
+            fences[d] = mesh.fence(d)
+            if obs.is_enabled():
+                _sync(dev)
+    for d, res in enumerate(out):
+        if res is not None:
+            mesh.hand_over(d, fences[d], res)
+    return out
+
+
 def run(plan, device=None, check: bool = True, mesh=None):
     """Execute a plan's full table; returns ``(payload, valid)``.
 
-    ``mesh`` is ``None``, a row count D dividing P (every row on the one
-    card; the output does not depend on it) or a :class:`World`: its rank
-    uploads and executes only its own rows, and gets its shard ``[P/D, C,
-    ...]`` of the payload, on the world's device."""
+    ``mesh`` is ``None`` (:func:`placement`), a row count D dividing P
+    (every row on the one card; the output does not depend on it), a
+    :class:`LocalMesh` (each row's PEs on its device, :func:`run_rows`;
+    the rows' outputs concatenated on ``device``, by default the mesh's
+    first) or a :class:`World`: its rank uploads and executes only its own
+    rows, and gets its shard ``[P/D, C, ...]`` of the payload, on the
+    world's device."""
     if isinstance(mesh, World):
         lo, hi = mesh.pes(plan.num_pes)
         device = mesh.bind(device)
         from .engine import slice_plan
         plan = slice_plan(plan, lo, hi)
-    elif mesh is not None:
-        check_rows(plan.num_pes, int(mesh))
-    dev = resolve_device(device)
+        rows, dev = 1, resolve_device(device)
+    else:
+        rows, dev = placement(plan.num_pes, mesh, device)
+    if isinstance(rows, LocalMesh):
+        parts = run_rows(plan, rows, check)
+        return tuple(torch.cat([part[i].to(dev) for part in parts]) for i in (0, 1))
     key = ("run", plan.signature())
     fn = _slot_fn("run", key, plan.slot_fn)
     tables = plan_tensors(plan, dev)
@@ -199,11 +296,14 @@ class Wave:
     ``valid[d]`` are mesh row ``d``'s batch of outputs with the padding
     masked; ``rows[d]`` names its PE and slot ids.
 
-    A rank of a :class:`World` holds its own row only: ``payload`` and
-    ``valid`` are ``[1, B, ...]``, ``row0`` is the rank, and ``rows`` is
-    ``None`` at every other rank's row."""
-    payload: torch.Tensor   # [D, B, ...] ([1, B, ...] on a world)
-    valid: torch.Tensor     # [D, B, L]
+    On a :class:`LocalMesh` of several rows ``payload`` and ``valid`` are
+    tuples of D ``[B, ...]`` tensors, each on its row's device (``None``
+    for a row with no batch in the wave).  A rank of a :class:`World`
+    holds its own row only: ``payload`` and ``valid`` are ``[1, B, ...]``,
+    ``row0`` is the rank, and ``rows`` is ``None`` at every other rank's
+    row."""
+    payload: object         # [D, B, ...] ([1, B, ...] on a world; a tuple of rows)
+    valid: object           # [D, B, L]
     rows: tuple             # [D] -> (pe, slots) | None
     row0: int = 0           # the mesh row of payload[0]
 
@@ -268,6 +368,21 @@ class PlanEmitter:
                      if cuts[s + 1] > cuts[s])
 
 
+def stream_row(P: int, D: int, pe: int, overlap: int = 0) -> int:
+    """The mesh row of D that streams PE ``pe`` of a P-PE plan, as in the
+    reference: row ``D pe / P`` of the whole plan, or with ``overlap``
+    segments row ``D (pe - lo) / (hi - lo)`` of the segment ``[lo, hi)``
+    that holds ``pe``, since every segment is spread over all D rows.  On
+    a :class:`LocalMesh` a chunk of ``pe`` lies on that row's device."""
+    check_rows(P, D)
+    if not overlap:
+        return D * pe // P
+    for lo, hi in PlanEmitter(P, None, overlap).segment_bounds(D):
+        if lo <= pe < hi:
+            return D * (pe - lo) // (hi - lo)
+    raise ValueError(f"PE {pe} is not one of the plan's {P}")
+
+
 def _plan_feed(emitter: PlanEmitter, device: torch.device, D: int = 1):
     """Start the background planner: it builds the segments in PE order
     into a bounded queue (at most two segments ahead of execution), each
@@ -317,12 +432,13 @@ def _plan_feed(emitter: PlanEmitter, device: torch.device, D: int = 1):
     return q, stop
 
 
-def _stream_emitter_waves(emitter: PlanEmitter, D: int, batch: int, prefetch: int,
+def _stream_emitter_waves(emitter: PlanEmitter, mesh, batch: int, prefetch: int,
                           device: torch.device, check: bool) -> Iterator[Wave]:
     """:func:`stream_waves` over a lazily segmented plan: execute segment
-    k's waves while the planner thread emits segment k+1.  ``Wave.rows``
-    carry global PE ids."""
-    feed, stop = _plan_feed(emitter, device, D)
+    k's waves while the planner thread emits segment k+1 (on ``device``),
+    each segment over the ``mesh`` rows (a row count or a
+    :class:`LocalMesh`).  ``Wave.rows`` carry global PE ids."""
+    feed, stop = _plan_feed(emitter, device, mesh_size(mesh))
     try:
         while True:
             # un-phased: the consumer's stall on the planner (nonzero only
@@ -335,7 +451,7 @@ def _stream_emitter_waves(emitter: PlanEmitter, D: int, batch: int, prefetch: in
                 raise item
             lo, seg = item
             for wave in stream_waves(seg, batch=batch, prefetch=prefetch, device=device,
-                                     mesh=D, check=check):
+                                     mesh=mesh, check=check):
                 if lo:
                     wave = Wave(wave.payload, wave.valid,
                                 tuple(None if r is None else (r[0] + lo, r[1])
@@ -367,7 +483,66 @@ def _rank_waves(plan, world: World, batch: int, prefetch: int, device,
         yield Wave(wave.payload, wave.valid, tuple(rows), d)
 
 
-def stream_waves(plan, batch: int = 1, prefetch: int = 2, device=None, *, mesh=1,
+def _local_waves(plan, mesh: LocalMesh, batch: int, prefetch: int, check: bool,
+                 only=None) -> Iterator[Wave]:
+    """:func:`stream_waves` on a :class:`LocalMesh` of several rows: the
+    reference's ``wave_schedule(plan, D, batch)``, row ``d`` of each wave
+    executed on row ``d``'s device and stream from its own slice of the
+    plan's tables (uploaded once), one program call a row.  ``only``
+    restricts the execution to those rows (the contract scan's cases)."""
+    from .engine import slice_plan
+
+    D, P = mesh.size, plan.num_pes
+    with obs.trace("wave/schedule", phase="exec", D=D, batch=batch):
+        ws = wave_schedule(plan, D, batch)
+    if not ws.num_waves:
+        return
+    key = ("wave", plan.signature(), D, ws.batch)
+    fn = _slot_fn("wave", key, plan.slot_fn)
+    rows = tuple(range(D)) if only is None else tuple(only)
+    state = {}
+    for d in rows:
+        with mesh.row(d) as dev:
+            state[d] = (plan_tensors(slice_plan(plan, *mesh.pes(P, d)), dev),
+                        torch.from_numpy(ws.sched[:, d, :, 0]).to(dev, torch.int64),
+                        torch.from_numpy(ws.sched[:, d, :, 1]).to(dev, torch.int64),
+                        torch.from_numpy(ws.valid[:, d]).to(dev))
+    traced = obs.is_enabled()
+
+    def step(w: int, d: int):
+        tables, pes, slots, valid = state[d]
+        payload, ok = fn(*(t[pes[w], slots[w]] for t in tables))
+        return payload, ok & valid[w][:, None]
+
+    def emit(w: int, outs, fences) -> Wave:
+        for d in rows:
+            if outs[d] is not None:
+                mesh.hand_over(d, fences[d], outs[d])
+        if traced:
+            with obs.trace("wave/device", phase="exec"):
+                mesh.sync()
+        with obs.trace("wave/sink", phase="sink"):
+            return Wave(tuple(None if o is None else o[0] for o in outs),
+                        tuple(None if o is None else o[1] for o in outs),
+                        tuple(r if d in rows else None for d, r in enumerate(ws.rows[w])))
+
+    pending: deque = deque()
+    for w in range(ws.num_waves):
+        outs, fences = [None] * D, [None] * D
+        for d in rows:
+            if ws.rows[w][d] is None:
+                continue
+            with mesh.row(d), obs.trace("wave/dispatch", phase="exec", wave=w, row=d):
+                outs[d] = _checked(_row_key(key, mesh, d), check, lambda: step(w, d))
+                fences[d] = mesh.fence(d)
+        pending.append((w, outs, fences))
+        if len(pending) >= max(1, int(prefetch)):
+            yield emit(*pending.popleft())
+    while pending:
+        yield emit(*pending.popleft())
+
+
+def stream_waves(plan, batch: int = 1, prefetch: int = 2, device=None, *, mesh=None,
                  check: bool = False) -> Iterator[Wave]:
     """Stream a plan as :class:`Wave` slabs of ``D`` rows of ``batch``
     slots (one program call of ``D batch`` rows each); at most
@@ -376,17 +551,23 @@ def stream_waves(plan, batch: int = 1, prefetch: int = 2, device=None, *, mesh=1
     with global PE ids in ``Wave.rows``.  ``check`` scans the wave
     program once (see the module docstring).
 
-    ``mesh`` is the row count D dividing P, every row on the one card, or
-    a :class:`World`, whose rank streams its own row ``d`` of the
-    reference's schedule (:func:`_rank_waves`)."""
+    ``mesh`` is ``None`` (:func:`placement`), the row count D dividing P,
+    every row on the one card, a :class:`LocalMesh`, each row of each wave
+    on its own device (:func:`_local_waves`; a planner thread plans on
+    ``device``, by default the mesh's first), or a :class:`World`, whose
+    rank streams its own row ``d`` of the reference's schedule
+    (:func:`_rank_waves`)."""
     if isinstance(mesh, World):
         yield from _rank_waves(plan, mesh, batch, prefetch, device, check)
         return
-    D = int(mesh)
-    dev = resolve_device(device)
+    rows, dev = placement(plan.num_pes, mesh, device)
     if isinstance(plan, PlanEmitter):
-        yield from _stream_emitter_waves(plan, D, batch, prefetch, dev, check)
+        yield from _stream_emitter_waves(plan, rows, batch, prefetch, dev, check)
         return
+    if isinstance(rows, LocalMesh):
+        yield from _local_waves(plan, rows, batch, prefetch, check)
+        return
+    D = rows
     with obs.trace("wave/schedule", phase="exec", D=D, batch=batch):
         ws = wave_schedule(plan, D, batch)
     if not ws.num_waves:
@@ -452,9 +633,38 @@ def _upload(arrays: Sequence[np.ndarray], dev: torch.device) -> Tuple[torch.Tens
                  for a, o in zip(arrays, offs))
 
 
+def _run_local_slab(fn: Callable, key: tuple, valid: np.ndarray, rows: Sequence[np.ndarray],
+                    mesh: LocalMesh, check: bool, slot_kwargs: dict):
+    """:func:`run_slab` on a :class:`LocalMesh`: row ``d`` of the slab is
+    uploaded to row ``d``'s device (a pinned buffer of its own, which the
+    caching host allocator keeps until that row's copy ends) and runs
+    there under the row's stream; a row with no valid slot launches
+    nothing.  Returns tuples of ``[B, ...]`` tensors a row (``None`` for
+    a row that ran nothing), handed over to the caller's streams."""
+    D, B = valid.shape
+    out, fences = [None] * D, [None] * D
+    for d in range(D):
+        if not valid[d].any():
+            continue
+        with mesh.row(d) as dev:
+            ok_row, *tables = _upload([valid[d]] + [r[d] for r in rows], dev)
+
+            def step():
+                payload, ok = fn(*tables, **slot_kwargs)
+                return payload, ok & ok_row.reshape(B, 1)
+
+            out[d] = _checked(_row_key(key, mesh, d), check, step)
+            fences[d] = mesh.fence(d)
+    for d, res in enumerate(out):
+        if res is not None:
+            mesh.hand_over(d, fences[d], res)
+    return (tuple(None if o is None else o[0] for o in out),
+            tuple(None if o is None else o[1] for o in out))
+
+
 def run_slab(slot_fn_thunk: Callable[[], Callable], signature: tuple,
              valid: np.ndarray, rows: Sequence[np.ndarray], device=None, *,
-             check: bool = True, **slot_kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
+             check: bool = True, mesh=None, **slot_kwargs):
     """Execute one packed ``[D, B]`` slab; returns ``(payload [D, B, ...],
     valid [D, B, L])`` on the device, padding rows masked.
 
@@ -466,13 +676,25 @@ def run_slab(slot_fn_thunk: Callable[[], Callable], signature: tuple,
     upload of the tables.  ``slot_fn_thunk`` is called only on a miss of
     the slot-function cache; ``slot_kwargs`` go to the slot function
     (the pair program's ``stage``).  ``check`` scans the slab program
-    once (see the module docstring)."""
-    dev = resolve_device(device)
+    once (see the module docstring).
+
+    On a :class:`LocalMesh` of ``D`` rows (``mesh``) row ``d`` runs on
+    row ``d``'s device, and ``payload`` and ``valid`` are tuples of its
+    rows' ``[B, ...]`` tensors (:func:`_run_local_slab`)."""
     valid = np.asarray(valid, bool)
     D, B = valid.shape
     key = ("slab", signature, valid.shape,
            tuple((r.shape[2:], r.dtype.str) for r in rows))
     fn = _slot_fn("slab", key, slot_fn_thunk)
+    if isinstance(mesh, LocalMesh):
+        if mesh.size != D:
+            raise ValueError(f"a slab of {D} rows on a mesh of {mesh.size}")
+        with obs.trace("slab/exec", phase="exec", mode="slab"):
+            out = _run_local_slab(fn, key, valid, rows, mesh, check, slot_kwargs)
+            if obs.is_enabled():
+                mesh.sync()
+        return out
+    dev = resolve_device(device)
     ok_rows, *tables = _upload([valid] + list(rows), dev)
     def step():
         payload, ok = fn(*(t.reshape(D * B, *t.shape[2:]) for t in tables), **slot_kwargs)
@@ -486,12 +708,14 @@ def run_slab(slot_fn_thunk: Callable[[], Callable], signature: tuple,
             ok.reshape(D, B, *ok.shape[1:]))
 
 
-def stream_slots(plan, batch: int = 1, prefetch: int = 2, device=None, *, mesh=1,
+def stream_slots(plan, batch: int = 1, prefetch: int = 2, device=None, *, mesh=None,
                  check: bool = False
                  ) -> Iterator[Tuple[int, np.ndarray, torch.Tensor, torch.Tensor]]:
     """Flattened :func:`stream_waves`: ``(pe, slots, payload, valid)``
-    per batch (pe-major for ``D = 1`` and on a :class:`World`'s rank);
-    takes a :class:`PlanEmitter` too (``pe`` is then the global PE id)."""
+    per batch (pe-major for ``D = 1`` and on a :class:`World`'s rank;
+    on a :class:`LocalMesh` each row's on its device, rows in order
+    within a wave); takes a :class:`PlanEmitter` too (``pe`` is then the
+    global PE id)."""
     for wave in stream_waves(plan, batch=batch, prefetch=prefetch, device=device, mesh=mesh,
                              check=check):
         yield from wave.chunks()

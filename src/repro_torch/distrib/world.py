@@ -18,12 +18,26 @@ edges, bit for bit).
     >>> w = World(rank=1, size=2, device="cpu")
     >>> w.pes(8)
     (4, 8)
+
+A :class:`LocalMesh` is the reference's default single-process mesh
+(``runtime.mesh_for(P)``, a 1-D mesh over the local devices): one
+process, one device a mesh row.  Row ``d`` holds PEs ``[d P/D, (d+1)
+P/D)`` as on a world, and every row's work is uploaded to, launched on
+and left on its own device.  Rows on distinct cards run on each card's
+current stream; rows that share a device (the CPU tests, or several rows
+on one card) each get a CUDA stream of their own, so the same per-row
+code runs whether the rows share one card or have eight.
+
+    >>> m = LocalMesh(["cpu", "cpu"])
+    >>> m.pes(8, 1)
+    (4, 8)
 """
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -83,3 +97,119 @@ class World:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         return self.device
+
+
+class LocalMesh:
+    """One process's 1-D mesh over local devices: row ``d`` runs on
+    ``devices[d]`` and holds PEs ``[d P/D, (d+1) P/D)`` of a P-PE plan
+    (of each segment's PEs under plan/execute overlap, as in the
+    reference: ``runtime.stream_row``).
+
+    Every device must exist (an indexed CUDA device below the card count,
+    or the CPU), and the rows are all CUDA or all CPU.  The mesh is
+    immutable and compares by its devices; the side streams of rows that
+    share a device are made once, at their first use."""
+
+    __slots__ = ("devices", "_streams")
+
+    def __init__(self, devices: Sequence):
+        devs = tuple(_row_device(d, i) for i, d in enumerate(devices))
+        if not devs:
+            raise ValueError("a local mesh needs at least one device")
+        if len({d.type for d in devs}) > 1:
+            raise ValueError(f"a local mesh's rows are all CUDA or all CPU, got {devs}")
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "_streams", {})
+
+    def __setattr__(self, name, value):
+        raise AttributeError("LocalMesh is immutable")
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, LocalMesh) and self.devices == other.devices
+
+    def __hash__(self) -> int:
+        return hash(("LocalMesh", self.devices))
+
+    def __repr__(self) -> str:
+        return f"LocalMesh({[str(d) for d in self.devices]})"
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def pes(self, P: int, d: int) -> Tuple[int, int]:
+        """Row ``d``'s PE range ``[lo, hi)`` of a ``P``-PE plan; raises
+        unless the row count divides P."""
+        check_rows(P, self.size)
+        ppd = P // self.size
+        return d * ppd, (d + 1) * ppd
+
+    def shared(self, d: int) -> bool:
+        """Whether row ``d``'s device holds another row too."""
+        return self.devices.count(self.devices[d]) > 1
+
+    def stream(self, d: int) -> Optional["torch.cuda.Stream"]:
+        """Row ``d``'s CUDA stream: its device's current stream when the
+        row has the device to itself, else a stream of the row's own (made
+        once); ``None`` on the CPU."""
+        dev = self.devices[d]
+        if dev.type != "cuda":
+            return None
+        if not self.shared(d):
+            return torch.cuda.current_stream(dev)
+        s = self._streams.get(d)
+        if s is None:
+            s = self._streams[d] = torch.cuda.Stream(device=dev)
+        return s
+
+    @contextmanager
+    def row(self, d: int) -> Iterator[torch.device]:
+        """Within: row ``d``'s device is current and its stream is the
+        current stream, so every allocation, copy and launch of the row's
+        work lands there.  Yields the device."""
+        dev = self.devices[d]
+        if dev.type != "cuda":
+            yield dev
+            return
+        s = self.stream(d)
+        with torch.cuda.device(dev.index), torch.cuda.stream(s):
+            yield dev
+
+    def fence(self, d: int):
+        """An event recorded now on row ``d``'s side stream (``None`` when
+        the row runs on its device's current stream or on the CPU): what
+        :meth:`hand_over` makes the caller wait for."""
+        if self.devices[d].type != "cuda" or not self.shared(d):
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self.stream(d))
+        return ev
+
+    def hand_over(self, d: int, fence, tensors: Sequence[torch.Tensor]) -> None:
+        """Hand row ``d``'s outputs to the caller's current stream on the
+        row's device: the stream waits for ``fence`` (from :meth:`fence`)
+        and the tensors, allocated on the row's side stream, are marked as
+        used there, so that their memory is not reused before the caller's
+        work on them ends.  A no-op without a side stream."""
+        if fence is None:
+            return
+        cur = torch.cuda.current_stream(self.devices[d])
+        cur.wait_event(fence)
+        for t in tensors:
+            t.record_stream(cur)
+
+    def sync(self) -> None:
+        """Wait for every row's device (all its streams)."""
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+
+def _row_device(device, d: int) -> torch.device:
+    """Mesh row ``d``'s device: the CPU or an existing CUDA device, made
+    indexed (the current one when none is given); raises otherwise."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"mesh row {d}: no device {dev} (this process sees "
+                           f"{torch.cuda.device_count()} CUDA devices)")
+    return dev

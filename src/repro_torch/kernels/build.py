@@ -213,3 +213,34 @@ def stream_arg(device) -> int:
     getter PyTorch's own generated kernels use, since building a
     ``torch.cuda.Stream`` costs microseconds on every launch."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def query(device: torch.device, entry, *args) -> int:
+    """``entry(*args)`` with ``device`` (indexed) made the current device
+    for the call: every entry point reads the SM count and occupancy, and
+    sets kernel attributes, on the current device.  Returns its
+    ``cudaError_t``."""
+    with torch.cuda.device(device.index):
+        return entry(*args)
+
+
+def current_index() -> int:
+    """The calling thread's current CUDA device index: the getter behind
+    ``torch.cuda.current_device`` without its lazy-init check (a launch
+    has a CUDA tensor, so CUDA is initialised)."""
+    return torch._C._cuda_getDevice()
+
+
+def launch(kernel: str, device: torch.device, entry, *args) -> None:
+    """Launch ``entry(*args, stream)`` on ``device``'s current stream with
+    ``device`` made current for the call (an entry point launches on the
+    current device, so a tensor on another card than the current one
+    would otherwise run on the wrong card or fail), and raise if the
+    launch fails.  Where ``device`` is already current, as on one card,
+    no device guard is entered.  Every kernel binding launches through
+    here; counting the launch in :data:`LAUNCHES` is the binding's."""
+    if device.index == current_index():
+        check(entry(*args, stream_arg(device)), kernel)
+        return
+    with torch.cuda.device(device.index):
+        check(entry(*args, stream_arg(device)), kernel)

@@ -4,9 +4,9 @@ capacities of the batched triangulation (port of
 
 For tensors on the CPU each wrapper computes its plain version
 (:mod:`.ref`, :mod:`.predicates`); for CUDA tensors it launches its
-kernel on the current stream, counts the launch in ``build.LAUNCHES``
-and raises if the launch fails.  There is no fallback from one to the
-other.
+kernel on the current stream of the tensors' card (``build.launch``),
+counts the launch in ``build.LAUNCHES`` and raises if the launch fails.
+There is no fallback from one to the other.
 
 Capacities are static per (padded size, dim) bucket, as the reference's:
 ``simplex_capacity`` is the slot budget (2-D retriangulation is Euler
@@ -61,9 +61,9 @@ def group_size(dim: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _cluster(B: int, N: int, dim: int, cavity: int, group: int, device: int) -> int:
     c = _C(0)
-    with torch.cuda.device(device):
-        build.check(_lib().triangulate_cluster(B, N, dim, cavity, group, ctypes.byref(c)),
-                    "triangulate cluster query")
+    build.check(build.query(torch.device("cuda", device), _lib().triangulate_cluster,
+                            B, N, dim, cavity, group, ctypes.byref(c)),
+                "triangulate cluster query")
     return c.value
 
 
@@ -115,10 +115,11 @@ def triangulate(pts: torch.Tensor, cnt: torch.Tensor, *, dim: int, num_simplices
         build.check_arg(parts, "parts", torch.int64, (B, len(TRIP_PARTS)), dev)
     if B:
         C = cluster_size(B, N, dim, dev)
-        build.check(_lib().triangulate(
+        build.launch(
+            "triangulate", dev, _lib().triangulate,
             pts.data_ptr(), cnt.data_ptr(), B, N, S, dim, cavity, group, C, simp.data_ptr(),
             alive.data_ptr(), ok.data_ptr(), rec.data_ptr(), work.data_ptr(),
-            0 if parts is None else parts.data_ptr(), build.stream_arg(dev)), "triangulate")
+            0 if parts is None else parts.data_ptr())
         build.LAUNCHES["triangulate"] += 1
     return simp, alive, ok
 
@@ -140,9 +141,8 @@ def circumspheres(simp: torch.Tensor):
     r2 = torch.empty(R, dtype=torch.float64, device=dev)
     nondeg = torch.empty(R, dtype=torch.bool, device=dev)
     if R:
-        build.check(_lib().circumspheres(simp.data_ptr(), R, d, center.data_ptr(),
-                                         r2.data_ptr(), nondeg.data_ptr(),
-                                         build.stream_arg(dev)), "circumspheres")
+        build.launch("circumspheres", dev, _lib().circumspheres, simp.data_ptr(), R, d,
+                     center.data_ptr(), r2.data_ptr(), nondeg.data_ptr())
         build.LAUNCHES["circumspheres"] += 1
     return center, r2, nondeg
 

@@ -438,18 +438,22 @@ __global__ void __launch_bounds__(kThreads) pair_edges_kernel(PairArgs a, Stage 
   if (STAGE) pair_keep(a, tile - gridDim.x, tile_buf(a, smem + ((k + 1) & 1) * half));
 }
 
-// the card's SM count, read once
+// the current card's SM count, read once a card (a process may launch on
+// several cards; a card's count is the same whichever thread reads it)
+constexpr int kMaxCards = 64;
+
 cudaError_t sm_count(int* sms) {
-  static int cached = 0;
-  if (cached == 0) {
-    int dev;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
+  static int cached[kMaxCards] = {};
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxCards && cached[dev]) {
+    *sms = cached[dev];
+    return cudaSuccess;
   }
-  *sms = cached;
-  return cudaSuccess;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kMaxCards) cached[dev] = *sms;
+  return err;
 }
 
 // the dynamic shared memory a block of `fn` may take (227 KB on an H100,

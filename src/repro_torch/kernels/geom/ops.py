@@ -2,8 +2,9 @@
 
 For tensors on the CPU each wrapper computes its plain version
 (:mod:`.ref`); for CUDA tensors it launches its kernel on the current
-stream, counts the launch in ``build.LAUNCHES`` and raises if the launch
-fails.  There is no fallback from one to the other.
+stream of the tensors' card (``build.launch``), counts the launch in
+``build.LAUNCHES`` and raises if the launch fails.  There is no fallback
+from one to the other.
 
 Each entry point is opaque to the op scan of
 ``repro_torch.analyze.opscan``: inside a trace a call counts as one
@@ -98,13 +99,13 @@ def pair_edges(kind, key_a, key_b, count_a, count_b, gid_a, gid_b, geom_a, geom_
     edges = torch.empty((R, slots, 2), dtype=torch.int64, device=dev)
     keep = torch.empty((R, slots), dtype=torch.bool, device=dev)
     if edges.numel():
-        build.check(_lib().pair_edges(
+        build.launch(
+            "pair_edges", dev, _lib().pair_edges,
             kind.data_ptr(), key_a.data_ptr(), key_b.data_ptr(), count_a.data_ptr(),
             count_b.data_ptr(), gid_a.data_ptr(), gid_b.data_ptr(), K,
             geom_a.data_ptr(), geom_b.data_ptr(), G, fparams.data_ptr(), F,
             self_pair.data_ptr(), active.data_ptr(), R, capacity, stage_hyp, stage_torus,
-            dim, bits,
-            edges.data_ptr(), keep.data_ptr(), build.stream_arg(dev)), "pair_edges")
+            dim, bits, edges.data_ptr(), keep.data_ptr())
         build.LAUNCHES["pair_edges"] += 1
     return edges, keep
 
@@ -134,10 +135,11 @@ def cell_points(key, count, cell, geom, *, kind: str, scale: float, capacity: in
     out = torch.empty((R, capacity, dim), dtype=torch.float64, device=dev)
     mask = torch.empty((R, capacity), dtype=torch.bool, device=dev)
     if mask.numel():
-        build.check(_lib().cell_points(
+        build.launch(
+            "cell_points", dev, _lib().cell_points,
             key.data_ptr(), count.data_ptr(), cell.data_ptr(), Kc, geom.data_ptr(), G,
             int(polar), 1.0 / float(scale), R, capacity, dim, out.data_ptr(),
-            mask.data_ptr(), build.stream_arg(dev)), "cell_points")
+            mask.data_ptr())
         build.LAUNCHES["cell_points"] += 1
     return out, mask
 
@@ -152,6 +154,6 @@ def libm_eval(name: str, x: torch.Tensor) -> torch.Tensor:
         return fn(x)
     build.check_arg(x, "x", torch.float64, tuple(x.shape), x.device)
     y = torch.empty_like(x)
-    build.check(_lib().libm_eval(list(LIBM_FUNCTIONS).index(name), x.data_ptr(), y.data_ptr(),
-                                 x.numel(), build.stream_arg(x.device)), "libm_eval")
+    build.launch("libm_eval", x.device, _lib().libm_eval, list(LIBM_FUNCTIONS).index(name),
+                 x.data_ptr(), y.data_ptr(), x.numel())
     return y

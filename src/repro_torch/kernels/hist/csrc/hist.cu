@@ -102,16 +102,19 @@ hist_kernel(const int64_t* __restrict__ values, int64_t n, int64_t num_bins, int
   }
 }
 
+// the current card's grid cap, read once a card (a process may launch on
+// several cards); 0 when the card cannot be read
+constexpr int kMaxCards = 64;
+
 int max_blocks() {
-  static int blocks = 0;
-  if (!blocks) {
-    int dev, sms;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 0;
-    blocks = sms * kBlocksPerSM;
-  }
-  return blocks;
+  static int cached[kMaxCards] = {};
+  int dev, sms;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxCards && cached[dev]) return cached[dev];
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  if (dev < kMaxCards) cached[dev] = sms * kBlocksPerSM;
+  return sms * kBlocksPerSM;
 }
 
 }  // namespace

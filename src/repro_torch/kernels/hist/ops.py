@@ -67,8 +67,8 @@ def hist_counts(values: torch.Tensor, num_bins: int, *, log2: bool = False,
         return out.add_(hist_counts_ref(v, num_bins, log2=log2, drop=drop))
     n = v.numel()
     if n and num_bins:
-        build.check(_entry()(v.data_ptr(), n, num_bins, log2, drop, out.data_ptr(),
-                             build.stream_arg(dev)), "hist")
+        build.launch("hist", dev, _entry(), v.data_ptr(), n, num_bins, log2, drop,
+                     out.data_ptr())
         build.LAUNCHES["hist"] += 1
     return out
 

@@ -3,9 +3,9 @@
 :func:`pair_mask` (the dense mask of a block of pairs) and
 :func:`hyp_edges` (the hyp test over ragged segments, hits compacted)
 compute their plain versions (:mod:`.ref`) for tensors on the CPU; for
-CUDA tensors they launch their kernels on the current stream, count the
-call in ``build.LAUNCHES`` and raise if a launch fails.  There is no
-fallback from one to the other.
+CUDA tensors they launch their kernels on the current stream of the
+tensors' card (``build.launch``), count the call in ``build.LAUNCHES``
+and raise if a launch fails.  There is no fallback from one to the other.
 
 Each entry point is opaque to the op scan of
 ``repro_torch.analyze.opscan``: inside a trace a call counts as one
@@ -63,10 +63,9 @@ def pair_mask(a: torch.Tensor, b: torch.Tensor, scalar, *, tile: str,
     build.check_arg(b, "b", dtype, (B, N, F), dev)
     out = torch.empty((B, M, N), dtype=torch.int8, device=dev)
     if out.numel():
-        build.check(_lib().pair_mask(
-            a.data_ptr(), b.data_ptr(), B, M, N, F, int(tile == "hyp"), dim,
-            float(scalar), float(scalar), out.data_ptr(), build.stream_arg(dev)),
-            "pair_mask")
+        build.launch("pair_mask", dev, _lib().pair_mask,
+                     a.data_ptr(), b.data_ptr(), B, M, N, F, int(tile == "hyp"), dim,
+                     float(scalar), float(scalar), out.data_ptr())
         build.LAUNCHES["pair_mask"] += 1
     return out if batched else out[0]
 
@@ -77,8 +76,8 @@ def _grid(index: int) -> tuple:
     """(blocks, warps) of ``hyp_edges``' passes on CUDA device ``index``:
     as many blocks as its SMs hold at once."""
     blocks, warps = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    build.check(_lib().hyp_edges_grid(index, ctypes.byref(blocks), ctypes.byref(warps)),
-                "hyp_edges")
+    build.check(build.query(torch.device("cuda", index), _lib().hyp_edges_grid, index,
+                            ctypes.byref(blocks), ctypes.byref(warps)), "hyp_edges")
     return blocks.value, warps.value
 
 
@@ -105,18 +104,18 @@ def _count_passes(q, c, q_gid, c_gid, segments, cosh_r):
     blocks, warps = _grid(q.device.index)
     S = len(segments)
     scratch = torch.empty(4 + S + 1 + 2 * warps, dtype=torch.int64, device=q.device)
-    build.check(_lib().hyp_edges_count(
-        q.data_ptr(), c.data_ptr(), q_gid.data_ptr(), c_gid.data_ptr(), segments.data_ptr(),
-        S, len(q), len(c), float(cosh_r), blocks, scratch.data_ptr(),
-        build.stream_arg(q.device)), "hyp_edges")
+    build.launch("hyp_edges", q.device, _lib().hyp_edges_count,
+                 q.data_ptr(), c.data_ptr(), q_gid.data_ptr(), c_gid.data_ptr(),
+                 segments.data_ptr(), S, len(q), len(c), float(cosh_r), blocks,
+                 scratch.data_ptr())
     return blocks, scratch
 
 
 def _write_pass(q, c, q_gid, c_gid, segments, cosh_r, blocks, scratch, out) -> None:
-    build.check(_lib().hyp_edges_write(
-        q.data_ptr(), c.data_ptr(), q_gid.data_ptr(), c_gid.data_ptr(), segments.data_ptr(),
-        len(segments), float(cosh_r), blocks, scratch.data_ptr(), len(out), out.data_ptr(),
-        build.stream_arg(q.device)), "hyp_edges")
+    build.launch("hyp_edges", q.device, _lib().hyp_edges_write,
+                 q.data_ptr(), c.data_ptr(), q_gid.data_ptr(), c_gid.data_ptr(),
+                 segments.data_ptr(), len(segments), float(cosh_r), blocks,
+                 scratch.data_ptr(), len(out), out.data_ptr())
 
 
 @opscan.opaque("hyp_edges")

@@ -3,8 +3,9 @@
 
 For tensors on the CPU each wrapper computes its plain version
 (:mod:`.ref`); for CUDA tensors it launches its kernel on the current
-stream, counts the launch in ``build.LAUNCHES`` and raises if the launch
-fails.  There is no fallback from one to the other.
+stream of the tensors' card (``build.launch``), counts the launch in
+``build.LAUNCHES`` and raises if the launch fails.  There is no fallback
+from one to the other.
 
 Each entry point is opaque to the op scan of
 ``repro_torch.analyze.opscan``: inside a trace a call counts as one
@@ -73,10 +74,11 @@ def chunk_sample(key: torch.Tensor, universe: torch.Tensor, count: torch.Tensor,
     # bucket counts, duplicate counts and lists, the first round's plan
     work = torch.zeros(R * (nb_max + 4 * LIST_CAP + 6) + 1 + 2 * R * LIST_CAP,
                        dtype=torch.int32, device=dev)
-    build.check(build.library("collision", _COLLISION).chunk_sample(
+    build.launch(
+        "chunk_sample", dev, build.library("collision", _COLLISION).chunk_sample,
         key.data_ptr(), universe.data_ptr(), count.data_ptr(), R, capacity, nb_max,
         bucket_cap, list_cap, out.data_ptr(), scratch.data_ptr(), work.data_ptr(),
-        None if rounds is None else rounds.data_ptr(), build.stream_arg(dev)), "chunk_sample")
+        None if rounds is None else rounds.data_ptr())
     build.LAUNCHES["chunk_sample"] += 1
     return out
 
@@ -99,10 +101,10 @@ def chunk_decode(vals: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
     edges = torch.empty((R, cap, 2), dtype=torch.int64, device=dev)
     keep = torch.empty((R, cap), dtype=torch.bool, device=dev)
     if vals.numel():
-        build.check(_lib().chunk_decode(
-            vals.data_ptr(), kind.data_ptr(), params.data_ptr(),
-            count.data_ptr(), owned.data_ptr(), R, cap, edges.data_ptr(),
-            keep.data_ptr(), build.stream_arg(dev)), "chunk_decode")
+        build.launch("chunk_decode", dev, _lib().chunk_decode,
+                     vals.data_ptr(), kind.data_ptr(), params.data_ptr(),
+                     count.data_ptr(), owned.data_ptr(), R, cap, edges.data_ptr(),
+                     keep.data_ptr())
         build.LAUNCHES["chunk_decode"] += 1
     return edges, keep
 
@@ -142,11 +144,10 @@ def chunk_rmat(key: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
     (edges, keep), fill = _check_rows(key, kind, params, count, owned, out, capacity)
     build.check_arg(fparams, "fparams", torch.float64, (kind.shape[0], 4), kind.device)
     if edges.numel():
-        build.check(_lib().chunk_rmat(
-            key.data_ptr(), kind.data_ptr(), params.data_ptr(), fparams.data_ptr(),
-            count.data_ptr(), owned.data_ptr(), int(log_n), kind.shape[0], capacity,
-            int(fill), edges.data_ptr(), keep.data_ptr(), build.stream_arg(kind.device)),
-            "chunk_rmat")
+        build.launch("chunk_rmat", kind.device, _lib().chunk_rmat,
+                     key.data_ptr(), kind.data_ptr(), params.data_ptr(), fparams.data_ptr(),
+                     count.data_ptr(), owned.data_ptr(), int(log_n), kind.shape[0], capacity,
+                     int(fill), edges.data_ptr(), keep.data_ptr())
         build.LAUNCHES["chunk_rmat"] += 1
     return edges, keep
 
@@ -166,10 +167,9 @@ def chunk_ba(key: torch.Tensor, kind: torch.Tensor, params: torch.Tensor,
     if steps is not None:
         build.check_arg(steps, "steps", torch.int64, (2,), kind.device)
     if edges.numel():
-        build.check(_lib().chunk_ba(
-            key.data_ptr(), kind.data_ptr(), params.data_ptr(), count.data_ptr(),
-            owned.data_ptr(), kind.shape[0], capacity, int(fill), edges.data_ptr(),
-            keep.data_ptr(), None if steps is None else steps.data_ptr(),
-            build.stream_arg(kind.device)), "chunk_ba")
+        build.launch("chunk_ba", kind.device, _lib().chunk_ba,
+                     key.data_ptr(), kind.data_ptr(), params.data_ptr(), count.data_ptr(),
+                     owned.data_ptr(), kind.shape[0], capacity, int(fill), edges.data_ptr(),
+                     keep.data_ptr(), None if steps is None else steps.data_ptr())
         build.LAUNCHES["chunk_ba"] += 1
     return edges, keep

@@ -171,6 +171,34 @@ close_wedges_kernel(const longlong2* __restrict__ edges, const uint8_t* __restri
     if (counts[s]) atomicAdd(out + s, counts[s]);
 }
 
+// The current card's SM count and the blocks of `bytes` of shared memory
+// an SM holds, read once a card and shared size: a process may launch on
+// several cards, each with an entry of its own (a thread's own, so that two
+// threads launching at two shared sizes do not mix their entries).
+constexpr int kMaxCards = 64;
+
+struct Occupancy {
+  int sms = 0, per_sm = 0;
+  size_t bytes = 0;
+};
+
+cudaError_t occupancy(size_t bytes, int* sms, int* per_sm) {
+  static thread_local Occupancy cached[kMaxCards];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  Occupancy fresh, *o = dev < kMaxCards ? &cached[dev] : &fresh;
+  if (o->sms == 0) err = cudaDeviceGetAttribute(&o->sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && (o->per_sm == 0 || o->bytes != bytes)) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o->per_sm, close_wedges_kernel,
+                                                        kThreads, bytes);
+    o->bytes = bytes;
+  }
+  *sms = o->sms;
+  *per_sm = o->per_sm;
+  return err;
+}
+
 }  // namespace
 
 // edges int64 [N, 2] (16-byte aligned); mask bool [N] or null, when null
@@ -181,10 +209,6 @@ close_wedges_kernel(const longlong2* __restrict__ edges, const uint8_t* __restri
 extern "C" int close_wedges(const void* edges, const void* mask, long long n, const void* hkey,
                             long long log_t, const void* off, const void* ids, const void* filt,
                             long long log_f, long long samples, void* out, void* stream) {
-  // the SM count and the blocks an SM holds at the last shared size (the
-  // port runs on one card)
-  static int sms = 0, per_sm = 0;
-  static size_t per_sm_bytes = 0;
   if (n <= 0 || samples <= 0) return 0;
   if (log_t < 4 || log_t > 31 || log_f < 10 || log_f > 27 || samples > INT_MAX ||
       (uintptr_t)filt % 16)
@@ -196,16 +220,8 @@ extern "C" int close_wedges(const void* edges, const void* mask, long long n, co
   if (bytes > 48 * 1024)
     err = cudaFuncSetAttribute(close_wedges_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes);
-  if (err == cudaSuccess && sms == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess && per_sm_bytes != bytes) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, close_wedges_kernel, kThreads,
-                                                        bytes);
-    per_sm_bytes = bytes;
-  }
+  int sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = occupancy(bytes, &sms, &per_sm);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long per_block = (long long)kWarps * (mask ? kTile : kPrefixTile);

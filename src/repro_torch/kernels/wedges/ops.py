@@ -3,9 +3,9 @@ builder (:func:`.table.wedge_table`).
 
 For tensors on the CPU it computes its plain version
 (:func:`.ref.close_wedges_table_ref`); for CUDA tensors it launches the
-kernel on the current stream, counts the launch in ``build.LAUNCHES``
-and raises if the launch fails.  There is no fallback from one to the
-other.
+kernel on the current stream of the tensors' card (``build.launch``),
+counts the launch in ``build.LAUNCHES`` and raises if the launch fails.
+There is no fallback from one to the other.
 
 Each entry point is opaque to the op scan of
 ``repro_torch.analyze.opscan``: inside a trace a call counts as one
@@ -62,10 +62,10 @@ def close_wedges(edges: torch.Tensor, table: WedgeTable, *,
         raise ValueError("edges and table.filt must be 16-byte aligned (16-byte loads)")
     n = N if mask is not None else min(int(count), N)
     if n and table.ids.numel():     # an empty union closes no wedge
-        build.check(build.library("wedges", _SIGNATURES).close_wedges(
+        build.launch(
+            "close_wedges", dev, build.library("wedges", _SIGNATURES).close_wedges,
             edges.data_ptr(), None if mask is None else mask.data_ptr(), n,
             table.hkey.data_ptr(), table.log_t, table.off.data_ptr(), table.ids.data_ptr(),
-            table.filt.data_ptr(), table.log_f, S, out.data_ptr(),
-            build.stream_arg(dev)), "close_wedges")
+            table.filt.data_ptr(), table.log_f, S, out.data_ptr())
         build.LAUNCHES["close_wedges"] += 1
     return out

@@ -1,5 +1,10 @@
-"""Generate one spec rank by rank: every process of a ``torchrun`` world
-generates its own PEs, with no process group and nothing exchanged.
+"""Generate one spec: in one process over the local cards, or rank by
+rank, every process of a ``torchrun`` world generating its own PEs, with
+no process group and nothing exchanged.
+
+One process over the host's cards (the reference's default mesh,
+``runtime.mesh_for(P)``: the most cards that divide P):
+    python -m repro_torch.launch.generate GNM n=16777216 m=268435456 seed=1 --pes 16
 
 On the cards of one host, one rank a card:
     torchrun --nproc-per-node 4 -m repro_torch.launch.generate GNM n=16777216 m=268435456 \\
@@ -9,12 +14,17 @@ On the CPU (the kernels' plain versions):
     torchrun --nproc-per-node 2 -m repro_torch.launch.generate --device cpu RGG n=100000 \\
         radius=0.01 seed=4 --pes 8 --out /tmp/rgg
 
-Rank ``d`` of K generates PEs ``[d P/K, (d+1) P/K)``
-(:class:`repro_torch.distrib.world.World`) and prints one line: its PEs,
-its edge count, its wall and an order-sensitive digest of its edges.
-With ``--out DIR`` it writes its edges to ``DIR/edges.<rank>.npy``; the
-files concatenated in rank order are ``generate(spec, P).edges`` of one
-process.  Without ``torchrun`` it is a world of one.
+Without ``torchrun`` (no ``WORLD_SIZE`` in the environment) the process
+spreads the P PEs over ``mesh_for(P)``'s cards
+(:class:`repro_torch.distrib.world.LocalMesh`; ``--device`` names one
+device instead), gathers the edges on the first and prints one line:
+the mesh, the edge count, the wall and an order-sensitive digest.  Under
+``torchrun`` rank ``d`` of K generates PEs ``[d P/K, (d+1) P/K)``
+(:class:`repro_torch.distrib.world.World`) and prints that line for its
+PEs.  With ``--out DIR`` each process writes its edges to
+``DIR/edges.<rank>.npy`` (rank 0 without ``torchrun``); the files
+concatenated in rank order are ``generate(spec, P).edges`` of one
+process.
 """
 from __future__ import annotations
 
@@ -29,7 +39,8 @@ import numpy as np
 import torch
 
 from .. import api
-from ..distrib.world import World
+from ..distrib import runtime
+from ..distrib.world import LocalMesh, World
 
 FAMILIES = ("GNM", "GNP", "RGG", "RHG", "RDG", "BA", "RMAT", "SBM")
 
@@ -50,28 +61,38 @@ def parse_spec(family: str, params) -> object:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.generate",
-                                 description="Generate a spec's PEs on each rank of a world.")
+                                 description="Generate a spec over the local cards, or "
+                                             "its PEs on each rank of a world.")
     ap.add_argument("family", help=", ".join(FAMILIES))
     ap.add_argument("params", nargs="*", help="the spec's fields as key=value")
     ap.add_argument("--pes", type=int, default=16, help="P, a multiple of the world's size")
-    ap.add_argument("--device", default=None, help="cpu, or a card a rank (the default)")
-    ap.add_argument("--out", default=None, help="write each rank's edges here")
+    ap.add_argument("--device", default=None,
+                    help="cpu, or one card; by default every local card that divides "
+                         "--pes (a card a rank under torchrun)")
+    ap.add_argument("--out", default=None, help="write each process's edges here")
     args = ap.parse_args(argv)
     spec = parse_spec(args.family, args.params)
-    world = World.from_env(device=args.device)
+    if "WORLD_SIZE" in os.environ:
+        mesh = World.from_env(device=args.device)
+        dev, devices, rank = mesh.device, (mesh.device,), mesh.rank
+        (lo, hi), where = mesh.pes(args.pes), f"rank {mesh.rank} of {mesh.size}"
+    else:
+        mesh, dev = runtime.placement(args.pes, None, args.device)
+        devices = mesh.devices if isinstance(mesh, LocalMesh) else (dev,)
+        rank, (lo, hi), where = 0, (0, args.pes), "one process"
     t0 = time.perf_counter()
-    edges = api.generate(spec, args.pes, mesh=world).edges
-    if world.device.type == "cuda":
-        torch.cuda.synchronize(world.device)
+    edges = api.generate(spec, args.pes, mesh=mesh, device=dev).edges
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     wall = time.perf_counter() - t0
     host = np.ascontiguousarray(edges.cpu().numpy(), "<i8")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        np.save(os.path.join(args.out, f"edges.{world.rank}.npy"), host)
-    lo, hi = world.pes(args.pes)
-    print(f"rank {world.rank} of {world.size} on {world.device}: PEs [{lo}, {hi}) of "
-          f"{args.pes}, {len(host)} edges in {wall:.3f}s, sha256 "
-          f"{hashlib.sha256(host.tobytes()).hexdigest()[:16]}", flush=True)
+        np.save(os.path.join(args.out, f"edges.{rank}.npy"), host)
+    print(f"{where} on {', '.join(map(str, devices))}: PEs [{lo}, {hi}) of {args.pes}, "
+          f"{len(host)} edges in {wall:.3f}s, "
+          f"sha256 {hashlib.sha256(host.tobytes()).hexdigest()[:16]}", flush=True)
     return 0
 
 

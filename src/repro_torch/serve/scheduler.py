@@ -6,9 +6,11 @@ Serving wants the transpose: at any moment many requests are in flight
 (different families, seeds and sizes), and launching them one plan at a
 time would leave the card mostly idle.  The scheduler packs *ready slots
 from different requests* into shared ``[D, B]`` slabs (D rows of B
-slots: the reference's mesh rows become a row count on one card) and
-executes each through :func:`repro_torch.distrib.runtime.run_slab`, one
-launch of each kernel of the program over its ``D B`` rows.
+slots: the reference's mesh rows, a row count on one card or the rows of
+a :class:`~repro_torch.distrib.world.LocalMesh`) and executes each
+through :func:`repro_torch.distrib.runtime.run_slab`: one launch of each
+kernel of the program over its ``D B`` rows on one card, or one a mesh
+row on the row's device.
 
 This is sound because a slot is a pure function of its row (the paper's
 communication-free invariant one level down), and exact because:
@@ -48,6 +50,7 @@ import torch
 
 from .. import obs
 from ..distrib import engine, fault, runtime
+from ..distrib.world import LocalMesh
 
 __all__ = ["SlabProgram", "Scheduler", "program_of"]
 
@@ -274,16 +277,28 @@ class Scheduler:
     remainders (continuous batching).
 
     ``D`` is the slab's row count (the reference's mesh rows; 1 is
-    ``mesh_for(P)`` on one device) and ``slab_batch`` the slots a row.
+    ``mesh_for(P)`` on one device), every row on ``device`` in one launch.
+    ``mesh``, a :class:`~repro_torch.distrib.world.LocalMesh`, takes its
+    place: row ``d`` of every slab runs on row ``d``'s device (a fault's
+    lost slots then recompute on the surviving rows' devices).
+    ``slab_batch`` is the slots a row.
     With ``slab_bytes``, a group whose slots are small takes more of them
     a row: as many as fit in ``slab_bytes`` of output a slab, and never
     fewer than ``slab_batch`` (pair rows of capacity 32 are 17 KB, chunk
-    rows of capacity 2^22 71 MB).  Results stay on ``device``.
+    rows of capacity 2^22 71 MB).  Results stay on their rows' devices;
+    planning runs on ``device`` (a mesh's first by default).
     ``check`` scans each new slab program once (``runtime.run_slab``).
     """
 
     def __init__(self, D: int = 1, slab_batch: int = 8, slab_bytes: Optional[int] = None,
-                 registry: Optional[obs.Registry] = None, device=None, check: bool = True):
+                 registry: Optional[obs.Registry] = None, device=None, check: bool = True,
+                 mesh: Optional[LocalMesh] = None):
+        if mesh is not None:
+            if D != 1:
+                raise ValueError("give a Scheduler a mesh or a row count D, not both")
+            D = mesh.size
+            device = mesh.devices[0] if device is None else device
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.D = int(D)
         self.check = bool(check)
         self.B = int(slab_batch)
@@ -469,8 +484,14 @@ class Scheduler:
         ks, d, b = placement
         valid, rows = self._assemble(prog, slots, placement, B)
         payload, ok = runtime.run_slab(prog.slot_fn, prog.signature(), valid, rows,
-                                       self.device, check=self.check,
+                                       self.device, check=self.check, mesh=self.mesh,
                                        **prog.slot_kwargs(rows))
+        if self.mesh is None:   # one [D B] row: a run may span two slab rows
+            payload = (payload.reshape(self.D * B, *payload.shape[2:]),)
+            ok = (ok.reshape(self.D * B, *ok.shape[2:]),)
+            width = self.D * B
+        else:
+            width = B
         self.slabs += 1
         self.slots += len(ks)
         self._m_slabs.inc()
@@ -488,9 +509,8 @@ class Scheduler:
         alive = ~np.isin(d, sorted(dead))
         lost = ks[~alive]
         with obs.trace("serve/deliver", phase="sink", slab=self.slabs):
-            self._deliver(slots, ks[alive], d[alive] * B + b[alive],
-                          payload.reshape(self.D * B, *payload.shape[2:]),
-                          ok.reshape(self.D * B, *ok.shape[2:]))
+            self._deliver(slots, ks[alive], d[alive] * B + b[alive], width, payload, ok,
+                          self.device)
 
         if len(lost):
             # retire and reissue: the deterministic survivor map decides
@@ -506,26 +526,52 @@ class Scheduler:
                 remaining = remaining[~np.isin(remaining, placed[0])]
 
     @staticmethod
-    def _deliver(slots: _Slots, ks: np.ndarray, flat: np.ndarray, payload, ok) -> None:
+    def _deliver(slots: _Slots, ks: np.ndarray, flat: np.ndarray, width: int,
+                 payload, ok, device=None) -> None:
         """Hand each sink its delivered slots ``ks`` (at flat slab rows
         ``flat``) as runs of consecutive sequence numbers: one slice of
         the slab a run where its rows are contiguous there, else one
-        gather."""
+        gather.  ``payload`` and ``ok`` hold the slab's rows as tensors of
+        ``width`` slots each (one of ``D B`` on one card; a mesh row's
+        ``B`` on its device).  A run whose slots lie in several mesh rows
+        (the placement deals consecutive slots round robin) is gathered
+        row by row onto ``device``, in sequence order."""
         owner = slots.owner[ks]
         for u in np.unique(owner):
             on = np.flatnonzero(owner == u)
             order = on[np.argsort(slots.seq[ks[on]], kind="stable")]
             k, f = ks[order], flat[order]
-            seq = slots.seq[k]
+            seq, part = slots.seq[k], f // width
             bounds = np.concatenate(([0], np.flatnonzero(np.diff(seq) != 1) + 1, [len(k)]))
             for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
-                idx = f[lo:hi]
-                if (np.diff(idx) == 1).all():
-                    p, m = payload[idx[0]: idx[-1] + 1], ok[idx[0]: idx[-1] + 1]
+                parts, idx = part[lo:hi], f[lo:hi] - part[lo:hi] * width
+                if (parts == parts[0]).all():
+                    rows, mask = payload[parts[0]], ok[parts[0]]
+                    if (np.diff(idx) == 1).all():
+                        p, m = rows[idx[0]: idx[-1] + 1], mask[idx[0]: idx[-1] + 1]
+                    else:
+                        sel = torch.from_numpy(idx).to(rows.device)
+                        p, m = rows[sel], mask[sel]
                 else:
-                    sel = torch.from_numpy(idx).to(payload.device)
-                    p, m = payload[sel], ok[sel]
+                    p, m = Scheduler._gather(payload, ok, parts, idx, device)
                 slots.sinks[u].deliver(int(seq[lo]), p, m, slots.pe[k[lo:hi]])
+
+    @staticmethod
+    def _gather(payload, ok, parts: np.ndarray, idx: np.ndarray, device):
+        """Slots ``idx`` of mesh rows ``parts`` (one pair a slot) as one
+        ``[k, ...]`` payload and mask on ``device``, in the given order:
+        one gather a row, copied onto ``device``."""
+        d0 = int(parts[0])
+        p = torch.empty((len(idx), *payload[d0].shape[1:]), dtype=payload[d0].dtype,
+                        device=device)
+        m = torch.empty((len(idx), *ok[d0].shape[1:]), dtype=ok[d0].dtype, device=device)
+        for d in np.unique(parts).tolist():
+            on = parts == d
+            sel = torch.from_numpy(idx[on]).to(payload[d].device)
+            dst = torch.from_numpy(np.flatnonzero(on)).to(device)
+            p[dst] = payload[d][sel].to(device)
+            m[dst] = ok[d][sel].to(device)
+        return p, m
 
     def drain(self) -> None:
         while True:

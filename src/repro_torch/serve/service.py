@@ -1,5 +1,5 @@
-"""Generation as a service: concurrent GraphSpec requests on one card
-(port of ``repro.serve.service``).
+"""Generation as a service: concurrent GraphSpec requests on the local
+cards (port of ``repro.serve.service``).
 
 :class:`Service` is the front door of the serving tier:
 
@@ -31,6 +31,7 @@ import torch
 from .. import obs
 from ..api import DEFAULT_RNG, plan_emitter
 from ..distrib import runtime
+from ..distrib.world import LocalMesh
 from .plancache import PlanCache
 from .scheduler import Scheduler
 from .sinks import ChunkSink, GraphSink, Sink, StatsSink
@@ -80,31 +81,44 @@ class Ticket:
 
 
 class Service:
-    """Multi-tenant batched graph generation on one card.
+    """Multi-tenant batched graph generation on the local cards.
 
     ``P`` is the virtual PE count every request's plan is emitted for (the
     generated instance is a function of the spec and P, as in
-    ``generate``); ``D`` is the row count of a slab (the reference's mesh
-    rows: 1, as ``mesh_for(P)`` on one device, unless the caller asks for
-    more, e.g. to exercise fault reissue).  Work runs on ``device`` (CUDA
-    unless ``"cpu"``).  ``slab_batch`` and ``slab_bytes`` size the slabs
-    (see :class:`~repro_torch.serve.scheduler.Scheduler`).
+    ``generate``).  ``mesh`` is what slabs are spread over, as in the
+    reference: by default ``runtime.mesh_for(P)``, the most local cards
+    that divide P (one row on ``device`` when it names the CPU or one
+    card); on a :class:`~repro_torch.distrib.world.LocalMesh` of several
+    rows, row ``d`` of each slab runs on row ``d``'s device, and a fault's
+    lost slots recompute on the surviving rows' devices.  ``D`` is instead
+    a row count of slabs on one card (every row in one launch, e.g. to
+    exercise fault reissue there).  Planning and the graph and stats
+    sinks' results are on ``device`` (CUDA unless ``"cpu"``; a mesh's
+    first device by default).  ``slab_batch`` and ``slab_bytes`` size the
+    slabs (see :class:`~repro_torch.serve.scheduler.Scheduler`).
 
     ``check`` scans each new slab signature once, on its first slab,
     for the contracts of :mod:`repro_torch.analyze` (a collective first):
     ``runtime.run_slab(check=True)``.
     """
 
-    def __init__(self, P: int = 1, *, D: int = 1, device=None,
+    def __init__(self, P: int = 1, *, mesh=None, D: Optional[int] = None, device=None,
                  rng_impl: str = DEFAULT_RNG, slab_batch: int = 8,
                  slab_bytes: Optional[int] = None, cache_capacity: int = 64,
                  check: bool = True):
         self.P = int(P)
         self.rng_impl = rng_impl
-        self.device = runtime.resolve_device(device)
+        if D is not None:
+            if mesh is not None:
+                raise ValueError("give a Service a mesh or a row count D, not both")
+            rows, self.device = int(D), runtime.resolve_device(device)
+        else:
+            rows, self.device = runtime.placement(self.P, mesh, device)
+        self.mesh = rows
         self.cache = PlanCache(cache_capacity)
         self.registry = obs.Registry("repro_serve_")
-        self.scheduler = Scheduler(D, slab_batch=slab_batch, slab_bytes=slab_bytes,
+        mesh_kw = {"mesh": rows} if isinstance(rows, LocalMesh) else {"D": rows}
+        self.scheduler = Scheduler(slab_batch=slab_batch, slab_bytes=slab_bytes, **mesh_kw,
                                    registry=self.registry, device=self.device,
                                    check=check)
         self._inflight: List[Ticket] = []
@@ -173,6 +187,8 @@ class Service:
         if not finished:
             return
         if self.device.type == "cuda":
+            if isinstance(self.mesh, LocalMesh):
+                self.mesh.sync()
             torch.cuda.synchronize(self.device)
             self.syncs += 1
         now = time.perf_counter()

@@ -7,7 +7,8 @@ request, possibly out of order when a fault reissues retired slots.
 Every sink reassembles by sequence number, so the consumed stream is
 always the plan's stream order whatever the packing, the admission
 timing or the failures: concatenating the masked rows reproduces
-``generate(spec, P)`` bit for bit.  Payloads stay on the device.
+``generate(spec, P)`` bit for bit.  Payloads stay on the device their
+slab row ran on; the graph and stats sinks gather onto their own.
 
 * :class:`GraphSink` materializes the request into the port's
   :class:`repro_torch.api.Graph` (the ``serve()`` default), its edges on
@@ -87,7 +88,7 @@ class GraphSink(Sink):
         self.graph = None
 
     def _consume(self, seq: int, payload, mask, pe) -> None:
-        self._parts.append(payload[mask])
+        self._parts.append(payload[mask].to(self.device))
 
     def _finish(self) -> None:
         from ..api import Graph
@@ -150,6 +151,7 @@ class StatsSink(Sink):
     def _consume(self, seq: int, payload, mask, pe) -> None:
         from ..core import graph as _graph
 
+        payload, mask = payload.to(self.degrees.device), mask.to(self.degrees.device)
         self._count += mask.sum()
         ids = torch.where(mask[..., None], payload, -1).reshape(-1, 2)
         _graph.degrees(ids, self.n, self.directed, out=self.degrees)

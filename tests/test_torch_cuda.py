@@ -1029,3 +1029,87 @@ def test_world_of_two_ranks_on_the_card_equals_one_process(cuda, tmp_path):
         cls, kw = WW.SPECS[name]
         want = api.generate(getattr(api, cls)(**kw), WW.P, device=cuda).edges.cpu().numpy()
         np.testing.assert_array_equal(np.concatenate([r[name] for r in ranks]), want)
+
+
+# --------------------------------------------------------------------------
+# one process over several local devices (LocalMesh)
+# --------------------------------------------------------------------------
+
+LOCAL_SPECS = [api.GNM(n=3000, m=40_000, seed=1),
+               api.SBM(n=4000, blocks=5, p_in=0.01, p_out=0.001, seed=3),
+               api.RHG(n=3000, avg_deg=8, gamma=2.8, seed=5)]
+
+
+def _local_mesh_equals_one_device(mesh, one):
+    """Every check of a local mesh against the one-device run on ``one``:
+    ``generate`` (the edges gathered on the mesh's first device), the
+    stream with and without overlap (each chunk on the device of the row
+    that streams its PE, ``runtime.stream_row``; the integer row count's
+    chunks in its order) and a fleet with the last row
+    dead at slab 1 (every ticket == ``generate``)."""
+    from repro_torch.distrib.runtime import stream_row
+    from repro_torch.serve import Service
+
+    D, P = mesh.size, 8
+    for spec in LOCAL_SPECS:
+        want = api.generate(spec, P, device=one).edges
+        got = api.generate(spec, P, mesh=mesh, check=True).edges
+        assert got.device == mesh.devices[0] and torch.equal(got.cpu(), want.cpu()), spec
+        for overlap in (0, 2):
+            same = list(api.iter_edge_chunks(spec, P, mesh=D, device=one, batch=4,
+                                             overlap=overlap))
+            chunks = list(api.iter_edge_chunks(spec, P, mesh=mesh, batch=4, overlap=overlap))
+            assert [c.pe for c in chunks] == [c.pe for c in same]
+            for c, s in zip(chunks, same):
+                assert c.buffer.device == mesh.devices[stream_row(P, D, c.pe, overlap)]
+                assert torch.equal(c.edges().cpu(), s.edges().cpu())
+    svc = Service(P, mesh=mesh, slab_batch=2)
+    tickets = [svc.submit(s) for s in LOCAL_SPECS]
+    svc.inject_fault([D - 1], at_slab=1)
+    svc.drain()
+    assert svc.scheduler.reissued > 0
+    for t, spec in zip(tickets, LOCAL_SPECS):
+        assert torch.equal(t.result().edges.cpu(),
+                           api.generate(spec, P, device=one).edges.cpu()), spec
+
+
+def test_local_mesh_of_four_rows_on_one_card_equals_one_device(cuda):
+    """Four rows on the one card, each on a stream of its own."""
+    from repro_torch.distrib.world import LocalMesh
+
+    mesh = LocalMesh([cuda] * 4)
+    assert len({mesh.stream(d) for d in range(4)}) == 4
+    _local_mesh_equals_one_device(mesh, cuda)
+    torch.cuda.synchronize()
+
+
+def test_local_mesh_on_distinct_cards_equals_one_device(cuda):
+    """``mesh_for(8)``'s distinct cards, each row on its card's current
+    stream."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a mesh of distinct cards")
+    from repro_torch.distrib import runtime
+
+    mesh = runtime.mesh_for(8)
+    assert mesh.size >= 2 and len(set(mesh.devices)) == mesh.size
+    _local_mesh_equals_one_device(mesh, cuda)
+
+
+def test_kernels_launch_on_their_tensors_card(cuda):
+    """A kernel given tensors of a card that is not the current one runs
+    there (``build.launch`` makes it current for the launch) and equals its
+    plain version; the current device is left as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a tensor off the current card")
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    key, uni, cnt = sampler_rows(37, 8193, 45, other)
+    got = S.chunk_sample(key, uni, cnt, 8193)
+    assert got.device == other and torch.cuda.current_device() == 0
+    assert torch.equal(got, sample_rows_ref(key, uni, cnt, 8193))
+    vals = torch.randint(0, 5000, (100_000,), device=other)
+    assert torch.equal(H.hist_counts(vals, 5000), hist_counts_ref(vals, 5000))
+    spec = api.RHG(n=3000, avg_deg=8, gamma=2.8, seed=5)
+    assert torch.equal(api.generate(spec, 4, device=other).edges.cpu(),
+                       api.generate(spec, 4, device="cpu").edges)
+    assert torch.cuda.current_device() == 0
