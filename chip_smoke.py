@@ -69,9 +69,10 @@ or of the JAX package.  Phases, each printed with its seconds:
       2^30) and the SBM at P=16), each report printed in full with its
       collect and gate seconds, every gate required; then the SBM
       streamed at P=16 with overlap 0, 4, 4, 0 in turns and a cold
-      RDG(2^20, 2-D, seed 16) with overlap 0 then 4 (time to the first
-      chunk, wall, the consumer's wait on the planner; the RDG's second
-      pair of turns was cut in PR 23 for the training path's time),
+      RDG(2^18, 2-D, seed 16) with overlap 0 then 4 (time to the first
+      chunk, wall, the consumer's wait on the planner; the RDG had 2^20
+      points and a second pair of turns before the training path and
+      path 3l's collects needed the time),
       every run with the same checksum and per-PE digests,
       the overlapped RDG runs triangulating on the planner thread; the
       planner wait is the sum of the ``plan/overlap/wait`` spans of a run
@@ -179,7 +180,12 @@ or of the JAX package.  Phases, each printed with its seconds:
       generators' card digests their CPU digests, and no rank's op scan
       may find a collective; each rank's wall, the world's (the slowest
       rank's) and the one process's are printed, which with four ranks
-      on one card measure correctness, not scaling;
+      on one card measure correctness, not scaling.  Then a world of two
+      spawned ranks that own two rows each (``World.from_env(cards=2)``:
+      rows 2r and 2r+1 of four, both on this card, a stream each), each
+      generating its PEs of the GNM and streaming those of the SBM, every
+      row's first ``chunk_decode`` launch held;
+      every per-PE digest equal to the one process's;
    l. one process over local cards (``repro_torch.distrib.world.LocalMesh``,
       the reference's default mesh ``mesh_for(P)``): four rows on this
       card, each on a stream of its own, P = 16: ``generate(GNM(2^24,
@@ -192,12 +198,21 @@ or of the JAX package.  Phases, each printed with its seconds:
       on the device of the row that streams it (``runtime.stream_row``:
       under overlap, its segment's row), and a ``Service`` fleet (4 GNM(2^22, 2^26),
       4 SBM(2^22, 16 blocks), the RHG) with the last row dead at slab 1,
-      every ticket equal to ``generate``; with two cards or more the same
+      every ticket equal to ``generate``; ``collect`` on the four rows
+      (each chunk counted into its row's partial counts, on the row's
+      card; the four rows' partials summed once, on the first) against
+      one device, field by field: GNP(2^22,
+      16/2^22) exact, the directed GNP(2^24) stream spec binned, SBM(2^24,
+      16 blocks) and RHG(2^20) (waves of 32,768 rows) with clustering,
+      every row's first ``hist`` and ``close_wedges`` launch held, walls
+      and the gathering device's peak; ``validate`` of the GNP and the
+      SBM on the rows against one device; with two cards or more the same
       on ``mesh_for(16)``'s distinct cards, else a line saying that the
       machine has one card.  Rows on one card measure correctness, not
       scaling;
    each checked on the device; each ``collect`` must launch ``hist`` once
-   per non-empty chunk of its first pass plus once per section histogram.  The generator
+   per non-empty chunk of its first pass, on the card of the row that
+   streamed it, plus once per section histogram.  The generator
    paths run ``pair_mask``'s tiles inside ``pair_edges``, as the
    reference's engine does; ``rhg_pe`` runs the hyp tile over all its
    segments in one ``hyp_edges`` call (paths h and i), and ``pair_mask``
@@ -577,13 +592,51 @@ def phase_geom_kernels(dev, errs: Errors) -> None:
         torch.cuda.empty_cache()
 
 
+# the capacities at which phase 1 runs the plain version's geometry test
+# on a wide-RHG row: the smallest that holds the row's points
+WIDE_CAPS = (16, 32, 64, 128)
+# the waves whose rows phase 1 tests in one plain call a width (the plain
+# version is some thousand small launches a call, whatever its rows)
+WIDE_GROUP = 32
+
+
+def pair_keep_by_width(rows, *, capacity: int, dim: int, kinds):
+    """The keep of ``pair_edges_ref(*rows, capacity=capacity, dim=dim,
+    kinds=kinds)``, with each row's geometry test run at the smallest of
+    ``WIDE_CAPS`` (or ``capacity``) that holds its points: one plain call
+    a width.  A point's draw depends on its index, not on the capacity,
+    and no slot past a row's points is kept, so this is the plain
+    version's keep exactly: a row's first c x c slots from the plain
+    version at capacity c, every other slot False.  (The plain version's
+    edges are its index part, ``kinds=()``, the same on rows without
+    CERT.)"""
+    import torch
+    from repro_torch.kernels.geom.ref import GEOM_CERT, pair_edges_ref
+
+    require(GEOM_CERT not in kinds, "pair_keep_by_width: CERT rows keep by their certificate")
+    R, N = rows[0].shape[0], capacity
+    keep = torch.zeros((R, N, N), dtype=torch.bool, device=rows[0].device)
+    most = torch.maximum(rows[3], rows[4]).clamp(0, N)
+    caps = [c for c in WIDE_CAPS if c < N] + [N]
+    width = torch.full_like(most, N)
+    for c in caps[::-1]:
+        width = torch.where(most <= c, c, width)
+    for c in caps:
+        sel = torch.nonzero(width == c).flatten()
+        if sel.numel():
+            _, k = pair_edges_ref(*(t[sel] for t in rows), capacity=c, dim=dim, kinds=kinds)
+            keep[sel, :c, :c] = k.view(-1, c, c)
+    return keep.view(R, N * N)
+
+
 def phase_wide_rhg(dev, errs: Errors) -> None:
     """Phase 1, pair_edges on wide rows at full width: RHG(n=2^20,
     avg_deg=16, gamma=2.2), whose core cell holds some 230 points (one row
     a tile, keep bytes stored as they are computed), streamed by
     ``iter_edge_chunks`` at P=16 and held, wave by wave, against the plain
-    version on the same rows.  (Its P=1 ``generate`` would write 1.8 TB of
-    slots.)"""
+    version on the same rows: its edges, and its keep tested
+    ``WIDE_GROUP`` waves at a time (``pair_keep_by_width``).  (Its P=1
+    ``generate`` would write 1.8 TB of slots.)"""
     import torch
     from repro_torch import api
     from repro_torch.distrib.runtime import plan_tensors, wave_schedule
@@ -598,22 +651,28 @@ def phase_wide_rhg(dev, errs: Errors) -> None:
     tables = plan_tensors(plan, dev)
     sched = torch.from_numpy(ws.sched[:, 0]).to(dev, torch.int64)
     valid = torch.from_numpy(ws.valid[:, 0]).to(dev)
-    kw = dict(capacity=plan.capacity, dim=plan.dim, kinds=plan.kinds_present)
+    N = plan.capacity
     waves = edges = 0
     for w, ch in enumerate(api.iter_edge_chunks(spec, 16, device=dev, batch=B)):
+        if w % WIDE_GROUP == 0:
+            s = sched[w: w + WIDE_GROUP].reshape(-1, 2)
+            keeps = pair_keep_by_width([t[s[:, 0], s[:, 1]] for t in tables], capacity=N,
+                                       dim=plan.dim, kinds=plan.kinds_present).view(-1, B, N * N)
         s = sched[w]
-        eb, kb = pair_edges_ref(*(t[s[:, 0], s[:, 1]] for t in tables), **kw)
+        eb, _ = pair_edges_ref(*(t[s[:, 0], s[:, 1]] for t in tables), capacity=N,
+                               dim=plan.dim, kinds=())
         errs.same("pair_edges", ch.buffer, eb, f"RHG gamma=2.2 wave {w}: edges")
-        errs.same("pair_edges", ch.mask, kb & valid[w][:, None], f"RHG gamma=2.2 wave {w}: keep")
+        errs.same("pair_edges", ch.mask, keeps[w % WIDE_GROUP] & valid[w][:, None],
+                  f"RHG gamma=2.2 wave {w}: keep")
         edges += int(ch.mask.sum())
         waves += 1
-        del ch, eb, kb
+        del ch, eb
     require(waves == ws.num_waves, f"RHG gamma=2.2: {waves} waves, the plan has {ws.num_waves}")
     print(f"  pair_edges wide rows: RHG(n={n}, avg_deg=16, gamma=2.2) at P=16, capacity "
           f"{plan.capacity}, {waves} waves of {B} rows streamed, each equal to the plain "
           f"version; {edges} edges, average degree {2 * edges / n:.3f} "
           f"({time.perf_counter() - t0:.1f}s)")
-    del tables, sched, valid
+    del tables, sched, valid, keeps
     torch.cuda.empty_cache()
 
 
@@ -796,36 +855,72 @@ def print_breakdown(what: str, groups: dict, wall: float) -> None:
           f"(idle share {1 - busy / (wall * 1e3):.3f})")
 
 
-def counted_collect(spec, P: int, dev, **kw):
-    """``collect(spec, P)`` with its ``hist`` launches and its non-empty
+def counted_collect(spec, P: int, dev, mesh=None, **kw):
+    """``collect(spec, P)`` (on ``dev``, or on the ``LocalMesh`` ``mesh``
+    gathered on ``dev``) with its ``hist`` launches and its non-empty
     chunks counted; requires one ``hist`` launch per non-empty chunk and
-    orientation, plus one log2 histogram per section and orientation."""
+    orientation, plus one log2 histogram per section and orientation, and
+    on a mesh every chunk's launch on the card of the row that streamed it
+    and every partial count (degrees, triangles) summed over all the rows.
+    ``CHUNK_ROW[0]`` names that row while the chunk is counted (``held_kernels``'
+    ``per`` for collect's kernels)."""
+    import importlib
     from repro_torch import api
+    from repro_torch.distrib.runtime import stream_row
     from repro_torch.kernels import build
+    from repro_torch.stats.accumulate import Partials
 
-    real = api.iter_edge_chunks
-    nonempty, passes = [0], [0]
+    cmod = importlib.import_module("repro_torch.stats.collect")
+    real, real_hist, real_sum = api.iter_edge_chunks, cmod.bincount_ids, Partials.sum
+    nonempty, passes, misplaced, summed = [0], [0], [], []
+    D = 1 if mesh is None else mesh.size
 
     def chunks(*a, **k):
         passes[0] += 1
         first = passes[0] == 1      # clustering's second pass launches no hist
         for ch in real(*a, **k):
+            CHUNK_ROW[0] = stream_row(P, D, ch.pe)
             if first:
                 nonempty[0] += ch.count > 0 if ch.count is not None else bool(ch.mask.any())
             yield ch
 
+    def hist(ids, n, out=None):
+        card = dev if mesh is None else mesh.devices[CHUNK_ROW[0]]
+        if ids.device != card or out is None or out.device != card:
+            misplaced.append((ids.device, None if out is None else out.device, card))
+        return real_hist(ids, n, out=out)
+
+    def partial_sum(self):
+        summed.append(len(self.parts))
+        return real_sum(self)
+
     before = build.LAUNCHES["hist"]
-    api.iter_edge_chunks = chunks
+    api.iter_edge_chunks, cmod.bincount_ids, Partials.sum = chunks, hist, partial_sum
     try:
-        rep = api.collect(spec, P, device=dev, **kw)
+        rep = api.collect(spec, P, device=dev, mesh=mesh, **kw)
     finally:
-        api.iter_edge_chunks = real
+        api.iter_edge_chunks, cmod.bincount_ids, Partials.sum = real, real_hist, real_sum
     launches = build.LAUNCHES["hist"] - before
     sides = 2 if rep.directed else 1
     require(launches == sides * (nonempty[0] + P),
             f"collect {spec} P={P}: {launches} hist launches, want one per non-empty chunk "
             f"({nonempty[0]}) plus {P} histograms, per orientation ({sides})")
+    require(not misplaced, f"collect {spec} P={P}: a chunk's hist launch off its row's card "
+            f"(ids, accumulator, row's card): {misplaced[:3]}")
+    require(summed and set(summed) == {D}, f"collect {spec} P={P}: partial counts of "
+            f"{summed} rows summed, want {D} each")
     return rep, launches, nonempty[0]
+
+
+# the mesh row of the chunk that ``counted_collect`` is counting
+CHUNK_ROW = [0]
+# one device's collect reports of a run, by ``report_key``: path 3d's RHG
+# clustering report is path 3l's one-device side where both paths run
+ONE_DEVICE_REPORTS: dict = {}
+
+
+def report_key(spec, P: int, kw: dict) -> tuple:
+    return spec, P, tuple(sorted(kw.items()))
 
 
 def sampler_rounds(fn):
@@ -1892,22 +1987,23 @@ def capture_wedges(store: dict):
 
     real, real_table = ClusteringSampler.count_triangles_chunk, ClusteringSampler._wedge_table
 
-    def wrapped(self, buffer, count=None, mask=None):
+    def wrapped(self, buffer, count=None, mask=None, row=0):
         form = "mask" if mask is not None else "prefix"
         valid = int(mask.sum()) if mask is not None else int(count)
         if valid > store.get(form, (0,))[0] and self.neighbors is not None:
             store[form] = (valid, buffer.reshape(-1, 2),
                            None if mask is None else mask.reshape(-1), count,
-                           self._neighbor_table().to(buffer.device), self._wedge_table())
-        return real(self, buffer, count=count, mask=mask)
+                           self._neighbor_table().to(buffer.device),
+                           self._wedge_table(buffer.device))
+        return real(self, buffer, count=count, mask=mask, row=row)
 
-    def timed_table(self):
+    def timed_table(self, card):
         if self._table is None:
             t0 = time.perf_counter()
-            table = real_table(self)
+            table = real_table(self, card)
             torch.cuda.synchronize()
             store.setdefault("builds", []).append((time.perf_counter() - t0, table))
-        return real_table(self)
+        return real_table(self, card)
 
     ClusteringSampler.count_triangles_chunk = wrapped
     ClusteringSampler._wedge_table = timed_table
@@ -2046,8 +2142,9 @@ def phase_families(dev, sizes: dict) -> dict:
     undo = capture_wedges(wedges)
     try:
         hspec = api.RHG(n=sizes["rhg_n"], avg_deg=16.0, gamma=2.8, seed=5)
-        (rep, hl, nc), groups, cwall = profiled(lambda: counted_collect(
-            hspec, 16, dev, batch=sizes["batch"], metrics=("degree", "clustering")))
+        hkw = {"metrics": ("degree", "clustering"), "batch": sizes["batch"]}
+        (rep, hl, nc), groups, cwall = profiled(lambda: counted_collect(hspec, 16, dev, **hkw))
+        ONE_DEVICE_REPORTS[report_key(hspec, 16, hkw)] = rep
         h1 = api.collect(hspec, 1, device=dev, batch=sizes["batch"],
                          metrics=("degree", "clustering"))
         cc = rep.clustering
@@ -2395,11 +2492,11 @@ def phase_stats(dev, sizes: dict) -> dict:
 
     def cold():
         if rdg.rdg_structure.cache_info().currsize:     # the last run's structure
-            rdg.rdg_structure(sizes["rdg2_n"], 16, 2, "threefry2x32", 0, 8).clear_columns()
+            rdg.rdg_structure(sizes["overlap_rdg_n"], 16, 2, "threefry2x32", 0, 8).clear_columns()
         rdg.rdg_structure.cache_clear()
         threads.append([])
 
-    rdg_spec = api.RDG(n=sizes["rdg2_n"], dim=2, seed=16)
+    rdg_spec = api.RDG(n=sizes["overlap_rdg_n"], dim=2, seed=16)
     rdg.batched_delaunay = traced_dt
     try:
         rdg_runs = overlap_turns(rdg_spec, 16, dev, sizes["batch"], cold, turns=(0, 4))
@@ -2702,7 +2799,7 @@ def phase_serve(dev, sizes: dict) -> dict:
 
 def slot_kernels():
     """The kernels a slot function calls: ``(module, name, plain version,
-    positions of the arguments the call writes into)``."""
+    positions (or keywords) of the arguments the call writes into)``."""
     from repro_torch.core import sampling
     from repro_torch.distrib import engine
     from repro_torch.kernels.geom.ref import pair_edges_ref
@@ -2715,6 +2812,27 @@ def slot_kernels():
             (engine, "pair_edges", pair_edges_ref, ())]
 
 
+def stats_kernels():
+    """The kernels ``collect`` calls on its chunks, as :func:`slot_kernels`
+    names them, each with the kernel's own name last: ``hist`` through
+    ``bincount_ids`` into a degree array, ``close_wedges`` into the triangle
+    counts."""
+    import importlib
+    from repro_torch.kernels.hist.ref import hist_counts_ref
+    from repro_torch.kernels.wedges.ref import close_wedges_table_ref
+
+    def bincount_plain(ids, length, out=None):
+        return out.add_(hist_counts_ref(ids, length, drop=True))
+
+    def wedges_plain(edges, table, mask=None, count=None, out=None):
+        return out.add_(close_wedges_table_ref(edges, table, mask=mask, count=count))
+
+    return [(importlib.import_module("repro_torch.stats.collect"), "bincount_ids",
+             bincount_plain, ("out",), "hist"),
+            (importlib.import_module("repro_torch.stats.accumulate"), "close_wedges",
+             wedges_plain, ("out",), "close_wedges")]
+
+
 class held_kernels:
     """Within: every kernel call of a slot function also runs the kernel's
     plain version on the same inputs (what the call writes into is cloned
@@ -2724,14 +2842,15 @@ class held_kernels:
     With ``first_only`` only each kernel's first call is held (with
     ``per``, a function naming the calling row, its first call on each
     row), and ``plain_s`` sums the seconds the plain versions took;
-    ``names`` restricts the holding to those kernels.  A held call is
-    opaque to the op scan, as the kernel's entry point is."""
+    ``names`` restricts the holding to those kernels, and ``kernels``
+    (:func:`stats_kernels`) holds other calls than the slot functions'.  A
+    held call is opaque to the op scan, as the kernel's entry point is."""
 
     def __init__(self, errs: Errors, what: str, first_only: bool = False, names=None,
-                 per=None):
+                 per=None, kernels=None):
         self.errs, self.what, self.seen, self.undo = errs, what, {}, []
         self.first_only, self.plain_s, self.names = first_only, 0.0, names
-        self.per, self.firsts = per, set()
+        self.per, self.firsts, self.kernels = per, set(), kernels
 
     def __enter__(self):
         import torch
@@ -2745,10 +2864,11 @@ class held_kernels:
         def pairs(r):
             return (r,) if torch.is_tensor(r) else r
 
-        for mod, name, plain, writes in slot_kernels():
+        for mod, attr, plain, writes, *kname in self.kernels or slot_kernels():
+            name = kname[0] if kname else attr
             if self.names is not None and name not in self.names:
                 continue
-            kernel = getattr(mod, name)
+            kernel = getattr(mod, attr)
 
             def both(*a, _k=kernel, _p=plain, _w=writes, _n=name, **kw):
                 first = (_n, self.per()) if self.per else _n
@@ -2756,11 +2876,12 @@ class held_kernels:
                     return _k(*a, **kw)
                 self.firsts.add(first)
                 pa = [copy(x) if i in _w else x for i, x in enumerate(a)]
+                pkw = {k: copy(x) if k in _w else x for k, x in kw.items()}
                 got = _k(*a, **kw)
                 if self.first_only:     # the plain version's seconds alone
                     torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                want = _p(*pa, **kw)
+                want = _p(*pa, **pkw)
                 if self.first_only:
                     torch.cuda.synchronize()
                 self.plain_s += time.perf_counter() - t0
@@ -2771,8 +2892,8 @@ class held_kernels:
 
             # opaque to the op scan as the kernel is: the plain version and
             # the comparison (host reads) are the check's, not the program's
-            setattr(mod, name, opscan.opaque(name)(both))
-            self.undo.append((mod, name, kernel))
+            setattr(mod, attr, opscan.opaque(name)(both))
+            self.undo.append((mod, attr, kernel))
         return self
 
     def __exit__(self, *exc):
@@ -4420,6 +4541,148 @@ def world_rank(rank: int, size: int, sizes: dict, conn) -> None:
         conn.close()
 
 
+# a world of ranks that own several rows each: its ranks and rows a rank
+CARD_RANKS, CARD_ROWS = 2, 2
+
+
+def world_cards_rank(rank: int, size: int, sizes: dict, conn) -> None:
+    """Path 3k, one rank of a world whose ranks own ``CARD_ROWS`` rows each
+    (spawned): ``World.from_env(cards=CARD_ROWS)`` (every row on this
+    machine's one card, a stream each), ``generate`` of GNM and the SBM
+    stream on the rank's PEs without the contract scan (path 3l scans
+    each row's programs on the card, and a fresh process's first checked
+    run takes about ten seconds), each row's first
+    ``chunk_decode`` launch held (its first ``chunk_sample``, whose plain
+    version at a row of 2^24 slots takes seconds and gigabytes, is held
+    on path 3l's rows and the world of four).  Sends per-PE digests,
+    walls, held launches, errors and launches."""
+    import traceback
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(size), LOCAL_RANK=str(rank),
+                          LOCAL_WORLD_SIZE=str(size))
+        import torch
+        from repro_torch import api
+        from repro_torch.distrib.world import World
+        from repro_torch.kernels import build
+
+        t_start = time.perf_counter()
+        world = World.from_env(cards=CARD_ROWS)
+        dev = world.bind()
+        torch.empty(1, device=dev)
+        lo, hi = world.pes(WORLD_P)
+        specs = world_specs(api, sizes)
+        build.reset_launches()
+        errs, walls, dig = Errors(), {}, {k: Digests() for k in ("gnm", "sbm")}
+
+        def row_of():
+            return torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream
+
+        ready = time.perf_counter()
+        with held_kernels(errs, f"rank {rank} of {CARD_ROWS} rows", first_only=True,
+                          names=("chunk_decode",), per=row_of) as held:
+            t0 = time.perf_counter()
+            g = api.generate(specs["gnm"], WORLD_P, mesh=world, check=False)
+            require(g.edges.device == world.device, f"rank {rank}: edges on {g.edges.device}")
+            dig["gnm"].split(g.edges, owned_counts(specs["gnm"].plan(WORLD_P))[lo:hi], lo)
+            del g
+            torch.cuda.synchronize()
+            walls["gnm generate"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for ch in api.iter_edge_chunks(specs["sbm"], WORLD_P, mesh=world,
+                                           batch=sizes["batch"]):
+                dig["sbm"].add(ch.pe, ch.edges())
+            torch.cuda.synchronize()
+            walls["sbm stream"] = time.perf_counter() - t0
+        conn.send({"rank": rank, "pes": (lo, hi), "rows": world.row_range(),
+                   "devices": [str(d) for d in world.devices], "startup_s": ready - t_start,
+                   "wall": time.perf_counter() - ready, "walls": walls,
+                   "plain_s": held.plain_s, "held": held.seen, "errs": errs.max,
+                   "launches": dict(build.LAUNCHES),
+                   "digests": {k: {pe: d.of(pe) for pe in range(lo, hi)}
+                               for k, d in dig.items()}})
+    except BaseException:
+        conn.send({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        conn.close()
+
+
+def spawn(target, ranks: int, sizes: dict) -> tuple:
+    """Start ``target(rank, ranks, sizes, conn)`` in ``ranks`` spawned
+    processes; ``(processes, pipes, start time)`` for :func:`gather`."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs, conns = [], []
+    t0 = time.perf_counter()
+    for r in range(ranks):
+        conn, child = ctx.Pipe()
+        p = ctx.Process(target=target, args=(r, ranks, sizes, child))
+        p.start()
+        child.close()
+        procs.append(p)
+        conns.append(conn)
+    return procs, conns, t0
+
+
+def gather(started) -> tuple:
+    """``(each rank's result, seconds from spawn to the last result)`` of
+    a :func:`spawn`, requiring every rank to succeed and exit 0; every
+    process is ended either way."""
+    procs, conns, t0 = started
+    out = []
+    try:
+        for conn in conns:
+            res = conn.recv()
+            require("error" not in res, f"world rank failed:\n{res.get('error')}")
+            out.append(res)
+        done = time.perf_counter() - t0
+        for p in procs:
+            p.join(timeout=120)
+            require(p.exitcode == 0, f"a world rank exited {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return out, done
+
+
+def world_cards(ranks: list, world_s: float, one: dict, errs: Errors) -> float:
+    """Path 3k's world of ``CARD_RANKS`` ranks of ``CARD_ROWS`` rows each
+    (``ranks``, their results), all on this card: every rank's per-PE
+    digests of GNM and the SBM stream against the one process's, every
+    row's first launches held.  Returns the world's wall (the slowest
+    rank)."""
+    from repro_torch.kernels import build
+
+    for res in ranks:
+        r, (lo, hi) = res["rank"], res["pes"]
+        require(tuple(res["rows"]) == (r * CARD_ROWS, (r + 1) * CARD_ROWS),
+                f"rank {r} holds rows {res['rows']}")
+        for name, d in res["digests"].items():
+            for pe in range(lo, hi):
+                require(d[pe] == one[name].of(pe), f"rank {r} of {CARD_ROWS} rows, {name}, PE "
+                        f"{pe}: digest {d[pe]} != the one process's {one[name].of(pe)}")
+        require(res["held"].get("chunk_decode") == CARD_ROWS, f"rank {r}: chunk_decode held "
+                f"on {res['held'].get('chunk_decode')} of its {CARD_ROWS} rows")
+        for k, v in res["errs"].items():
+            errs.max[k] = max(errs.max[k], v)
+        for k, v in res["launches"].items():
+            build.LAUNCHES[k] += v
+        print(f"  rank {r} of {CARD_RANKS}, rows {res['rows']} on {res['devices']}, PEs "
+              f"[{lo}, {hi}): wall {res['wall']:.3f}s (plain versions {res['plain_s']:.3f}s; "
+              f"start-up {res['startup_s']:.3f}s before it): " + ", ".join(
+                  f"{k} {v:.3f}s" for k, v in res["walls"].items())
+              + f"; first launches held {res['held']}", flush=True)
+    slowest = max(res["wall"] for res in ranks)
+    print(f"  world of {CARD_RANKS} ranks x {CARD_ROWS} rows ({card_line()}), P = {WORLD_P}: "
+          f"world wall (the slowest rank) {slowest:.3f}s, spawn to the last result "
+          f"{world_s:.3f}s; every per-PE digest of GNM and the SBM stream == the one "
+          f"process's; every row on the one card: correctness, not scaling", flush=True)
+    return slowest
+
+
 def world_one_process(dev, specs: dict, sizes: dict) -> tuple:
     """The same specs at P = 16 in this one process on the card: per-PE
     digests (GNM generated and cut by its plan's counts; the others
@@ -4455,48 +4718,34 @@ def phase_world(dev, sizes: dict) -> dict:
     the small generators' card digests their CPU digests, every rank's
     op scan must find no collective and every rank's first
     ``chunk_sample``, ``chunk_decode`` and ``pair_edges`` launch must
-    equal its plain version.  Four ranks sharing one card measure
-    correctness, not scaling."""
+    equal its plain version.  Then a world of ``CARD_RANKS`` ranks of
+    ``CARD_ROWS`` rows each (:func:`world_cards`) against the same one
+    process.  Ranks and rows sharing one card measure correctness, not
+    scaling."""
     import torch
-    import torch.multiprocessing as mp
     from repro_torch import api
     from repro_torch.kernels import build
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()                # the earlier paths' cache, for the ranks
-    ctx = mp.get_context("spawn")
-    procs, conns = [], []
-    t0 = time.perf_counter()
-    for r in range(WORLD_RANKS):
-        conn, child = ctx.Pipe()
-        p = ctx.Process(target=world_rank, args=(r, WORLD_RANKS, sizes, child))
-        p.start()
-        child.close()
-        procs.append(p)
-        conns.append(conn)
-    try:
+    # this process runs the small generators on the CPU while the ranks work
+    cpu, cpu_s = {}, [0.0]
+
+    def small_on_cpu():
         t1 = time.perf_counter()
-        cpu = {}
         for name, fn in small_generators(sizes["world_small_n"]).items():
             d = Digests()
             for pe in range(WORLD_P):
                 d.add(pe, fn(pe, "cpu"))
             cpu[name] = d
-        cpu_s = time.perf_counter() - t1
-        ranks = []
-        for conn in conns:
-            res = conn.recv()
-            require("error" not in res, f"world rank failed:\n{res.get('error')}")
-            ranks.append(res)
-        for p in procs:
-            p.join(timeout=120)
-            require(p.exitcode == 0, f"a world rank exited {p.exitcode}")
+        cpu_s[0] = time.perf_counter() - t1
+
+    started = spawn(world_rank, WORLD_RANKS, sizes)
+    try:
+        small_on_cpu()
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    world_s = time.perf_counter() - t0
+        ranks, world_s = gather(started)
+    cpu_s = cpu_s[0]
     specs = world_specs(api, sizes)
     t1 = time.perf_counter()
     one, one_walls = world_one_process(dev, specs, sizes)
@@ -4543,7 +4792,11 @@ def phase_world(dev, sizes: dict) -> dict:
           f"CPU ({cpu_s:.3f}s there): " + ", ".join(
               f"{k} {sum(d.of(pe)[0] for pe in range(WORLD_P))}" for k, d in cpu.items()),
           flush=True)
-    return {"errs": errs, "ranks": ranks, "one_s": one_s, "world_s": slowest}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cards_s = world_cards(*gather(spawn(world_cards_rank, CARD_RANKS, sizes)), one, errs)
+    return {"errs": errs, "ranks": ranks, "one_s": one_s, "world_s": slowest,
+            "cards_s": cards_s}
 
 
 def world_timing(dev, out: dict, errs: Errors) -> list:
@@ -4557,9 +4810,10 @@ def world_timing(dev, out: dict, errs: Errors) -> list:
 LOCAL_ROWS = 4
 LOCAL_P = 16
 # the local mesh's rows sample and decode (GNM, SBM, the fleet's chunk
-# slabs) and test pairs (RHG, the fleet's pair slabs); every row's first
-# launch of each is held against its plain version
-LOCAL_KERNELS = WORLD_HELD
+# slabs) and test pairs (RHG, the fleet's pair slabs), and its collects
+# count degrees (hist) and close wedges on each row's card; every row's
+# first launch of each is held against its plain version
+LOCAL_KERNELS = WORLD_HELD + ("hist", "close_wedges")
 
 
 def local_specs(api, sizes: dict) -> dict:
@@ -4599,6 +4853,109 @@ def stream_chunks(chunks, mesh=None, per_pe=None, overlap: int = 0) -> list:
             per_pe.add(ch.pe, e)
         out.append((ch.pe, *d.of(ch.pe)))
     return out
+
+
+def same_stats(a, b, what: str) -> None:
+    """Two ``StatsReport`` objects equal field by field: the counts, every
+    degree summary (histogram, moments, degree array) and the clustering
+    report."""
+    import numpy as np
+    import torch
+    for f in ("n", "P", "directed", "mode", "num_edges", "metrics"):
+        require(getattr(a, f) == getattr(b, f), f"{what}: {f} {getattr(a, f)} != "
+                f"{getattr(b, f)}")
+    for side in ("degree", "in_degree"):
+        x, y = getattr(a, side), getattr(b, side)
+        require((x is None) == (y is None), f"{what}: {side} present on one side only")
+        if x is None:
+            continue
+        require(torch.equal(x.log2_hist.cpu(), y.log2_hist.cpu()), f"{what}: {side} log2_hist")
+        for f in ("deg_sum", "deg_sumsq", "deg_max", "num_isolated"):
+            require(getattr(x, f) == getattr(y, f), f"{what}: {side} {f}")
+        require((x.degrees is None) == (y.degrees is None)
+                and (x.degrees is None or torch.equal(x.degrees.cpu(), y.degrees.cpu())),
+                f"{what}: {side} degrees")
+    require((a.clustering is None) == (b.clustering is None), f"{what}: clustering")
+    if a.clustering is not None:
+        for f in CLUSTER_FIELDS:
+            require(np.array_equal(getattr(a.clustering, f), getattr(b.clustering, f)),
+                    f"{what}: clustering {f}")
+
+
+def local_collects(tag: str, mesh, one, sizes: dict, errs: Errors) -> dict:
+    """``collect`` on ``mesh`` (gathered on its first device) against one
+    device ``one``, P = 16, report field by field: GNP(2^22) exact, path
+    3a's directed GNP(2^24) binned (in-degrees), SBM(2^24) and RHG(2^20)
+    with clustering; every row's first ``hist`` and ``close_wedges``
+    launch held against its plain version, each chunk counted on its row's
+    card (``counted_collect``).  Then ``validate`` of the GNP and the SBM on
+    both.  Walls and the gathering device's peak, beside one device's."""
+    import torch
+    from repro_torch import api
+
+    D, P, first = mesh.size, LOCAL_P, mesh.devices[0]
+    n_c, n_s, p_in, p_out = sizes["collect_n"], sizes["sbm_n"], *sizes["sbm_p"]
+    clustering = ("degree", "clustering")
+    cases = [("GNP exact", api.GNP(n=n_c, p=16 / n_c, seed=3), {}),
+             ("directed GNP binned", api.GNP(n=sizes["stream_n"], p=16 / sizes["stream_n"],
+                                             directed=True, seed=2), {"mode": "binned"}),
+             ("SBM clustering", api.SBM(n=n_s, blocks=sizes["sbm_blocks"], p_in=p_in,
+                                        p_out=p_out, seed=10), {"metrics": clustering}),
+             ("RHG clustering", api.RHG(n=sizes["rhg_n"], avg_deg=16, gamma=2.8, seed=5),
+              {"metrics": clustering, "batch": sizes["batch"]})]
+
+    def sync():
+        mesh.sync()
+        torch.cuda.synchronize(one)
+
+    def run(spec, m, dev, kw):
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        rep, launches, _ = counted_collect(spec, P, dev, mesh=m, **kw)
+        sync()
+        return rep, launches, time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) - base
+
+    walls, peaks, lines = {}, {}, []
+    for label, spec, kw in cases:
+        wedges = "clustering" in kw.get("metrics", ())
+        with held_kernels(errs, f"{tag} collect {label}", first_only=True,
+                          kernels=stats_kernels(), per=lambda: CHUNK_ROW[0]) as held:
+            got, hl, wall, peak = run(spec, mesh, first, kw)
+        for k in ("hist",) + (("close_wedges",) if wedges else ()):
+            require(held.seen.get(k) == D, f"{tag} collect {label}: {k} held on "
+                    f"{held.seen.get(k)} of {D} rows")
+        walls[f"collect {label}, {D} rows (first launches held, plain versions "
+              f"{held.plain_s:.3f}s)"] = wall
+        want = ONE_DEVICE_REPORTS.get(report_key(spec, P, kw))
+        if want is None:
+            want, hl1, walls[f"collect {label}, one device"], peak1 = run(spec, None, one, kw)
+            ONE_DEVICE_REPORTS[report_key(spec, P, kw)] = want
+        else:
+            hl1, peak1 = "path 3d's", None
+        same_stats(got, want, f"{tag} collect {label}")
+        peaks[label] = (peak, peak1)
+        lines.append(f"{label}: {got.num_edges} edges, {hl} / {hl1} hist launches")
+    for label, spec, _ in cases[::2]:
+        sync()
+        t0 = time.perf_counter()
+        got = api.validate(spec, P, mesh=mesh, device=first)
+        sync()
+        walls[f"validate {label.split()[0]}, {D} rows"] = time.perf_counter() - t0
+        want = api.validate(spec, P, device=one)
+        require(str(got) == str(want) and got.passed == want.passed,
+                f"{tag}: validate {spec} on {D} rows != one device:\n{got}\n{want}")
+        lines.append(f"validate {label.split()[0]} {'PASS' if got.passed else 'FAIL'} == one "
+                     f"device's")
+    print(f"  {tag} collects ({card_line()}), P = {P}, every report == one device's field by "
+          f"field: " + "; ".join(lines) + "; " + ", ".join(
+              f"{k} {v:.3f}s" for k, v in walls.items())
+          + "; the gathering device's peak, rows / one device: " + ", ".join(
+              f"{k} {a / 2 ** 30:.3f} / " + ("path 3d's report" if b is None else
+                                              f"{b / 2 ** 30:.3f} GiB")
+              for k, (a, b) in peaks.items()), flush=True)
+    return {"walls": walls, "peaks": peaks}
 
 
 def local_run(tag: str, mesh, one, specs: dict, sizes: dict, errs: Errors) -> dict:
@@ -4708,7 +5065,8 @@ def local_run(tag: str, mesh, one, specs: dict, sizes: dict, errs: Errors) -> di
           + f"; fleet of {len(fleet)}: {svc.scheduler.slabs} slabs, {svc.scheduler.reissued} "
           f"slots reissued, every ticket == generate; SBM and RHG streams == the mesh={D} "
           f"stream chunk by chunk ({sum(rhg_counts)} RHG edges)", flush=True)
-    return {"walls": walls, "peaks": peaks}
+    return {"walls": walls, "peaks": peaks,
+            "collects": local_collects(tag, mesh, one, sizes, errs)}
 
 
 def phase_local(dev, sizes: dict) -> dict:
@@ -4781,7 +5139,7 @@ FULL = {"gnm_n": 1 << 24, "gnm_m": 1 << 28, "stream_n": 1 << 24, "collect_n": 1 
         "train_steps": 20, "train_ckpt_every": 12, "train_profiled_steps": 3,
         "train_overfit_steps": 30, "train_resume_steps": 3,
         "mesh_gen_n": 1 << 30, "mesh_gen_m": 1 << 34,
-        "world_rdg_n": 1 << 16, "world_small_n": 1 << 14}
+        "world_rdg_n": 1 << 16, "world_small_n": 1 << 14, "overlap_rdg_n": 1 << 18}
 ER_KERNELS = ("chunk_sample", "chunk_decode", "hist")
 GEOM_KERNELS = ("pair_edges", "cell_points", "hist")
 RDG_KERNELS = ("triangulate", "circumspheres", "pair_edges", "cell_points")

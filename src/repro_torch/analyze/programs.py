@@ -117,20 +117,30 @@ def _row_outputs(plan, mesh, d: int, mode: str, batch: int):
 
 def _plan_cases(family: str, spec, P: int, batch: int, mesh=None,
                 device="cpu") -> Iterator[ProgramCase]:
-    """The spec's programs on ``mesh``: a row count D, a world whose rank
-    runs its own rows only, or a :class:`LocalMesh` of several rows, on
-    which each row's program is a case of its own (``.../row<d>``), run
-    on its row's device."""
+    """The spec's programs on ``mesh``: a row count D, a :class:`LocalMesh`
+    of several rows, on which each row's program is a case of its own
+    (``.../row<d>``), run on its row's device, or a world, whose rank
+    runs the slice of its own PEs on its own rows (one case a row on a
+    rank of several cards, named by its world row ``r k + d``)."""
+    from ..distrib.engine import slice_plan
     from ..distrib.world import LocalMesh, World
 
-    local = mesh if isinstance(mesh, LocalMesh) else None
-    D = mesh if isinstance(mesh, World) else 1 if mesh is None or local else int(mesh)
+    local, D, pes, row0 = None, 1, None, 0
+    if isinstance(mesh, World):
+        pes, row0 = mesh.pes(P), mesh.row_range()[0]
+        local = mesh.local() if mesh.cards > 1 else None
+    elif isinstance(mesh, LocalMesh):
+        local = mesh
+    elif mesh is not None:
+        D = int(mesh)
     plans: List[Tuple[str, object]] = []
     plan = spec.plan(P, device=device)
     plans.append((_plan_kind(plan), plan))
     point_plan = getattr(spec, "point_plan", None)
     if point_plan is not None:
         plans.append(("point", point_plan(P, device=device)))
+    if pes is not None:
+        plans = [(kind, slice_plan(p, *pes)) for kind, p in plans]
 
     for kind, p in plans:
         contract = GENERATOR_CONTRACT if kind == "chunk" else RECOMPUTE_CONTRACT
@@ -139,7 +149,7 @@ def _plan_cases(family: str, spec, P: int, batch: int, mesh=None,
             if local is not None:
                 for d in range(local.size):
                     yield ProgramCase(
-                        name=f"{name}/row{d}", family=family, plan_kind=kind, mode=mode,
+                        name=f"{name}/row{row0 + d}", family=family, plan_kind=kind, mode=mode,
                         contract=contract, signature=p.signature(), device=local.devices[d],
                         run=(lambda dev, p=p, d=d, mode=mode:
                              _row_outputs(p, local, d, mode, batch)))

@@ -41,13 +41,17 @@ of ``repro.api``, all eight families).
    which under ``overlap`` is its segment's row, not its whole-plan row:
    :func:`repro_torch.distrib.runtime.stream_row`).  A row count D dividing P
    runs every row on the one card.  A :class:`~repro_torch.distrib.world.World`
-   (``World.from_env()`` under ``torchrun``) makes the caller rank ``d``
-   of D processes, each on a card of its own: it plans, uploads and runs
-   PEs ``[d P/D, (d+1) P/D)`` only, with no collective and no process
-   group.  :func:`generate` returns the rank's edges in PE order, and
-   concatenating the ranks' edges in rank order gives the one-process
-   edges bit for bit; the streams yield the rank's chunks with global
-   ``pe`` ids.
+   (``World.from_env()`` under ``torchrun``) makes the caller rank ``r``
+   of ``size`` processes, each on k cards of its own: it plans, uploads
+   and runs PEs ``[r P/size, (r+1) P/size)`` only, over its k rows (a
+   :class:`~repro_torch.distrib.world.LocalMesh` of its cards), with no
+   collective and no process group.  :func:`generate` returns the rank's
+   edges in PE order, gathered on its first card, and concatenating the
+   ranks' edges in rank order gives the one-process edges bit for bit;
+   the streams yield the rank's chunks with global ``pe`` ids, each on
+   its row's card.  :func:`collect` and :func:`validate` run on a
+   :class:`~repro_torch.distrib.world.LocalMesh` (each row counts its
+   chunks on its card, the partial counts are summed once), not on a world.
 
 Every entry point takes ``device``: the work runs on CUDA unless the
 caller passes ``device="cpu"`` (the plain PyTorch versions of the
@@ -366,12 +370,15 @@ def _all_points(spec, P: int, dev, rng_impl: str, check: bool, rows=1) -> torch.
 
 def _placed(mesh, P: int, device) -> Tuple[torch.device, int, int, object]:
     """``(device, lo, hi, rows)`` of an entry point on ``mesh``: a
-    :class:`World` binds its rank's device and gives the rank's PEs (and
-    is its own ``rows``); otherwise every PE, planned on ``device``, over
-    the rows of :func:`runtime.placement`: a row count on ``device`` or
-    a :class:`LocalMesh` of several rows."""
+    :class:`World` binds its rank's first device and gives the rank's PEs
+    over its own rows (the row count 1 on a one-card rank, else the
+    :class:`LocalMesh` of its cards); otherwise every PE, planned on
+    ``device``, over the rows of :func:`runtime.placement`: a row count
+    on ``device`` or a :class:`LocalMesh` of several rows."""
     if isinstance(mesh, World):
-        return (mesh.bind(device), *mesh.pes(P), mesh)
+        dev = mesh.bind(device)
+        lo, hi = mesh.pes(P)
+        return dev, lo, hi, runtime.placement(hi - lo, mesh.local(), dev)[0]
     rows, dev = runtime.placement(P, mesh, device)
     return dev, 0, P, rows
 
@@ -404,8 +411,9 @@ def generate(spec, P: int = 1, *, device=None, mesh=None, rng_impl: str = DEFAUL
     on it.
 
     On a :class:`World` (``mesh=world``) the rank plans and runs only its
-    PEs on its own device: ``edges`` are its PEs' edges in PE order (the
-    ranks' in rank order concatenate to the one-process edges), and
+    PEs, each of its rows on its own card: ``edges`` are its PEs' edges in
+    PE order, gathered on its first card (the ranks' in rank order
+    concatenate to the one-process edges), and
     ``points`` its own cells' positions, cell by cell in stream order
     (what :func:`iter_points` yields on its rows), not all n."""
     dev, lo, hi, rows = _placed(mesh, P, device)
@@ -510,19 +518,21 @@ def iter_edge_chunks(spec, P: int = 1, *, device=None, mesh=None,
     order).  With ``overlap`` each segment is spread over all the rows,
     as in the reference, so a PE's row is its segment's
     (:func:`repro_torch.distrib.runtime.stream_row`).  On a :class:`World` the rank plans (in segments, with
-    ``overlap``) and streams its own PEs only: row ``d`` of the
-    reference's wave schedule, with global ``pe`` ids.  ``check`` scans
-    the wave program once, as :func:`generate` does."""
+    ``overlap``) and streams its own PEs only, over its own rows: rows
+    ``[r k, (r+1) k)`` of the reference's wave schedule, with global
+    ``pe`` ids.  ``check`` scans the wave program once, as
+    :func:`generate` does."""
     dev, lo, hi, rows = _placed(mesh, P, device)
     shift = 0
     if overlap:
         plan = plan_emitter(spec, P, segments=int(overlap), rng_impl=rng_impl, device=dev)
         chunk_counts = None
+        if isinstance(mesh, World):     # the runtime cuts the rank's segments
+            rows = mesh
     else:
         plan = _plan_rows(spec, P, lo, hi, rng_impl, dev)
         chunk_counts = plan.count if isinstance(plan, engine.ChunkPlan) else None
-        if isinstance(mesh, World):     # the rank's own rows, PEs from lo
-            rows, shift = 1, lo
+        shift = lo                      # a rank's own PEs start at lo
     for pe, slots, payload, valid in runtime.stream_slots(
             plan, batch=batch, prefetch=prefetch, device=dev, mesh=rows, check=check):
         count = (int(chunk_counts[pe, slots].sum())
@@ -550,7 +560,8 @@ def iter_points(spec, P: int = 1, *, device=None, mesh=None, rng_impl: str = DEF
     dev, _, _, rows = _placed(mesh, P, device)
     plan = point_plan(P, rng_impl=rng_impl, device=dev)
     for pe, slots, payload, valid in runtime.stream_slots(
-            plan, batch=batch, prefetch=prefetch, device=dev, mesh=rows, check=check):
+            plan, batch=batch, prefetch=prefetch, device=dev,
+            mesh=mesh if isinstance(mesh, World) else rows, check=check):
         if batch <= 1:
             yield PointChunk(buffer=payload[0], mask=valid[0], pe=int(pe))
         else:
@@ -559,7 +570,12 @@ def iter_points(spec, P: int = 1, *, device=None, mesh=None, rng_impl: str = DEF
 
 def collect(spec, P: int = 1, **kwargs):
     """Streaming degree (and clustering) statistics of ``spec``:
-    :func:`repro_torch.stats.collect` (re-export)."""
+    :func:`repro_torch.stats.collect` (re-export).  ``mesh=None`` (with no
+    ``device``, or a CUDA device without an index) streams on
+    :func:`repro_torch.distrib.runtime.mesh_for`'s cards, as the
+    reference's ``collect`` does; each row counts its chunks on its card
+    and the partial counts are summed once on ``device`` (the mesh's first
+    by default).  A :class:`World` is refused."""
     from .stats import collect as _collect
 
     return _collect(spec, P, **kwargs)
@@ -567,7 +583,8 @@ def collect(spec, P: int = 1, **kwargs):
 
 def validate(spec, P: int = 1, **kwargs):
     """Goodness of fit of ``spec``'s output against its closed-form model
-    law: :func:`repro_torch.stats.validate` (re-export)."""
+    law: :func:`repro_torch.stats.validate` (re-export), collected on
+    ``mesh`` as :func:`collect` is."""
     from .stats import validate as _validate
 
     return _validate(spec, P, **kwargs)

@@ -47,10 +47,14 @@ CPU or an indexed card, which gives one row on it.  A
 one-row mesh is the one-card path exactly.  A row count ``D`` deals a
 plan's PEs onto ``D`` rows of each wave, all on the one card, in one
 launch; it must divide P.  A
-:class:`~repro_torch.distrib.world.World` makes the caller one rank of
-a world, a process on a card of its own: :func:`run` and
-:func:`stream_waves` plan rows ``[d P/D, (d+1) P/D)`` only, upload and
-execute them alone, and yield the reference's mesh row ``d``.
+:class:`~repro_torch.distrib.world.World` makes the caller rank r of a
+world, a process on k cards of its own: :func:`run` and
+:func:`stream_waves` slice the plan to the rank's PEs ``[r P/size, (r+1)
+P/size)``, run the slice on the rank's own mesh (:meth:`World.local`: a
+:class:`~repro_torch.distrib.world.LocalMesh` of its k cards, the one
+card when k = 1) and shift the PEs and mesh rows to the world's, so
+that the rank yields rows ``[r k, (r+1) k)`` of the reference's
+``size k``-row schedule.
 
 There are no collectives: each process executes its own PEs' rows and
 waits on no other.
@@ -106,8 +110,10 @@ def cache_clear() -> None:
 
 def mesh_size(mesh) -> int:
     """The row count of a mesh: a :class:`LocalMesh`'s devices, a
-    :class:`World`'s ranks, or a row count itself (``None``: 1)."""
-    if isinstance(mesh, (LocalMesh, World)):
+    :class:`World`'s ``size k`` rows, or a row count itself (``None``: 1)."""
+    if isinstance(mesh, World):
+        return mesh.size * mesh.cards
+    if isinstance(mesh, LocalMesh):
         return mesh.size
     return 1 if mesh is None else int(mesh)
 
@@ -217,17 +223,13 @@ def run(plan, device=None, check: bool = True, mesh=None):
     (every row on the one card; the output does not depend on it), a
     :class:`LocalMesh` (each row's PEs on its device, :func:`run_rows`;
     the rows' outputs concatenated on ``device``, by default the mesh's
-    first) or a :class:`World`: its rank uploads and executes only its own
-    rows, and gets its shard ``[P/D, C, ...]`` of the payload, on the
-    world's device."""
+    first) or a :class:`World`: its rank runs only its own PEs' slice, on
+    its own rows, and gets its shard ``[P/size, C, ...]`` of the payload,
+    gathered on its first device."""
     if isinstance(mesh, World):
-        lo, hi = mesh.pes(plan.num_pes)
-        device = mesh.bind(device)
-        from .engine import slice_plan
-        plan = slice_plan(plan, lo, hi)
-        rows, dev = 1, resolve_device(device)
-    else:
-        rows, dev = placement(plan.num_pes, mesh, device)
+        part, _ = _rank_part(plan, mesh)
+        return run(part, mesh.bind(device), check, mesh.local())
+    rows, dev = placement(plan.num_pes, mesh, device)
     if isinstance(rows, LocalMesh):
         parts = run_rows(plan, rows, check)
         return tuple(torch.cat([part[i].to(dev) for part in parts]) for i in (0, 1))
@@ -299,9 +301,10 @@ class Wave:
     On a :class:`LocalMesh` of several rows ``payload`` and ``valid`` are
     tuples of D ``[B, ...]`` tensors, each on its row's device (``None``
     for a row with no batch in the wave).  A rank of a :class:`World`
-    holds its own row only: ``payload`` and ``valid`` are ``[1, B, ...]``,
-    ``row0`` is the rank, and ``rows`` is ``None`` at every other rank's
-    row."""
+    holds its own k rows only: ``payload`` and ``valid`` are ``[1, B,
+    ...]`` on a one-card rank and a tuple of k rows' on a rank of k cards,
+    ``row0`` is the rank's first row ``r k``, and ``rows`` is ``None`` at
+    every other rank's rows."""
     payload: object         # [D, B, ...] ([1, B, ...] on a world; a tuple of rows)
     valid: object           # [D, B, L]
     rows: tuple             # [D] -> (pe, slots) | None
@@ -432,6 +435,27 @@ def _plan_feed(emitter: PlanEmitter, device: torch.device, D: int = 1):
     return q, stop
 
 
+def _shifted(wave: Wave, lo: int, row0: int = 0, D: int = 0) -> Wave:
+    """``wave`` with its PEs moved up by ``lo`` and its rows placed at
+    ``[row0, row0 + len(wave.rows))`` of ``D`` mesh rows (its own row
+    count when ``D`` is 0)."""
+    rows = [None] * (D or len(wave.rows))
+    for j, r in enumerate(wave.rows):
+        rows[row0 + j] = None if r is None else (r[0] + lo, r[1])
+    return Wave(wave.payload, wave.valid, tuple(rows), row0 + wave.row0)
+
+
+def _rank_part(plan, world: World):
+    """``(part, lo)``: the rank's slice of ``plan`` (a table plan, or a
+    :class:`PlanEmitter` restricted to the rank's PE range), re-indexed
+    from its first PE ``lo``."""
+    lo, hi = world.pes(plan.num_pes)
+    if isinstance(plan, PlanEmitter):
+        return PlanEmitter(hi - lo, lambda a, b: plan.build(lo + a, lo + b), plan.segments), lo
+    from .engine import slice_plan
+    return slice_plan(plan, lo, hi), lo
+
+
 def _stream_emitter_waves(emitter: PlanEmitter, mesh, batch: int, prefetch: int,
                           device: torch.device, check: bool) -> Iterator[Wave]:
     """:func:`stream_waves` over a lazily segmented plan: execute segment
@@ -452,35 +476,9 @@ def _stream_emitter_waves(emitter: PlanEmitter, mesh, batch: int, prefetch: int,
             lo, seg = item
             for wave in stream_waves(seg, batch=batch, prefetch=prefetch, device=device,
                                      mesh=mesh, check=check):
-                if lo:
-                    wave = Wave(wave.payload, wave.valid,
-                                tuple(None if r is None else (r[0] + lo, r[1])
-                                      for r in wave.rows))
-                yield wave
+                yield _shifted(wave, lo)
     finally:
         stop.set()
-
-
-def _rank_waves(plan, world: World, batch: int, prefetch: int, device,
-                check: bool) -> Iterator[Wave]:
-    """:func:`stream_waves` on a rank of ``world``: row ``d = rank`` of the
-    reference's ``wave_schedule(plan, size, batch)``, the same ``(pe,
-    slots)`` batches in the same order, executed alone (the rank's rows
-    are all it plans, uploads and holds; it waits on no other rank).  A
-    batch is clamped to the rank's longest per-PE run, which deals the
-    same batches as the reference's clamp to the whole plan's."""
-    lo, hi = world.pes(plan.num_pes)
-    dev = world.bind(device)
-    if isinstance(plan, PlanEmitter):
-        part = PlanEmitter(hi - lo, lambda a, b: plan.build(lo + a, lo + b), plan.segments)
-    else:
-        from .engine import slice_plan
-        part = slice_plan(plan, lo, hi)
-    d, D = world.rank, world.size
-    for wave in stream_waves(part, batch=batch, prefetch=prefetch, device=dev, check=check):
-        rows = [None] * D
-        rows[d] = None if wave.rows[0] is None else (wave.rows[0][0] + lo, wave.rows[0][1])
-        yield Wave(wave.payload, wave.valid, tuple(rows), d)
 
 
 def _local_waves(plan, mesh: LocalMesh, batch: int, prefetch: int, check: bool,
@@ -555,10 +553,17 @@ def stream_waves(plan, batch: int = 1, prefetch: int = 2, device=None, *, mesh=N
     every row on the one card, a :class:`LocalMesh`, each row of each wave
     on its own device (:func:`_local_waves`; a planner thread plans on
     ``device``, by default the mesh's first), or a :class:`World`, whose
-    rank streams its own row ``d`` of the reference's schedule
-    (:func:`_rank_waves`)."""
+    rank streams its own PEs' slice on its own rows (:meth:`World.local`):
+    rows ``[r k, (r+1) k)`` of the reference's ``size k``-row schedule,
+    with global ``pe`` ids and rows.  A batch is clamped to the rank's
+    longest per-PE run, which deals the same batches as the reference's
+    clamp to the whole plan's."""
     if isinstance(mesh, World):
-        yield from _rank_waves(plan, mesh, batch, prefetch, device, check)
+        part, lo = _rank_part(plan, mesh)
+        row0, D = mesh.row_range()[0], mesh_size(mesh)
+        for wave in stream_waves(part, batch=batch, prefetch=prefetch, device=mesh.bind(device),
+                                 mesh=mesh.local(), check=check):
+            yield _shifted(wave, lo, row0, D)
         return
     rows, dev = placement(plan.num_pes, mesh, device)
     if isinstance(plan, PlanEmitter):
@@ -712,8 +717,8 @@ def stream_slots(plan, batch: int = 1, prefetch: int = 2, device=None, *, mesh=N
                  check: bool = False
                  ) -> Iterator[Tuple[int, np.ndarray, torch.Tensor, torch.Tensor]]:
     """Flattened :func:`stream_waves`: ``(pe, slots, payload, valid)``
-    per batch (pe-major for ``D = 1`` and on a :class:`World`'s rank;
-    on a :class:`LocalMesh` each row's on its device, rows in order
+    per batch (pe-major for ``D = 1`` and on a one-card :class:`World`
+    rank; on a :class:`LocalMesh` each row's on its device, rows in order
     within a wave); takes a :class:`PlanEmitter` too (``pe`` is then the
     global PE id)."""
     for wave in stream_waves(plan, batch=batch, prefetch=prefetch, device=device, mesh=mesh,

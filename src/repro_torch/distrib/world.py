@@ -4,10 +4,12 @@ port of the reference's multi-device and multi-process ``mesh=``).
 The reference spreads P virtual PEs over a mesh of D devices, possibly
 in several processes (``jax.make_mesh``): mesh row ``d`` holds PEs
 ``[d P/D, (d+1) P/D)``, each process builds and executes only the rows
-it can address, and ``Wave.rows`` is ``None`` for the others.  The port
-runs one rank a process and one card a rank: a :class:`World` names the
-rank, the world's size and the rank's device, and every entry point that
-takes ``mesh=world`` plans, uploads and executes only the rank's PEs.
+it can address (every device it sees, in process-major order), and
+``Wave.rows`` is ``None`` for the others.  The port runs one rank a
+process: a :class:`World` names the rank, the world's size and the
+rank's k local cards, and every entry point that takes ``mesh=world``
+plans, uploads and executes only the rank's PEs, over its k rows.  The
+world has ``size k`` mesh rows; rank r holds rows ``[r k, (r+1) k)``.
 
 Generation needs no process group: every PE's output is a pure function
 of ``(spec, P, pe)``, so a rank never waits on another and nothing is
@@ -15,9 +17,11 @@ exchanged.  Gathering the ranks' results is the caller's own business
 (concatenating the ranks' edges in rank order gives the one-process
 edges, bit for bit).
 
-    >>> w = World(rank=1, size=2, device="cpu")
+    >>> w = World(rank=1, size=2, devices="cpu")
     >>> w.pes(8)
     (4, 8)
+    >>> World(1, 2, ["cpu", "cpu"]).row_range()
+    (2, 4)
 
 A :class:`LocalMesh` is the reference's default single-process mesh
 (``runtime.mesh_for(P)``, a 1-D mesh over the local devices): one
@@ -26,7 +30,8 @@ P/D)`` as on a world, and every row's work is uploaded to, launched on
 and left on its own device.  Rows on distinct cards run on each card's
 current stream; rows that share a device (the CPU tests, or several rows
 on one card) each get a CUDA stream of their own, so the same per-row
-code runs whether the rows share one card or have eight.
+code runs whether the rows share one card or have eight.  A rank of a
+world runs its k rows as a :class:`LocalMesh` (:meth:`World.local`).
 
     >>> m = LocalMesh(["cpu", "cpu"])
     >>> m.pes(8, 1)
@@ -34,6 +39,7 @@ code runs whether the rows share one card or have eight.
 """
 from __future__ import annotations
 
+import functools
 import os
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -53,43 +59,80 @@ def check_rows(P: int, D: int) -> None:
 
 @dataclass(frozen=True)
 class World:
-    """Rank ``rank`` of a world of ``size`` ranks, running on ``device``
-    (an indexed CUDA device, or the CPU).  Rank ``d`` is the reference's
-    mesh row ``d``: of P PEs it generates ``[d P/size, (d+1) P/size)``."""
+    """Rank ``rank`` of a world of ``size`` ranks, running on ``devices``:
+    its k >= 1 local devices (indexed CUDA devices, or the CPU; one device
+    may be given alone).  The world has ``size k`` mesh rows, the
+    reference's process-major device order: rank r holds rows ``[r k,
+    (r+1) k)`` and, of P PEs, ``[r P/size, (r+1) P/size)``; ``device``, its
+    first device, is where its gathered results land."""
     rank: int
     size: int
-    device: torch.device
+    devices: Tuple[torch.device, ...]
 
     def __post_init__(self):
         if not 0 <= self.rank < self.size:
             raise ValueError(f"rank {self.rank} outside a world of {self.size}")
-        object.__setattr__(self, "device", resolve_device(self.device))
+        devs = self.devices
+        if isinstance(devs, (str, torch.device)):
+            devs = (devs,)
+        devs = tuple(_row_device(d, i) for i, d in enumerate(devs))
+        if not devs or len({d.type for d in devs}) > 1:
+            raise ValueError(f"a rank's devices are one or more, all CUDA or all CPU, "
+                             f"got {devs}")
+        object.__setattr__(self, "devices", devs)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def cards(self) -> int:
+        """k, the rank's mesh rows."""
+        return len(self.devices)
 
     @classmethod
-    def from_env(cls, device=None) -> "World":
-        """The world ``torchrun`` describes: ``RANK`` and ``WORLD_SIZE``
-        (0 and 1 when unset), on ``cuda:{LOCAL_RANK % device_count}``
-        unless ``device`` asks for the CPU."""
+    def from_env(cls, device=None, cards: Optional[int] = None) -> "World":
+        """The world ``torchrun`` describes: ``RANK`` and ``WORLD_SIZE`` (0
+        and 1 when unset).  On CUDA (unless ``device`` names the CPU or one
+        card) the rank with ``LOCAL_RANK`` l takes the cards ``[l k, (l+1)
+        k)``, k = ``cards`` or ``device_count // LOCAL_WORLD_SIZE`` (at
+        least 1; ``LOCAL_WORLD_SIZE`` defaults to ``WORLD_SIZE``), modulo
+        the card count, so ranks that outnumber the cards share them, one
+        card a rank.  The CPU, or an indexed card, is one row (``cards``
+        rows, if given)."""
         rank = int(os.environ.get("RANK", "0"))
         size = int(os.environ.get("WORLD_SIZE", "1"))
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and dev.index is None:
             resolve_device(dev)         # raises without a card
+            count = torch.cuda.device_count()
             local = int(os.environ.get("LOCAL_RANK", str(rank)))
-            dev = torch.device("cuda", local % torch.cuda.device_count())
-        return cls(rank, size, dev)
+            k = cards or max(1, count // int(os.environ.get("LOCAL_WORLD_SIZE", str(size))))
+            return cls(rank, size, tuple(torch.device("cuda", (local * k + j) % count)
+                                         for j in range(k)))
+        return cls(rank, size, (dev,) * (cards or 1))
 
     def pes(self, P: int) -> Tuple[int, int]:
         """The rank's PE range ``[lo, hi)`` of a ``P``-PE plan; raises
-        unless the world's size divides P."""
-        check_rows(P, self.size)
+        unless the world's ``size k`` rows divide P."""
+        check_rows(P, self.size * self.cards)
         ppd = P // self.size
         return self.rank * ppd, (self.rank + 1) * ppd
 
+    def row_range(self) -> Tuple[int, int]:
+        """The rank's mesh rows ``[r k, (r+1) k)`` of the world's ``size k``."""
+        return self.rank * self.cards, (self.rank + 1) * self.cards
+
+    def local(self) -> "LocalMesh":
+        """The rank's rows as a :class:`LocalMesh` over its devices (a
+        one-row mesh on a one-card rank, which runs the one-card path),
+        made once, so that its rows' side streams are too."""
+        return _local_mesh(self.devices)
+
     def bind(self, device=None) -> torch.device:
-        """The rank's device, made current (so that every launch, which
-        goes to the current device's stream, lands there); ``device``, if
-        given, must be the world's."""
+        """The rank's first device, made current (so that every launch,
+        which goes to the current device's stream, lands there);
+        ``device``, if given, must be that device."""
         if device is not None:
             d = torch.device(device)
             if d.type != self.device.type or d.index not in (None, self.device.index):
@@ -203,6 +246,11 @@ class LocalMesh:
         for dev in dict.fromkeys(self.devices):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _local_mesh(devices: Tuple[torch.device, ...]) -> LocalMesh:
+    return LocalMesh(devices)
 
 
 def _row_device(device, d: int) -> torch.device:

@@ -6,8 +6,9 @@ One process over the host's cards (the reference's default mesh,
 ``runtime.mesh_for(P)``: the most cards that divide P):
     python -m repro_torch.launch.generate GNM n=16777216 m=268435456 seed=1 --pes 16
 
-On the cards of one host, one rank a card:
-    torchrun --nproc-per-node 4 -m repro_torch.launch.generate GNM n=16777216 m=268435456 \\
+On the cards of one host, ranks of several cards each (8 cards, 2 ranks:
+cards 0-3 and 4-7, ``device_count // LOCAL_WORLD_SIZE`` a rank):
+    torchrun --nproc-per-node 2 -m repro_torch.launch.generate GNM n=16777216 m=268435456 \\
         seed=1 --pes 16
 
 On the CPU (the kernels' plain versions):
@@ -19,9 +20,9 @@ spreads the P PEs over ``mesh_for(P)``'s cards
 (:class:`repro_torch.distrib.world.LocalMesh`; ``--device`` names one
 device instead), gathers the edges on the first and prints one line:
 the mesh, the edge count, the wall and an order-sensitive digest.  Under
-``torchrun`` rank ``d`` of K generates PEs ``[d P/K, (d+1) P/K)``
-(:class:`repro_torch.distrib.world.World`) and prints that line for its
-PEs.  With ``--out DIR`` each process writes its edges to
+``torchrun`` rank ``r`` of K generates PEs ``[r P/K, (r+1) P/K)`` over its
+own cards (:class:`repro_torch.distrib.world.World`), gathers them on its
+first card and prints that line for its PEs.  With ``--out DIR`` each process writes its edges to
 ``DIR/edges.<rank>.npy`` (rank 0 without ``torchrun``); the files
 concatenated in rank order are ``generate(spec, P).edges`` of one
 process.
@@ -68,13 +69,13 @@ def main(argv=None) -> int:
     ap.add_argument("--pes", type=int, default=16, help="P, a multiple of the world's size")
     ap.add_argument("--device", default=None,
                     help="cpu, or one card; by default every local card that divides "
-                         "--pes (a card a rank under torchrun)")
+                         "--pes (under torchrun, the rank's share of the host's cards)")
     ap.add_argument("--out", default=None, help="write each process's edges here")
     args = ap.parse_args(argv)
     spec = parse_spec(args.family, args.params)
     if "WORLD_SIZE" in os.environ:
         mesh = World.from_env(device=args.device)
-        dev, devices, rank = mesh.device, (mesh.device,), mesh.rank
+        dev, devices, rank = mesh.device, mesh.devices, mesh.rank
         (lo, hi), where = mesh.pes(args.pes), f"rank {mesh.rank} of {mesh.size}"
     else:
         mesh, dev = runtime.placement(args.pes, None, args.device)

@@ -168,7 +168,8 @@ class Service:
         elif sink == "chunks":
             sink = ChunkSink()
         elif sink == "stats":
-            sink = StatsSink(spec.num_vertices, spec.directed, self.device)
+            sink = StatsSink(spec.num_vertices, spec.directed, self.device,
+                             self.mesh.devices if isinstance(self.mesh, LocalMesh) else ())
         elif not isinstance(sink, Sink):
             raise TypeError(f"unknown sink {sink!r}")
         ticket = Ticket(self, sink, t0)

@@ -17,8 +17,8 @@ slab row ran on; the graph and stats sinks gather onto their own.
   for streaming (``Ticket.chunks()`` drives the scheduler between
   yields);
 * :class:`StatsSink` folds each run into an edge count and a degree
-  array on the device (through ``hist``'s ``bincount_ids``) and drops
-  the buffers.
+  array on the card it ran on (through ``hist``'s ``bincount_ids``),
+  drops the buffers, and sums the cards' counts once, at the end.
 """
 from __future__ import annotations
 
@@ -138,29 +138,44 @@ class StatsSink(Sink):
     drops, so one :func:`repro_torch.core.graph.degrees` fold a run adds
     exactly the valid edges' endpoints: ``degrees`` equals the
     materialized graph's (degrees add over any partition of the edges).
+    A run is counted on the card it lies on, one of ``device`` and
+    ``cards`` (a run on another raises), into that card's edge count and
+    degree array (:class:`repro_torch.stats.accumulate.Partials`); no
+    payload crosses cards, and :meth:`result` sums the cards' counts
+    once, onto ``device``.
     """
 
-    def __init__(self, n: int, directed: bool, device):
+    def __init__(self, n: int, directed: bool, device, cards=()):
+        from ..stats.accumulate import Partials
+
         super().__init__()
         self.n = int(n)
         self.directed = bool(directed)
-        dev = torch.device(device)
-        self._count = torch.zeros((), dtype=torch.int64, device=dev)
-        self.degrees = torch.zeros(self.n, dtype=torch.int64, device=dev)
+        self.device = torch.device(device)
+        places = {c: c for c in dict.fromkeys((self.device, *map(torch.device, cards)))}
+        self._count = Partials(torch.zeros((), dtype=torch.int64, device=self.device), places)
+        self._degrees = Partials(torch.zeros(self.n, dtype=torch.int64, device=self.device),
+                                 places)
+        self._result = None
 
     def _consume(self, seq: int, payload, mask, pe) -> None:
         from ..core import graph as _graph
 
-        payload, mask = payload.to(self.degrees.device), mask.to(self.degrees.device)
-        self._count += mask.sum()
+        card = payload.device
+        self._count.on(card, card).add_(mask.sum())
         ids = torch.where(mask[..., None], payload, -1).reshape(-1, 2)
-        _graph.degrees(ids, self.n, self.directed, out=self.degrees)
+        _graph.degrees(ids, self.n, self.directed, out=self._degrees.on(card, card))
 
     @property
     def num_edges(self) -> int:
-        return int(self._count)
+        if self._result is not None:
+            return self._result["num_edges"]
+        return sum(int(count) for count in self._count.parts.values())
 
     def result(self):
         if not self.done:
             raise RuntimeError("request not complete; drain the service")
-        return {"num_edges": self.num_edges, "degrees": self.degrees}
+        if self._result is None:
+            self._result = {"num_edges": int(self._count.sum()),
+                            "degrees": self._degrees.sum()}
+        return self._result

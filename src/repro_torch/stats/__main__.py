@@ -1,9 +1,11 @@
 """CLI smoke validation: ``python -m repro_torch.stats [--n N] [--pes P]
-[--device cuda|cpu]``.
+[--device cuda:I|cpu]``.
 
 Validates one ER and one RHG instance against their closed-form laws on
-the device and exits non-zero on any failed gate: the guard that
-generation and measurement stay statistically sound.
+the local cards (every card that divides P, as ``launch/generate.py``
+does; ``--device`` names one device instead) and exits non-zero on any
+failed gate: the guard that generation and measurement stay
+statistically sound.
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=1 << 12, help="vertices per instance")
     ap.add_argument("--pes", type=int, default=4, help="virtual PEs")
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--device", default="cuda",
-                    help="device to run on (cpu: the kernels' plain versions)")
+    ap.add_argument("--device", default=None,
+                    help="cpu (the kernels' plain versions), or one card; by default "
+                         "every local card that divides --pes (runtime.mesh_for)")
     args = ap.parse_args(argv)
 
     from repro_torch.api import GNP, RHG

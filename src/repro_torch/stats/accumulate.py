@@ -20,11 +20,19 @@ sampled vertex's degree and the edges among its neighbours, in two
 streaming passes; its second pass runs ``close_wedges`` on the stream's
 device buffers, against the union of the sample rows (its
 ``WedgeTable``, built once).
+
+On a mesh of several rows (``runtime.mesh_for(P)``, a ``LocalMesh``)
+every chunk arrives on its row's card and is counted there:
+:class:`Partials` keeps one degree array and one triangle-count vector a
+row, on the row's card, and sums them once, onto the gathering card, at
+the end; the sampler keeps its sample and wedge table once a card.
+Integer sums are exact and do not depend on the order in which the rows'
+chunks arrive, so the report is the one-device report.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +89,53 @@ def section_views(bounds: List[int], device) -> Tuple[torch.Tensor, List[Section
     deg = torch.zeros(bounds[-1], dtype=torch.int64, device=device)
     return deg, [SectionDegrees(lo, hi, device, deg[lo:hi])
                  for lo, hi in zip(bounds, bounds[1:])]
+
+
+class Partials:
+    """Integer accumulators summed once: ``total`` on the gathering device,
+    and one partial a key of ``places`` (a mesh row, or a card), on the
+    device that key's chunks arrive on.  The first key on ``total``'s
+    device counts into ``total`` itself; every other key has a zeroed
+    partial of its own, so rows that share a card each keep theirs.
+    :meth:`on` raises for a key ``places`` does not have or a device other
+    than the key's; :meth:`sum` adds the partials onto ``total``, once.
+    Integer sums are exact, so the sum does not depend on the order in
+    which the keys' chunks were counted.  ``places=None`` is one key, 0,
+    on ``total``'s device."""
+
+    def __init__(self, total: torch.Tensor, places: Optional[dict] = None):
+        self.total = total
+        self.parts: Dict[object, torch.Tensor] = {}
+        for key, dev in ({0: total.device} if places is None else places).items():
+            own = torch.device(dev) == total.device and not any(
+                p is total for p in self.parts.values())
+            self.parts[key] = total if own else torch.zeros_like(total, device=dev)
+
+    def on(self, key, device: torch.device) -> torch.Tensor:
+        """The accumulator of ``key``, which must lie on ``device``."""
+        part = self.parts.get(key)
+        if part is None or part.device != device:
+            raise ValueError(f"a chunk of {key!r} on {device}: no accumulator there (the "
+                             f"places are {({k: str(p.device) for k, p in self.parts.items()})})")
+        return part
+
+    def sum(self) -> torch.Tensor:
+        """``total`` with every other partial added in (once; later calls
+        return it as it is, and :meth:`on` then raises)."""
+        for part in self.parts.values():
+            if part is not self.total:
+                self.total += part.to(self.total.device)
+        self.parts = {}
+        return self.total
+
+
+def _on_card(per_card: dict, card: torch.device, what: str):
+    """The entry of ``card``; raises for a card the mesh does not have."""
+    acc = per_card.get(card)
+    if acc is None:
+        raise ValueError(f"a chunk on {card}: no {what} there (the mesh's cards "
+                         f"are {[str(c) for c in per_card]})")
+    return acc
 
 
 @dataclass
@@ -147,22 +202,34 @@ class ClusteringSampler:
     neighbours are dropped (only the count keeps growing); it is left out
     of the estimate (``valid`` False) with its exact degree reported.
     Whether it overflows depends only on its final count, so it is P- and
-    order-invariant too.  The triangle counts live on ``device`` and are
-    read once, by :meth:`report`."""
+    order-invariant too.
 
-    def __init__(self, n: int, seed: int, samples: int, neighbor_cap: int, device):
+    ``places`` maps each mesh row to its card (``None``: one row, 0, on
+    ``device``).  Each card holds the sample and, from pass 2 on, the
+    wedge table (built once on the host, copied to the card at its first
+    use there); each row counts its chunks' triangles on its card
+    (:class:`Partials`), and :meth:`report` sums the rows' counts once,
+    onto ``device``."""
+
+    def __init__(self, n: int, seed: int, samples: int, neighbor_cap: int, device,
+                 places: Optional[dict] = None):
         rng = host_rng(seed, _TAG_SAMPLE)
         self.sample = np.sort(rng.choice(n, size=min(max(samples, 0), n), replace=False))
         self.neighbor_cap = neighbor_cap
         self.device = torch.device(device)
-        self._sample_t = torch.from_numpy(self.sample.astype(np.int64)).to(self.device)
         S = len(self.sample)
+        self._triangles = Partials(torch.zeros(max(1, S), dtype=torch.int64,
+                                               device=self.device), places)
+        sample = torch.from_numpy(self.sample.astype(np.int64))
+        # card -> [the sample, the wedge table (pass 2)]
+        self._cards: Dict[torch.device, list] = {
+            part.device: [sample.to(part.device), None]
+            for part in self._triangles.parts.values()}
         self._parts: List[List[np.ndarray]] = [[] for _ in range(S)]
         self._count = np.zeros(S, np.int64)
         self._overflow = np.zeros(S, bool)
         self.neighbors: Optional[List[np.ndarray]] = None
         self._table: Optional[WedgeTable] = None
-        self._triangles = torch.zeros(max(1, S), dtype=torch.int64, device=self.device)
 
     def observe(self, e: torch.Tensor) -> None:
         """Pass 1: record the neighbours of sampled endpoints of one
@@ -172,7 +239,8 @@ class ClusteringSampler:
         so occurrence counts are degrees."""
         if not len(self.sample) or not e.numel():
             return
-        pos, hit = zip(*(_in_sorted(self._sample_t, e[:, col]) for col in (0, 1)))
+        sample = _on_card(self._cards, e.device, "clustering sample")[0]
+        pos, hit = zip(*(_in_sorted(sample, e[:, col]) for col in (0, 1)))
         p = torch.cat([pos[0][hit[0]], pos[1][hit[1]]]).cpu().numpy()
         o = torch.cat([e[hit[0], 1], e[hit[1], 0]]).cpu().numpy()
         if not len(p):
@@ -209,34 +277,41 @@ class ClusteringSampler:
             tbl[i, : len(nb)] = nb
         return torch.from_numpy(tbl)
 
-    def _wedge_table(self) -> WedgeTable:
+    def _wedge_table(self, card: torch.device) -> WedgeTable:
         """The union of the neighbour rows as ``close_wedges`` probes it,
-        on the device; built at the first call of pass 2."""
-        if self._table is None:
-            self._table = wedge_table(self._neighbor_table(), device=self.device)
-        return self._table
+        on ``card``: built once on the host, at the first call of pass 2,
+        and copied to each card at its first use there."""
+        entry = _on_card(self._cards, card, "clustering sample")
+        if entry[1] is None:
+            if self._table is None:
+                self._table = wedge_table(self._neighbor_table(), device="cpu")
+            entry[1] = WedgeTable(self._table.samples, *(t.to(card) for t in self._table[1:]))
+        return entry[1]
 
     def count_triangles_chunk(self, buffer: torch.Tensor, count: Optional[int] = None,
-                              mask: Optional[torch.Tensor] = None) -> None:
-        """Pass 2: close sampled wedges against one stream buffer on the
-        device (``close_wedges``).  ``mask`` is a scattered validity mask
-        (pair buffers, batched ``[b, cap^2, 2]`` ones flatten), ``count``
-        a validity prefix (a chunk buffer); ``mask`` wins when both are
-        given, and with neither every slot is valid."""
+                              mask: Optional[torch.Tensor] = None, row=0) -> None:
+        """Pass 2: close sampled wedges against one stream buffer of mesh
+        row ``row``, on its card (``close_wedges``).  ``mask`` is a
+        scattered validity mask (pair buffers, batched ``[b, cap^2, 2]``
+        ones flatten), ``count`` a validity prefix (a chunk buffer);
+        ``mask`` wins when both are given, and with neither every slot is
+        valid."""
         if self.neighbors is None:
             raise RuntimeError("finalize_neighbors() must run before pass 2")
         if not len(self.sample) or not max((len(nb) for nb in self.neighbors), default=0):
             return
         buf = buffer.reshape(-1, 2)
-        close_wedges(buf, self._wedge_table(),
-                     mask=None if mask is None else mask.reshape(-1),
-                     count=count, out=self._triangles)
+        out = self._triangles.on(row, buf.device)
+        close_wedges(buf, self._wedge_table(buf.device),
+                     mask=None if mask is None else mask.reshape(-1), count=count, out=out)
 
     def report(self) -> "ClusteringReport":
+        """The report; the rows' triangle counts are summed here, once."""
         deg = self._count.copy()
         valid = (deg >= 2) & ~self._overflow
+        tri = self._triangles.sum()
         return ClusteringReport(sample=self.sample, degree=deg,
-                                triangles=self._triangles.cpu().numpy()[: len(self.sample)],
+                                triangles=tri.cpu().numpy()[: len(self.sample)],
                                 wedges=deg * (deg - 1) // 2, valid=valid)
 
 

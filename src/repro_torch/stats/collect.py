@@ -8,6 +8,15 @@ device: the sections are views of one degree array, so a chunk is one
 hist launch whatever P is.  Peak memory is the accumulators plus one
 chunk buffer, never the edge list; the report is identical for every P
 and equal to the reference's.
+
+Like the reference's, it streams on the default mesh
+(``runtime.mesh_for(P)``: every local card that divides P) unless
+``device`` names the CPU or one card.  On a mesh of several rows each
+chunk is counted on the card of the row that streamed it
+(``runtime.stream_row``), into that row's partial accumulators
+(:class:`.accumulate.Partials`: its degree arrays and triangle counts);
+no chunk buffer crosses cards, and the partial counts are summed once,
+on the gathering card, at the end.
 """
 from __future__ import annotations
 
@@ -17,8 +26,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..kernels.hist.ops import bincount_ids
-from .accumulate import (ClusteringReport, ClusteringSampler, DegreeSummary, VertexOwnership,
-                         merge_sections, section_views)
+from .accumulate import (ClusteringReport, ClusteringSampler, DegreeSummary, Partials,
+                         VertexOwnership, merge_sections, section_views)
 
 # above this the exact per-vertex degree array is no longer returned;
 # log2 histograms + moments remain exact at any scale
@@ -63,6 +72,7 @@ def collect(
     metrics: Sequence[str] = DEFAULT_METRICS,
     mode: Optional[str] = None,
     device=None,
+    mesh=None,
     rng_impl: str = "threefry2x32",
     batch: int = 256,
     cluster_samples: int = 64,
@@ -79,14 +89,29 @@ def collect(
     chunks stream one at a time, so one chunk's ``[capacity, 2]``
     buffer is the peak beyond the accumulators.
     cluster_samples, neighbor_cap: the clustering sample's size and the
-    neighbour count past which a sampled vertex leaves the estimate."""
+    neighbour count past which a sampled vertex leaves the estimate.
+    device, mesh: as in :func:`repro_torch.api.generate`: ``mesh=None`` is
+    ``runtime.mesh_for(P)`` unless ``device`` is the CPU or an indexed
+    card (one row there, the one-device path); on a
+    :class:`~repro_torch.distrib.world.LocalMesh` the report is gathered
+    on ``device``, by default the mesh's first.  A
+    :class:`~repro_torch.distrib.world.World` raises: a report of one
+    rank's PEs would need a reduction across processes, which the
+    reference does not have either."""
     from .. import api
-    from ..distrib.runtime import resolve_device
+    from ..distrib.runtime import placement, stream_row
+    from ..distrib.world import LocalMesh, World
 
     unknown = set(metrics) - set(KNOWN_METRICS)
     if unknown:
         raise ValueError(f"unknown metrics {sorted(unknown)}; know {KNOWN_METRICS}")
-    dev = resolve_device(device)
+    if isinstance(mesh, World):
+        raise ValueError("collect and validate run in one process, on a LocalMesh of its "
+                         "local devices, not on a World of ranks: a report needs every PE, "
+                         "and the reference has no cross-process reduction for one")
+    rows, dev = placement(P, mesh, device)
+    # each mesh row's card; a row count on one device is one place
+    places = dict(enumerate(rows.devices)) if isinstance(rows, LocalMesh) else None
     n, directed = spec.num_vertices, spec.directed
     mode = mode or ("exact" if n <= EXACT_N_LIMIT else "binned")
     if mode not in ("exact", "binned"):
@@ -97,21 +122,27 @@ def collect(
     bounds = VertexOwnership(n, P).bounds
     out_deg, out_acc = section_views(bounds, dev)
     in_deg, in_acc = section_views(bounds, dev) if directed else (None, None)
-    sampler = (ClusteringSampler(n, spec.seed, cluster_samples, neighbor_cap, dev)
+    out_deg = Partials(out_deg, places)
+    in_deg = Partials(in_deg, places) if directed else None
+    sampler = (ClusteringSampler(n, spec.seed, cluster_samples, neighbor_cap, dev, places)
                if "clustering" in metrics else None)
+
+    def row(chunk) -> int:
+        return 0 if places is None else stream_row(P, len(places), chunk.pe)
 
     # PairPlan rows are O(capacity^2) with tiny capacities; ChunkPlan
     # buffers are O(capacity) with large ones
     batch = batch if isinstance(spec, (api.RGG, api.RHG, api.RDG)) else 1
     num_edges = 0
-    for chunk in api.iter_edge_chunks(spec, P, device=dev, rng_impl=rng_impl,
+    for chunk in api.iter_edge_chunks(spec, P, device=dev, mesh=rows, rng_impl=rng_impl,
                                       batch=batch):
         e = chunk.edges()
         num_edges += len(e)
         if len(e):
-            bincount_ids(e[:, 0] if directed else e, n, out=out_deg)
+            r = row(chunk)
+            bincount_ids(e[:, 0] if directed else e, n, out=out_deg.on(r, e.device))
             if directed:
-                bincount_ids(e[:, 1], n, out=in_deg)
+                bincount_ids(e[:, 1], n, out=in_deg.on(r, e.device))
             if sampler is not None:
                 sampler.observe(e)
 
@@ -119,15 +150,18 @@ def collect(
     if sampler is not None:
         sampler.finalize_neighbors()
         if sampler.has_work:  # else the regeneration pass would count nothing
-            for chunk in api.iter_edge_chunks(spec, P, device=dev, rng_impl=rng_impl,
-                                              batch=batch):
+            for chunk in api.iter_edge_chunks(spec, P, device=dev, mesh=rows,
+                                              rng_impl=rng_impl, batch=batch):
                 # a chunk buffer's valid slots are the prefix of its count
                 prefix = chunk.count is not None and chunk.buffer.dim() == 2
                 sampler.count_triangles_chunk(
                     chunk.buffer, count=chunk.count if prefix else None,
-                    mask=None if prefix else chunk.mask)
+                    mask=None if prefix else chunk.mask, row=row(chunk))
         clustering = sampler.report()
 
+    out_deg.sum()
+    if directed:
+        in_deg.sum()
     exact = mode == "exact"
     return StatsReport(
         n=n, P=P, directed=directed, mode=mode, num_edges=num_edges,

@@ -54,16 +54,18 @@ class ValidationReport:
         return "\n".join([head] + [f"  {c}" for c in self.checks])
 
 
-def validate(spec, P: int = 1, *, alpha: float = 1e-3, device=None,
+def validate(spec, P: int = 1, *, alpha: float = 1e-3, device=None, mesh=None,
              **collect_kwargs) -> ValidationReport:
     """Generate-and-measure ``spec`` on P PEs on ``device`` (CUDA unless
-    ``"cpu"``), gate against its law.
+    ``"cpu"``) and ``mesh`` (as :func:`collect`: by default every local
+    card that divides P), gate against its law.
 
     ``alpha`` is the significance level of the distributional (chi-
     square) gates; scale/tail gates use the model's tolerance.  Extra
-    kwargs forward to :func:`collect`.
+    kwargs forward to :func:`collect`.  The degree counts are histogrammed
+    on the gathering card, where :func:`collect` summed the partials.
     """
-    stats = collect(spec, P, device=device, **collect_kwargs)
+    stats = collect(spec, P, device=device, mesh=mesh, **collect_kwargs)
     model = expected_model(spec, kmax=stats.degree.deg_max + 1)
     checks = []
 

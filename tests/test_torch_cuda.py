@@ -1095,6 +1095,66 @@ def test_local_mesh_on_distinct_cards_equals_one_device(cuda):
     _local_mesh_equals_one_device(mesh, cuda)
 
 
+def test_collect_on_four_rows_of_one_card_equals_one_device(cuda):
+    """``collect`` (degrees, in-degrees and sampled clustering) and
+    ``validate`` on four rows of the one card, each row's chunks counted
+    into the card's accumulators as they arrive from the row's stream,
+    equal the one-device reports field by field."""
+    from repro_torch import stats
+    from repro_torch.distrib.world import LocalMesh
+
+    mesh = LocalMesh([cuda] * 4)
+    cases = [(api.GNM(n=3000, m=40_000, seed=1), ("degree", "clustering")),
+             (api.GNM(n=3000, m=40_000, directed=True, seed=2), ("degree",)),
+             (api.RHG(n=3000, avg_deg=8, gamma=2.8, seed=5), ("degree", "clustering"))]
+    for spec, metrics in cases:
+        for mode in ("exact", "binned"):
+            got = stats.collect(spec, 16, metrics=metrics, mode=mode, mesh=mesh, batch=64)
+            want = stats.collect(spec, 16, metrics=metrics, mode=mode, device=cuda, batch=64)
+            assert got.num_edges == want.num_edges, spec
+            for side in ("degree", "in_degree"):
+                a, b = getattr(got, side), getattr(want, side)
+                if b is None:
+                    assert a is None
+                    continue
+                assert a.log2_hist.device == cuda and torch.equal(a.log2_hist, b.log2_hist)
+                assert (a.deg_sum, a.deg_sumsq, a.deg_max, a.num_isolated) == (
+                    b.deg_sum, b.deg_sumsq, b.deg_max, b.num_isolated), spec
+                assert (a.degrees is None and b.degrees is None) or torch.equal(a.degrees,
+                                                                                b.degrees)
+            if want.clustering is not None:
+                for f in ("sample", "degree", "triangles", "wedges", "valid"):
+                    assert np.array_equal(getattr(got.clustering, f),
+                                          getattr(want.clustering, f)), (spec, f)
+    spec = api.GNP(n=4096, p=16 / 4096, seed=3)
+    assert str(stats.validate(spec, 16, mesh=mesh)) == str(stats.validate(spec, 16, device=cuda))
+    torch.cuda.synchronize()
+
+
+def test_rank_of_two_rows_on_one_card_equals_one_process(cuda, tmp_path):
+    """Two ranks of two rows each, all on ``cuda:0``: the ranks' edges of
+    GNM, SBM and RHG concatenate to one process's, and their SBM streams
+    regroup to its stream by PE."""
+    import torch_world_cards_worker as WC
+
+    out = str(tmp_path / "rank")
+    torch.multiprocessing.start_processes(WC.run_on_card, args=(2, out), nprocs=2,
+                                          start_method="spawn")
+    ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
+    for name in ("gnm", "sbm", "rhg"):
+        cls, kw = WC.SPECS[name]
+        want = api.generate(getattr(api, cls)(**kw), WC.P, device=cuda).edges.cpu().numpy()
+        np.testing.assert_array_equal(np.concatenate([r[name] for r in ranks]), want)
+    cls, kw = WC.SPECS["sbm"]
+    one: dict = {}
+    for c in api.iter_edge_chunks(getattr(api, cls)(**kw), WC.P, device=cuda):
+        one.setdefault(c.pe, []).append(c.edges().cpu())
+    got = {pe: e for r in ranks for pe, e in r["sbm_stream"].items()}
+    assert sorted(got) == sorted(one)
+    for pe, es in one.items():
+        np.testing.assert_array_equal(got[pe], torch.cat(es).numpy())
+
+
 def test_kernels_launch_on_their_tensors_card(cuda):
     """A kernel given tensors of a card that is not the current one runs
     there (``build.launch`` makes it current for the launch) and equals its
